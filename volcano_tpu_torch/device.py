@@ -1,0 +1,84 @@
+"""Device and dtype policy, and the kernels' launch counters.
+
+Every entry point of the port takes an explicit ``device`` and ``dtype``.
+The device defaults to ``cuda``; asking for it on a host without a usable
+GPU raises instead of carrying on on the CPU. The CPU is used only when the
+caller names it (the tests do, and then every kernel wrapper takes its
+plain PyTorch version because its tensors lie on the CPU).
+
+float32 is the default on the card, float64 is accepted (it is the parity
+dtype the CPU tests use), and bf16/fp16 are refused: the memory epsilon is
+10 MiB on byte-valued quantities near 1e11, which needs more than 8 (or
+11) mantissa bits (scheduler/plugins/tpuscore.py in the JAX package).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Union
+
+import torch
+
+DTYPES = {"float32": torch.float32, "float64": torch.float64}
+
+# launches of each hand-written kernel, bumped by its wrapper right where
+# the kernel is launched (never on the plain-version path); chip_smoke.py
+# zeroes them before it drives the main path and reads them after
+LAUNCHES: Dict[str, int] = {
+    "score_block": 0,
+    "window_topk": 0,
+    "resolve_prefix": 0,
+    "queue_budget": 0,
+}
+
+
+def count_launch(name: str) -> None:
+    LAUNCHES[name] += 1
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def launches() -> Dict[str, int]:
+    return dict(LAUNCHES)
+
+
+def resolve_device(device: Union[str, torch.device, None] = None) -> torch.device:
+    """The device an entry point runs on: ``cuda`` unless the caller asks
+    for ``cpu``. Raises when CUDA is asked for (or defaulted to) and no GPU
+    is usable."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "volcano_tpu_torch: no CUDA device is available; pass "
+            "device='cpu' (tpuscore.device: cpu) to run on the host")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def resolve_dtype(dtype: Union[str, torch.dtype, None],
+                  device: torch.device) -> torch.dtype:
+    """float32 on the card and float64 on the CPU unless named; float32
+    and float64 are the only accepted score/state dtypes."""
+    if dtype is None or dtype == "":
+        return torch.float32 if device.type == "cuda" else torch.float64
+    if isinstance(dtype, str):
+        if dtype not in DTYPES:
+            raise ValueError(
+                f"dtype {dtype!r} not supported ({'/'.join(DTYPES)}); "
+                "bf16/fp16 lack the mantissa bits the memory epsilon needs")
+        return DTYPES[dtype]
+    if dtype not in DTYPES.values():
+        raise ValueError(f"dtype {dtype} not supported (float32/float64)")
+    return dtype
+
+
+def on_cuda(*tensors: Optional[torch.Tensor]) -> bool:
+    """True when the (non-None) tensors lie on a CUDA device. Mixed
+    placement is a caller error."""
+    kinds = {t.device.type for t in tensors if t is not None}
+    if len(kinds) > 1:
+        raise ValueError(f"tensors on mixed devices: {sorted(kinds)}")
+    return kinds == {"cuda"}
