@@ -98,7 +98,7 @@ def test_rounds_session_binds_match_reference(cfg, scale):
     assert t_binds == j_binds
     assert t_binds
     if cfg == 6:
-        # the serial residue pass ran (without the dense assist in the port)
+        # the serial residue pass ran (with the dense alloc assist)
         assert t_prof["residue"] > 0 and t_prof["residue_pass_tasks"] > 0
 
 

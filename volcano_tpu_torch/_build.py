@@ -28,7 +28,8 @@ from typing import Dict, List
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD = os.path.join(CSRC, "build")
-KERNELS = ("score_block", "window_topk", "resolve_prefix", "queue_budget")
+KERNELS = ("score_block", "window_topk", "resolve_prefix", "queue_budget",
+           "evict_preempt", "evict_reclaim", "evict_backfill")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -13,29 +13,19 @@
 // Bound: bytes. At cfg5 the node state is N x (3R + 4) values and the output
 // K x N, a few MB, so the kernel is bound by launch latency on this card.
 //
-// Rounding: every expression is evaluated in the order kernels.py:185-216
-// writes it, R-sums left to right, built with --fmad=false. The two places
-// where XLA's CPU backend contracts a multiply-add (balanced's
-// 10 - |d| * 10, and the adds of the weighted affinity and binpack terms,
-// the latter reassociated as bp * (10 * w)) use fma() by name, as the
-// plain PyTorch version does with its exact FMA.
+// Rounding: the score is scorefn::fused_score (score_common.cuh), shared
+// with the eviction machines; see there.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "score_common.cuh"
+
 namespace {
 
 constexpr int kMaxR = 16;
-constexpr double kMaxPriority = 10.0;   // nodeorder.MAX_PRIORITY
 constexpr double kMinMilliScalar = 10.0;  // resource.MIN_MILLI_SCALAR
-
-template <typename T>
-__device__ __forceinline__ T dim_score(T cap, T want) {
-  bool ok = (cap > T(0)) && (want <= cap);
-  T safe = cap > T(0) ? cap : T(1);
-  return ok ? ((cap - want) * T(kMaxPriority)) / safe : T(0);
-}
 
 template <typename T>
 __global__ void score_block_kernel(
@@ -80,36 +70,10 @@ __global__ void score_block_kernel(
     mask = mask && !(held && g >= 0);
   }
 
-  T score = T(0);
-  if (use_nodeorder) {
-    T cap_cpu = alloc_c[0], cap_mem = alloc_c[1];
-    T want_cpu = used_c[0] + cls_nz_cpu[k];
-    T want_mem = used_c[1] + cls_nz_mem[k];
-    T least = floor((dim_score(cap_cpu, want_cpu) + dim_score(cap_mem, want_mem)) / T(2));
-    T cpu_frac = want_cpu / (cap_cpu > T(0) ? cap_cpu : T(1));
-    T mem_frac = want_mem / (cap_mem > T(0) ? cap_mem : T(1));
-    bool bal_ok = (cap_cpu > T(0)) && (cap_mem > T(0)) && (cpu_frac < T(1)) && (mem_frac < T(1));
-    T balanced = bal_ok
-        ? floor(fma(-fabs(cpu_frac - mem_frac), T(kMaxPriority), T(kMaxPriority)))
-        : T(0);
-    score = score + least * weights[0] + balanced * weights[1];
-    score = fma(aff[(size_t)sig * N + c], weights[2], score);
-  }
-  if (use_binpack) {
-    T w_sum = T(0);
-    T raw = T(0);
-    for (int r = 0; r < R; ++r) {
-      T w_eff = req[r] > T(0) ? binpack_w[r] : T(0);
-      w_sum = w_sum + w_eff;
-      T want = req[r] + used_c[r];
-      T a = alloc_c[r];
-      bool ok = (a > T(0)) && (want <= a);
-      T part = ok ? (want * w_eff) / (a > T(0) ? a : T(1)) : T(0);
-      raw = raw + part;
-    }
-    T bp = w_sum > T(0) ? raw / (w_sum > T(0) ? w_sum : T(1)) : T(0);
-    score = fma(bp, T(kMaxPriority) * weights[3], score);
-  }
+  T score = scorefn::fused_score<T>(
+      R, req, cls_nz_cpu[k], cls_nz_mem[k], used_c, alloc_c,
+      aff[(size_t)sig * N + c], binpack_w, weights, use_nodeorder != 0,
+      use_binpack != 0);
   out[(size_t)k * N + c] = mask ? score : T(-INFINITY);
 }
 

@@ -28,6 +28,9 @@ LAUNCHES: Dict[str, int] = {
     "window_topk": 0,
     "resolve_prefix": 0,
     "queue_budget": 0,
+    "evict_preempt": 0,
+    "evict_reclaim": 0,
+    "evict_backfill": 0,
 }
 
 

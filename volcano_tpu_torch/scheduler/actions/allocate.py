@@ -48,17 +48,20 @@ def finish_batched(ssn, solver) -> None:
         # (pod affinity, host ports) are still PENDING, and nodes
         # with releasing capacity can still pipeline leftovers; the
         # serial loop picks up exactly the remaining pending tasks
-        # on post-bulk state with full predicate fidelity. The port runs
-        # it without the dense alloc assist (that comes with the eviction
-        # slice); the assist's selections are bit-identical to the plain
-        # predicate/prioritize sweep, so the bindings are the same.
+        # on post-bulk state with full predicate fidelity. The dense
+        # alloc assist (vectorized window + cached score rows, live
+        # residual affinity/ports checks) replaces the per-node
+        # closure sweeps with bit-identical selections.
         import time
+
+        from volcano_tpu_torch.ops import preemptview
 
         logger.info(
             "allocate: serial residue pass (%d residue tasks, "
             "%d unplaced)", residue, unplaced)
         t0 = time.perf_counter()
-        AllocateAction()._serial_execute(ssn, assist=None)
+        AllocateAction()._serial_execute(
+            ssn, assist=preemptview.build_alloc_assist(ssn))
         # the tail the device solve left to the host, as first-class
         # profile terms (bench: tpu_residue_ms / tpu_residue_tasks)
         # — the candidate-window straggler rounds exist to shrink
