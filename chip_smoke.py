@@ -15,34 +15,46 @@ Phases, each failing the run on any error:
    full and dirty-column, K2 window_topk, K4 resolve_prefix, K5
    queue_budget); each kernel is then held against its plain PyTorch
    version on those inputs with torch.equal (exact), and both are timed
-   with CUDA events;
+   with CUDA events; the same session times the rounds solver's torch-op
+   parts (K2b, K3, K6) with CUDA events around each call;
 3. reference check: small sessions in float64 on the card give the same
    binds (and, for the eviction sessions, the same evictions in order) as
-   the same sessions on the CPU (plain versions): cfg5, cfg4, and the
-   reclaim path; and a cfg4 session whose preempt op log is cut to 8 rows
-   trips K9's log budget on the card, falls back to preempt's serial walk
-   (recorded in the profile and the fallback counter) and still gives the
-   CPU's binds and evictions;
+   the same sessions on the CPU (plain versions): cfg5, and cfg4 and the
+   reclaim path in rounds mode, which run the fused session chain on both
+   sides; and a cfg4 session whose preempt op log is cut to 8 rows trips
+   K9's log budget on the card, once on the per-action path
+   (VOLCANO_TPU_FUSE=0) and once inside the fused chain (the rerun owns
+   preempt and reclaim), falls back to preempt's serial walk (recorded in
+   the profile and the fallback counter) and still gives the CPU's binds
+   and evictions;
 4. session phase: cfg2 (5k x 1k), cfg3 (20k x 5k) and cfg5 (50k x 10k)
    through build_config -> open_session -> run_actions(["allocate"]) ->
-   close_session, then cfg4 (30k x 8k) through run_actions(["allocate",
-   "backfill", "preempt", "reclaim"]), then the reclaim path (an
-   overcommitted two-queue cluster of cfg4's width under the reclaim-tier
-   conf, where reclaim evicts: cfg4's preempt pipelines every pending task,
-   so its reclaim has nothing to do), each twice on fresh caches with
-   tpuscore on cuda. Launch counters are zeroed just before each run and
-   read just after; every kernel of the path must have launched (K1/K2/
-   K4/K5 everywhere; K9 and K11 on cfg4; K10 on the reclaim path) and no
-   eviction kernel on the allocate-only configs. Every bind must be
-   feasible, no node over capacity (evicted victims released), every gang
-   whole, every eviction a lower-priority victim or one in an
-   over-deserved queue, each eviction plan consumed without fallback, and
-   both runs must give the same binds and the same evictions in order;
+   close_session, twice each; then cfg4 (30k x 8k) and the reclaim path
+   (an overcommitted two-queue cluster of cfg4's width under the
+   reclaim-tier conf, where reclaim evicts: cfg4's preempt pipelines every
+   pending task, so its reclaim has nothing to do) through
+   run_actions(["allocate", "backfill", "preempt", "reclaim"]), twice on
+   the fused session chain and once more on the per-action path
+   (VOLCANO_TPU_FUSE=0), each on a fresh cache with tpuscore on cuda.
+   Launch counters are zeroed just before each run and read just after:
+   every kernel of the path must have launched (K1/K2/K4/K5 everywhere;
+   on a fused run K13 fuse_heaps twice, the fused K9 and K10 once each and
+   K11 once where backfill has work, and no per-action K9/K10; on the
+   per-action run K9 and K11 on cfg4, K9 and K10 on the reclaim path, and
+   no fused kernel), and no eviction kernel on the allocate-only configs.
+   Every bind must be feasible, no node over capacity (evicted victims
+   released), every gang whole, every eviction a lower-priority victim or
+   one in an over-deserved queue, each eviction plan consumed without
+   fallback, every fused run fused all four stages, and all runs of a
+   config must give the same binds and the same evictions in order;
 5. kernel phase (eviction): K9 evict_preempt and K11 evict_backfill on
-   the inputs the first cfg4 run handed them, K10 evict_reclaim on those
-   of the first reclaim-path run, each held against its plain version
-   with torch.equal on the packed int32 result (float32 state), and
-   timed.
+   the inputs the per-action cfg4 run handed them, K10 evict_reclaim on
+   those of the per-action reclaim-path run; K13's two entries on the
+   inputs of the first fused cfg4 run and of the first fused reclaim-path
+   run, the fused K9 on the first fused cfg4 run's and the fused K10 on
+   the first fused reclaim-path run's; each held against its plain
+   version with torch.equal (the packed int32 result, K13's every output,
+   the fused K9's every carry tensor; float32 state), and timed.
 
 The last two lines of standard output are a {"kernels": [...]} JSON object
 and {"ok": true, "device": {...}}. Without a usable GPU, or without the
@@ -137,15 +149,21 @@ def reclaim_path_cluster(scale):
     return c, nodes * 4 + n_jobs * 2
 
 
-def run_session(cfg, scale, device, dtype):
+def run_session(cfg, scale, device, dtype, fuse=True):
     """One session of a bench config (or "reclaim", the reclaim path)
-    through the port's normal entry; returns (cache, profile, launches,
-    n_tasks, wall_s, action_ms, before) where ``before`` is what the
-    checks need of the cluster as the session opened."""
+    through the port's normal entry, on the fused session chain or (``fuse``
+    False: VOLCANO_TPU_FUSE=0) the per-action path; returns (cache,
+    profile, launches, n_tasks, wall_s, action_ms, before) where
+    ``before`` is what the checks need of the cluster as the session
+    opened. The profile's "session_devprof" holds the device counters of
+    the whole run_actions call."""
+    import os
+
     from volcano_tpu_torch import device as devmod
     from volcano_tpu_torch.bench.clusters import CONFIGS, build_config, make_tiers
     from volcano_tpu_torch.scheduler.framework import (
         close_session, open_session, run_actions)
+    from volcano_tpu_torch.utils import devprof
 
     if cfg == "reclaim":
         cache, n_tasks = reclaim_path_cluster(scale)
@@ -159,13 +177,23 @@ def run_session(cfg, scale, device, dtype):
     before = snapshot(cache)
     if device == "cuda":
         torch.cuda.synchronize()
+    counters = {}
+    prev = os.environ.get("VOLCANO_TPU_FUSE")
+    os.environ["VOLCANO_TPU_FUSE"] = "1" if fuse else "0"
     devmod.reset_launches()
     t0 = time.perf_counter()
-    ssn = open_session(cache, tiers)
-    before["over_deserved"] = over_deserved(ssn)
-    action_ms = run_actions(ssn, list(actions))
-    prof = dict(ssn.plugins["tpuscore"].profile)
-    close_session(ssn)
+    try:
+        ssn = open_session(cache, tiers)
+        before["over_deserved"] = over_deserved(ssn)
+        with devprof.session(counters):
+            action_ms = run_actions(ssn, list(actions))
+        prof = dict(ssn.plugins["tpuscore"].profile, session_devprof=counters)
+        close_session(ssn)
+    finally:
+        if prev is None:
+            del os.environ["VOLCANO_TPU_FUSE"]
+        else:
+            os.environ["VOLCANO_TPU_FUSE"] = prev
     if device == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -307,18 +335,24 @@ def tensor_bytes(x, dicts=False):
 
 
 def count_torch_ops():
-    """Wrap the torch-op rows' functions: calls per session, and the bytes
-    of the first call's tensor arguments and results (solve_rounds: with
-    the whole encode it reads; the others: without the encoded fields
-    they read, so their bound is a lower one)."""
+    """Wrap the torch-op rows' functions: calls per session, CUDA events
+    around each call (the span on the stream from its first launch to its
+    last), and the bytes of the first call's tensor arguments and results
+    (solve_rounds: with the whole encode it reads; the others: without
+    the encoded fields they read, so their bound is a lower one)."""
     from volcano_tpu_torch.ops import rounds
 
-    calls, first = {}, {}
+    calls, first, events = {}, {}, {}
     real = {n: getattr(rounds, n) for ns in TORCH_OP_ROWS.values() for n in ns}
 
     def wrap(name):
         def fn(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
             out = real[name](*args, **kw)
+            end.record()
+            events.setdefault(name, []).append((start, end))
             calls[name] = calls.get(name, 0) + 1
             if name not in first:
                 whole = name == "solve_rounds"
@@ -333,7 +367,7 @@ def count_torch_ops():
     def restore():
         for name, f in real.items():
             setattr(rounds, name, f)
-    return calls, first, restore
+    return calls, first, events, restore
 
 
 def kernel_phase(scale):
@@ -344,19 +378,7 @@ def kernel_phase(scale):
 
     seen, restore = capture_inputs()
     try:
-        calls, first, restore_ops = count_torch_ops()
-        try:
-            run_session(5, scale, "cuda", "float32")
-        finally:
-            restore_ops()
-        rows = {}
-        for row, names in TORCH_OP_ROWS.items():
-            byts = sum(first.get(n, 0) for n in names)
-            rows[row] = {"functions": list(names),
-                         "launches": sum(calls.get(n, 0) for n in names),
-                         "bytes": byts, "bound_ms": byts / MEM_BPS * 1e3,
-                         "bound_by": "bytes"}
-        print(json.dumps({"torch_op_rows": rows, "session": "cfg5"}), flush=True)
+        run_session(5, scale, "cuda", "float32")
         src = {k: "cfg5" for k in seen}
         if "score_block_cols" not in seen:
             # cfg5 placed everything before any dirty-column rescore: take
@@ -364,6 +386,25 @@ def kernel_phase(scale):
             run_session(2, scale, "cuda", "float32")
     finally:
         restore()
+    # the torch-op rows on a second, warm cfg5 session (the first one pays
+    # the process's lazy CUDA set-up inside its first calls)
+    calls, first, events, restore_ops = count_torch_ops()
+    try:
+        run_session(5, scale, "cuda", "float32")
+    finally:
+        restore_ops()
+    torch.cuda.synchronize()
+    rows = {}
+    for row, names in TORCH_OP_ROWS.items():
+        byts = sum(first.get(n, 0) for n in names)
+        spans = [a.elapsed_time(b) for n in names for a, b in events.get(n, ())]
+        rows[row] = {"functions": list(names),
+                     "launches": sum(calls.get(n, 0) for n in names),
+                     "ms_per_session": sum(spans),
+                     "ms_per_call": sum(spans) / max(len(spans), 1),
+                     "bytes": byts, "bound_ms": byts / MEM_BPS * 1e3,
+                     "bound_by": "bytes"}
+    print(json.dumps({"torch_op_rows": rows, "session": "cfg5 (warm)"}), flush=True)
     missing = {"score_block", "window_topk", "resolve_prefix",
                "queue_budget"} - set(seen)
     if missing:
@@ -514,6 +555,37 @@ def capture_evict():
     return seen, restore
 
 
+def capture_fused():
+    """Wrap the fused chain's kernel wrappers so the first call of each (K13
+    per kind, the fused K9 and K10) keeps a copy of its inputs."""
+    from volcano_tpu_torch.ops import evict_kernels as EK
+
+    seen = {}
+    real = {n: getattr(EK, n) for n in ("fuse_heaps", "preempt_fused", "reclaim_fused")}
+
+    def cl(d):
+        return {k: v.clone() for k, v in d.items()}
+
+    def heaps(kind, spec, enc, st, *args, **kw):
+        seen.setdefault(f"fuse_heaps_{kind}", (kind, spec, cl(enc), cl(st), args, kw))
+        return real["fuse_heaps"](kind, spec, enc, st, *args, **kw)
+
+    def machine(name):
+        def fn(spec, enc):
+            seen.setdefault(name, (spec, cl(enc)))
+            return real[name](spec, enc)
+        return fn
+
+    EK.fuse_heaps = heaps
+    EK.preempt_fused = machine("preempt_fused")
+    EK.reclaim_fused = machine("reclaim_fused")
+
+    def restore():
+        for name, f in real.items():
+            setattr(EK, name, f)
+    return seen, restore
+
+
 # operations per node of an eligibility test (signature mask, pod count,
 # and), of the window's circular scan (position, running count, test,
 # select) and of the fused score (K1's per-node arithmetic)
@@ -544,21 +616,9 @@ def evict_kernel_phase(captured):
             raise AssertionError(f"{src}: the {kind} machine was never called")
         spec, enc = captured[src][kind]
         got = EK.solve_packed(spec, enc)
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        want = EK.solve_plain(spec, enc)
-        end.record()
-        torch.cuda.synchronize()
-        plain_ms = start.elapsed_time(end)
+        want, plain_ms = timed_plain(lambda: EK.solve_plain(spec, enc))
         stats = dict(EK.STATS)
-        if not torch.equal(got, want):
-            bad = (got != want).nonzero().flatten()
-            raise AssertionError(
-                f"{name}: kernel != plain at {bad.numel()} entries (first "
-                f"{bad[:8].tolist()}); tails {got[-6:].tolist()} vs "
-                f"{want[-6:].tolist()}")
+        same(got, want, name)
         ms = time_ms(lambda: EK.solve_packed(spec, enc), reps=5, warmup=1)
         if kind == "backfill":
             used = ("sig_mask", "node_cnt", "node_max", "b_sig", "b_has_pod", "b_real")
@@ -573,10 +633,7 @@ def evict_kernel_phase(captured):
         else:
             used = [k for k in EK._INPUTS if k in enc]
             n, v = enc["vic_job"].shape
-            ops = (stats["fold_nodes"] * fold_ops(spec, v)
-                   + stats["walks"] * n * ELIG_OPS
-                   + stats["windows"] * n * SCAN_OPS
-                   + stats["scored"] * SCORE_OPS)
+            ops = machine_ops(spec, enc, stats)
             tail = got[-6:].tolist()
             shape = (f"N={n} V={v} T={enc['p_req'].shape[0]} "
                      f"J={enc['job_prio'].shape[0]} L={enc['log0'].shape[0]} "
@@ -596,19 +653,145 @@ def evict_kernel_phase(captured):
     return records
 
 
-def tripped_budget_session(cfg, scale):
+def machine_ops(spec, enc, stats):
+    """A machine's operations, as the plain run on the same inputs counted
+    them (the work depends on the data)."""
+    n, v = enc["vic_job"].shape
+    return (stats["fold_nodes"] * fold_ops(spec, v) + stats["walks"] * n * ELIG_OPS
+            + stats["windows"] * n * SCAN_OPS + stats["scored"] * SCORE_OPS)
+
+
+def timed_plain(fn):
+    """One call of a plain version, timed with CUDA events."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def same(got, want, what):
+    if not torch.equal(got, want):
+        bad = (got != want).nonzero().flatten()
+        raise AssertionError(f"{what}: kernel != plain at {bad.numel()} entries "
+                             f"(first {bad[:8].tolist()}); last six "
+                             f"{got.flatten()[-6:].tolist()} vs {want.flatten()[-6:].tolist()}")
+
+
+# operations of one heap comparison (keys, shares, tie) and of one push's
+# bookkeeping (liveness, row clamp, append, size)
+CMP_OPS, PUSH_OPS = 12, 8
+
+
+def fused_kernel_phase(captured):
+    """Hold K13 (both entries, on the first fused cfg4 and reclaim-path
+    runs' inputs) and the fused K9 (cfg4) and K10 (reclaim path) against
+    their plain versions: torch.equal on every output and carry tensor
+    (float32 state); time both."""
+    from volcano_tpu_torch.ops import evict_kernels as EK
+
+    records = []
+    for src in ("cfg4", "reclaim path"):
+        for kind in ("preempt", "reclaim"):
+            name = f"fuse_heaps_{kind}"
+            if name not in captured[src]:
+                raise AssertionError(f"{src}: K13 {kind} was never called")
+            _, spec, enc, st, args, kw = captured[src][name]
+            got = EK.fuse_heaps(kind, spec, enc, st, *args, **kw)
+            want, plain_ms = timed_plain(
+                lambda: EK.fuse_heaps_plain(kind, spec, enc, st, *args, **kw))
+            stats = dict(EK.STATS)
+            if sorted(got) != sorted(want):
+                raise AssertionError(f"{name} ({src}): outputs {sorted(got)}")
+            for k in want:
+                same(got[k], want[k], f"{name} ({src}) {k}")
+            ms = time_ms(lambda: EK.fuse_heaps(kind, spec, enc, st, *args, **kw))
+            used = [st["ready"], st["job_alloc"], st["live_job"], enc["job_prio"],
+                    enc["job_min_av"], enc["job_tie"]]
+            if kind == "preempt":
+                used += [enc["f_push_jobs"], enc["f_push_row"]]
+                n_items = enc["f_push_jobs"].shape[0]
+            else:
+                used += [st["queue_alloc"], st["alive"], enc["f_ev_jobs"],
+                         enc["f_ev_qrow"], enc["f_elig0"], enc["f_vtn0"],
+                         enc["vic_job"], enc["vic_valid"], enc["queue_tie"],
+                         enc["queue_deserved"]]
+                n_items = enc["f_ev_jobs"].shape[0] + enc["vic_job"].numel()
+            ops = stats["pushes"] * PUSH_OPS + stats["compares"] * CMP_OPS + n_items
+            rec = dict(
+                name=name, kernel=name, route="cuda",
+                source="volcano_tpu_torch/csrc/fuse_heaps.cu",
+                replaces="volcano_tpu/ops/session_fuse.py:" + (
+                    "196" if kind == "preempt" else "268"),
+                max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
+                bytes=nbytes(*used) + sum(nbytes(t) for t in got.values()),
+                ops=ops, dtype=st["job_alloc"].dtype, path=src,
+                shape=(f"rows={got['heap'].shape[0]} JCAP={got['heap'].shape[1]} "
+                       f"pushes={stats['pushes']} compares={stats['compares']} ({src})"))
+            finish_record(rec)
+            if src == "cfg4":
+                records.append(rec)
+
+    for name, src, kind in (("evict_preempt_fused", "cfg4", "preempt"),
+                            ("evict_reclaim_fused", "reclaim path", "reclaim")):
+        key = "preempt_fused" if kind == "preempt" else "reclaim_fused"
+        if key not in captured[src]:
+            raise AssertionError(f"{src}: the fused {kind} machine was never called")
+        spec, enc = captured[src][key]
+        if kind == "preempt":
+            got, carry = EK.preempt_fused(spec, enc)
+            (want, carry_p), plain_ms = timed_plain(lambda: EK.preempt_fused_plain(spec, enc))
+            if sorted(carry) != sorted(carry_p):
+                raise AssertionError(f"{name}: carry keys {sorted(carry)}")
+            for k in carry_p:
+                same(carry[k], carry_p[k], f"{name} carry {k}")
+            ms = time_ms(lambda: EK.preempt_fused(spec, enc), reps=5, warmup=1)
+            out_bytes = nbytes(got, *carry.values())
+        else:
+            got = EK.reclaim_fused(spec, enc)
+            want, plain_ms = timed_plain(lambda: EK.reclaim_plain(spec, enc))
+            ms = time_ms(lambda: EK.reclaim_fused(spec, enc), reps=5, warmup=1)
+            out_bytes = nbytes(got)
+        stats = dict(EK.STATS)
+        same(got, want, name)
+        n, v = enc["vic_job"].shape
+        tail = got[-6:].tolist()
+        rec = dict(
+            name=name, kernel=name, route="cuda",
+            source=f"volcano_tpu_torch/csrc/evict_{kind}.cu",
+            replaces="volcano_tpu/ops/session_fuse.py:" + (
+                "235" if kind == "preempt" else "327"),
+            max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
+            bytes=nbytes(*(enc[k] for k in EK._INPUTS if k in enc)) + out_bytes,
+            ops=machine_ops(spec, enc, stats), dtype=enc["node_used"].dtype, path=src,
+            shape=(f"N={n} V={v} T={enc['p_req'].shape[0]} J={enc['job_prio'].shape[0]} "
+                   f"L={enc['log0'].shape[0]} folds={stats['folds']} "
+                   f"fold_nodes={stats['fold_nodes']} walks={stats['walks']} "
+                   f"ops={tail[0]} victims={tail[2]} attempts={tail[3]} ({src}, fused)"))
+        finish_record(rec)
+        records.append(rec)
+    return records
+
+
+def tripped_budget_session(cfg, scale, fuse):
     """The session on the card with the preempt plan's op log cut to 8
     rows: K9 runs out of its log budget and reports fail, preempt runs its
     serial walk instead, and the fallback is recorded in the profile and
-    in the fallback counter. Returns the cache."""
+    in the fallback counter. On the fused chain (``fuse``) the fused K9
+    trips first: the chain records the fallback and the per-action rerun
+    owns preempt and reclaim, whose own K9 trips the same cut. Returns the
+    cache."""
     import numpy as np
     from volcano_tpu_torch.ops import evict as EV
     from volcano_tpu_torch.scheduler import metrics
 
     real = EV._EvictPlan.__init__
 
-    def init(self, ssn, kind, view=None):
-        real(self, ssn, kind, view)
+    def init(self, ssn, kind, fused=False, view=None):
+        real(self, ssn, kind, fused, view)
         if kind == "preempt" and not self.trivial:
             self.log_rows = 8
             self.arrays["log0"] = np.zeros((8, 3), np.int32)
@@ -617,61 +800,91 @@ def tripped_budget_session(cfg, scale):
     before = fallbacks.get(("evict_preempt",))
     EV._EvictPlan.__init__ = init
     try:
-        cache, prof, counts = run_session(cfg, scale, "cuda", "float64")[:3]
+        cache, prof, counts = run_session(cfg, scale, "cuda", "float64", fuse=fuse)[:3]
     finally:
         EV._EvictPlan.__init__ = real
+    what = f"budget check cfg{cfg} ({'fused' if fuse else 'per-action'})"
     reason = prof.get("evict_preempt_fallback")
     if reason != "kernel step/log budget exhausted":
-        raise AssertionError(f"budget check cfg{cfg}: no budget fallback: {reason}")
-    if fallbacks.get(("evict_preempt",)) != before + 1:
-        raise AssertionError(f"budget check cfg{cfg}: fallback not counted")
+        raise AssertionError(f"{what}: no budget fallback: {reason}")
+    if fallbacks.get(("evict_preempt",)) != before + (2 if fuse else 1):
+        raise AssertionError(f"{what}: fallback not counted")
     if counts["evict_preempt"] != 1:
-        raise AssertionError(f"budget check cfg{cfg}: K9 launches {counts}")
+        raise AssertionError(f"{what}: K9 launches {counts}")
+    if fuse:
+        if prof.get("fuse") != 1 or "fuse_fallback" in prof:
+            raise AssertionError(f"{what}: the chain did not fuse: {prof.get('fuse_fallback')}")
+        if counts["evict_preempt_fused"] != 1 or "evict_reclaim" not in prof:
+            raise AssertionError(f"{what}: preempt/reclaim not rerun per-action: {counts}")
+    elif "fuse" in prof:
+        raise AssertionError(f"{what}: fused with VOLCANO_TPU_FUSE=0")
     return cache
+
+
+def check_fused(cfg, prof):
+    if prof.get("fuse") != 1 or "fuse_fallback" in prof:
+        raise AssertionError(f"cfg{cfg}: the chain did not fuse: "
+                             f"{prof.get('fuse_fallback', prof.get('fallback'))}")
+    if prof.get("fuse_stages") != list(EVICT_ACTIONS):
+        raise AssertionError(f"cfg{cfg}: fused stages {prof.get('fuse_stages')}")
 
 
 def reference_check():
     """Small sessions in float64: the card gives the CPU's binds and, on
-    the eviction paths, the CPU's evictions in the same order. On cfg4 a
-    session whose preempt log budget trips on the card falls back to the
-    serial walk and still gives the CPU's binds and evictions."""
+    the eviction paths (fused on both sides), the CPU's evictions in the
+    same order. On cfg4 a session whose preempt log budget trips on the
+    card, per-action and inside the fused chain, falls back to the serial
+    walk and still gives the CPU's binds and evictions."""
     for cfg, scale in ((5, 0.02), (4, 0.02), ("reclaim", 0.02)):
         gpu, prof_g = run_session(cfg, scale, "cuda", "float64")[:2]
         cpu, prof_c = run_session(cfg, scale, "cpu", "float64")[:2]
+        if cfg != 5:
+            check_fused(cfg, prof_g)
+            check_fused(cfg, prof_c)
         if cfg == 4:
-            tripped = tripped_budget_session(cfg, scale)
-            if (tripped.binder.binds != cpu.binder.binds
-                    or tripped.evictor.evicts != cpu.evictor.evicts):
-                raise AssertionError("budget check cfg4: the serial walk "
-                                     "differs from the CPU's batched session")
-            print(json.dumps({"budget_check": f"cfg4@{scale} K9 log budget "
-                              "tripped on cuda, serial walk == cpu",
-                              "evicts": len(tripped.evictor.evicts)}), flush=True)
+            for fuse in (False, True):
+                tripped = tripped_budget_session(cfg, scale, fuse)
+                if (tripped.binder.binds != cpu.binder.binds
+                        or tripped.evictor.evicts != cpu.evictor.evicts):
+                    raise AssertionError(f"budget check cfg4 (fuse {fuse}): the serial "
+                                         "walk differs from the CPU's batched session")
+                print(json.dumps({"budget_check": f"cfg4@{scale} K9 log budget "
+                                  f"tripped on cuda ({'fused chain' if fuse else 'per-action'}), "
+                                  "serial walk == cpu",
+                                  "evicts": len(tripped.evictor.evicts)}), flush=True)
         if prof_g.get("mode") != "rounds" or prof_c.get("mode") != "rounds":
             raise AssertionError(f"reference check cfg{cfg}: rounds mode did not run")
-        same = (gpu.binder.binds == cpu.binder.binds
-                and gpu.evictor.evicts == cpu.evictor.evicts)
-        if not same:
+        same_result = (gpu.binder.binds == cpu.binder.binds
+                       and gpu.evictor.evicts == cpu.evictor.evicts)
+        if not same_result:
             raise AssertionError(f"reference check cfg{cfg}: card and CPU differ")
         if cfg == 5 and not gpu.binder.binds:
             raise AssertionError("reference check cfg5: nothing bound")
         if cfg != 5 and not gpu.evictor.evicts:
             raise AssertionError(f"reference check cfg{cfg}: nothing evicted")
-        print(json.dumps({"reference_check": f"cfg{cfg}@{scale} float64 cuda == cpu",
+        print(json.dumps({"reference_check": f"cfg{cfg}@{scale} float64 cuda == cpu"
+                          + (" (fused chain)" if cfg != 5 else ""),
                           "binds": len(gpu.binder.binds),
                           "evicts": len(gpu.evictor.evicts)}), flush=True)
 
 
 ALLOC_KERNELS = ("score_block", "window_topk", "resolve_prefix", "queue_budget")
 EVICT_KERNELS = ("evict_preempt", "evict_reclaim", "evict_backfill")
-# the kernels each path must launch (and, for the allocate-only configs,
-# the eviction kernels they must not); cfg4's reclaim finds no pending
-# task once preempt has pipelined them all, so K10 is the reclaim path's
+FUSED_KERNELS = ("fuse_heaps_preempt", "fuse_heaps_reclaim", "evict_preempt_fused",
+                 "evict_reclaim_fused")
+# the kernels each per-action path must launch (and, for the allocate-only
+# configs, the eviction kernels they must not); cfg4's reclaim finds no
+# pending task once preempt has pipelined them all, so K10 is the reclaim
+# path's
 PATH_KERNELS = {
     2: ALLOC_KERNELS, 3: ALLOC_KERNELS, 5: ALLOC_KERNELS,
     4: ALLOC_KERNELS + ("evict_preempt", "evict_backfill"),
     "reclaim": ("evict_preempt", "evict_reclaim"),
 }
+# a fused chain launches each of these exactly once: K13's two entries, the
+# fused K9 and K10, and K11 where backfill has tasks (cfg4; the reclaim
+# path has none), beside the allocate kernels of its rounds solve
+FUSED_ONCE = {4: FUSED_KERNELS + ("evict_backfill",), "reclaim": FUSED_KERNELS}
 
 
 def check_plans(cfg, prof):
@@ -690,50 +903,96 @@ def check_plans(cfg, prof):
             raise AssertionError(f"cfg{cfg}: evict_{kind} did no work: {plan}")
 
 
+def check_launches(cfg, prof, counts, fused):
+    """Every kernel of the path launched (the fused chain's exactly once),
+    and none of another path."""
+    # K2 is on the path only when the solve used a candidate window
+    # (window_k 0 means full-width sweeps, as cfg4 runs)
+    alloc = [k for k in ALLOC_KERNELS if k != "window_topk" or prof.get("window_k")]
+    if fused:
+        need = (alloc if cfg == 4 else []) + list(FUSED_ONCE[cfg])
+        wrong = {k: counts[k] for k in FUSED_ONCE[cfg] if counts[k] != 1}
+        wrong.update({k: counts[k] for k in EVICT_KERNELS + FUSED_KERNELS
+                      if k not in FUSED_ONCE[cfg] and counts[k]})
+    else:
+        need = [k for k in PATH_KERNELS[cfg] if k in EVICT_KERNELS or k in alloc]
+        bad = FUSED_KERNELS + (EVICT_KERNELS if cfg not in FUSED_ONCE else ())
+        wrong = {k: counts[k] for k in bad if counts[k]}
+    idle = [k for k in need if counts[k] == 0]
+    if idle:
+        raise AssertionError(f"cfg{cfg}: kernels never launched: {idle}")
+    if wrong:
+        raise AssertionError(f"cfg{cfg} ({'fused' if fused else 'per-action'}): "
+                             f"wrong launch counts {wrong}")
+
+
+def split(prof, wall, action_ms):
+    """A run's wall split: per action, device waits and overlap, sync
+    points; for a fused run its per-stage fetch waits; each eviction
+    plan's encode/solve/apply."""
+    dp = prof["session_devprof"]
+    out = {"session_ms": wall * 1e3, "action_ms": action_ms,
+           "sync_points": dp["tpu_sync_points"], "d2h_fetches": dp["tpu_d2h_fetches"],
+           "overlap_ms": dp["tpu_overlap_ms"], "fetch_wait_ms": dp["tpu_fence_wait_ms"]}
+    if prof.get("fuse"):
+        out.update(stage_fetch_wait_ms={k: v * 1e3 for k, v in prof["fuse_wait_s"].items()},
+                   fuse_stage_ms=prof["fuse_stage_s"] * 1e3,
+                   fuse_dispatch_ms=prof["fuse_dispatch_s"] * 1e3)
+    for kind in ("backfill", "preempt", "reclaim"):
+        plan = prof[f"evict_{kind}"]
+        out[f"evict_{kind}"] = plan if plan.get("trivial") else {
+            "encode_ms": plan["encode_s"] * 1e3,
+            "solve_ms": plan["solve_s"] * 1e3,
+            "apply_ms": plan["apply_s"] * 1e3,
+            **{k: plan[k] for k in ("ops", "victims", "attempts", "tasks", "placed")
+               if k in plan}}
+    return out
+
+
 def session_phase(scale):
-    """cfg2/3/5 at ``scale``; cfg4 and the reclaim path always at full
-    width."""
+    """cfg2/3/5 at ``scale``, twice each; cfg4 and the reclaim path always
+    at full width, twice on the fused chain (the first run captures the
+    fused kernels' inputs) and once per-action (capturing K9/K10/K11's)."""
     launches, captured = {}, {}
     for cfg in (2, 3, 5, 4, "reclaim"):
         evicting = cfg in (4, "reclaim")
+        src = "cfg4" if cfg == 4 else "reclaim path"
+        plan = ([(True, capture_fused), (True, None), (False, capture_evict)]
+                if evicting else [(True, None), (True, None)])
         runs = []
-        for run in range(2):
-            seen, restore = capture_evict() if evicting and run == 0 else ({}, None)
+        for fuse, capture in plan:
+            seen, restore = capture() if capture is not None else ({}, None)
             try:
                 cache, prof, counts, n_tasks, wall, action_ms, before = run_session(
-                    cfg, 1.0 if evicting else scale, "cuda", "float32")
+                    cfg, 1.0 if evicting else scale, "cuda", "float32", fuse=fuse)
             finally:
                 if restore is not None:
                     restore()
-            if run == 0 and evicting:
-                captured["cfg4" if cfg == 4 else "reclaim path"] = seen
+            captured.setdefault(src, {}).update(seen)
             if prof.get("mode") != "rounds":
                 raise AssertionError(f"cfg{cfg}: mode {prof.get('mode')}: {prof}")
-            # K2 is on the path only when the solve used a candidate
-            # window (window_k 0 means full-width sweeps, as small
-            # rehearsal scales give)
-            need = [k for k in PATH_KERNELS[cfg]
-                    if k != "window_topk" or prof.get("window_k")]
-            idle = [k for k in need if counts[k] == 0]
-            if idle:
-                raise AssertionError(f"cfg{cfg}: kernels never launched: {idle}")
-            if not evicting and any(counts[k] for k in EVICT_KERNELS):
-                raise AssertionError(f"cfg{cfg}: eviction kernels launched: {counts}")
+            check_launches(cfg, prof, counts, fuse and evicting)
             check_binds(cache, cfg, before)
             if evicting:
+                if fuse:
+                    check_fused(cfg, prof)
+                elif "fuse" in prof:
+                    raise AssertionError(f"cfg{cfg}: fused with VOLCANO_TPU_FUSE=0")
                 check_evicts(cache, cfg, before)
                 check_plans(cfg, prof)
             runs.append((cache.binder.binds, list(cache.evictor.evicts), prof,
                          counts, n_tasks, wall, action_ms))
-        if runs[0][0] != runs[1][0] or runs[0][1] != runs[1][1]:
-            raise AssertionError(f"cfg{cfg}: two runs gave different binds or evictions")
+        for other in runs[1:]:
+            if other[0] != runs[0][0] or other[1] != runs[0][1]:
+                raise AssertionError(f"cfg{cfg}: runs gave different binds or evictions "
+                                     "(fused twice, then per-action)")
         binds, evicts, prof, counts, n_tasks, wall, action_ms = runs[1]
         launches[cfg] = runs[0][3]
         line = {
             "cfg": cfg, "tasks": n_tasks, "nodes": prof.get("nodes"),
             "placed": prof.get("placed"), "binds": len(binds),
             "evicts": len(evicts), "rounds": prof.get("rounds"),
-            "sync_points": prof.get("tpu_sync_points"),
+            "sync_points": prof["session_devprof"]["tpu_sync_points"],
             "window_k": prof.get("window_k"), "dirty_k": prof.get("dirty_k"),
             "full_sweep_rounds": prof.get("full_sweep_rounds"),
             "encode_ms": prof["encode_s"] * 1e3,
@@ -742,15 +1001,11 @@ def session_phase(scale):
             "session_ms": wall * 1e3,
             "launches": counts, "deterministic": True}
         if evicting:
-            line["action_ms"] = action_ms
-            for kind in ("backfill", "preempt", "reclaim"):
-                plan = prof[f"evict_{kind}"]
-                line[f"evict_{kind}"] = plan if plan.get("trivial") else {
-                    "encode_ms": plan["encode_s"] * 1e3,
-                    "solve_ms": plan["solve_s"] * 1e3,
-                    "apply_ms": plan["apply_s"] * 1e3,
-                    **{k: plan[k] for k in ("ops", "victims", "attempts",
-                                            "tasks", "placed") if k in plan}}
+            launches[(cfg, "per_action")] = runs[2][3]
+            line["fused"] = split(prof, wall, action_ms)
+            line["per_action"] = split(runs[2][2], runs[2][5], runs[2][6])
+            line["launches_per_action"] = runs[2][3]
+            line["fused_equals_per_action"] = True
         print(json.dumps(line), flush=True)
     return launches, captured
 
@@ -784,9 +1039,16 @@ def main() -> int:
     reference_check()
     launches, captured = session_phase(args.scale)
     records += evict_kernel_phase(captured)
-    # each kernel's launches on the path that runs it: K1-K5 on cfg5, K9
-    # and K11 on cfg4, K10 on the reclaim path
-    path_of = {"evict_preempt": 4, "evict_backfill": 4, "evict_reclaim": "reclaim"}
+    records += fused_kernel_phase(captured)
+    # each kernel's launches on the path that runs it: K1-K5 on cfg5; the
+    # per-action K9 on cfg4's and K10 on the reclaim path's per-action run;
+    # K11, K13 and the fused K9 on cfg4's fused run, the fused K10 on the
+    # reclaim path's
+    path_of = {"evict_preempt": (4, "per_action"),
+               "evict_reclaim": ("reclaim", "per_action"),
+               "evict_backfill": 4, "fuse_heaps_preempt": 4,
+               "fuse_heaps_reclaim": 4, "evict_preempt_fused": 4,
+               "evict_reclaim_fused": "reclaim"}
     out = []
     for rec in records:
         out.append({

@@ -78,6 +78,61 @@ def test_port_session_loads_no_jax_module():
     assert "LOADED []" in out.stdout, out.stdout
 
 
+_FUSED_SESSION = r"""
+import sys
+import torch
+torch.set_num_threads(1)
+from volcano_tpu_torch.bench.clusters import CONFIGS, build_config, make_tiers
+from volcano_tpu_torch.scheduler.framework import close_session, open_session, run_actions
+import volcano_tpu_torch.scheduler.actions, volcano_tpu_torch.scheduler.plugins
+cache, _, _, actions, n = build_config(4, 0.02)
+tiers = make_tiers(["tpuscore"], *CONFIGS[4].tiers, arguments={"tpuscore": {
+    "tpuscore.mode": "rounds", "tpuscore.device": "cpu", "tpuscore.dtype": "float64"}})
+ssn = open_session(cache, tiers)
+run_actions(ssn, list(actions))
+prof = dict(ssn.plugins["tpuscore"].profile)
+close_session(ssn)
+assert prof.get("fuse") == 1 and "fuse_fallback" not in prof, prof
+assert prof["fuse_stages"] == ["allocate", "backfill", "preempt", "reclaim"]
+assert len(cache.evictor.evicts) > 0
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0].startswith("jax") or m.split(".")[0] == "volcano_tpu")
+print("LOADED", bad)
+"""
+
+
+def test_fused_session_loads_no_jax_module():
+    """cfg4's chain through run_actions takes the fused dispatch
+    (ops/session_fuse.py and its kernels' plain versions) without loading
+    jax or the JAX package."""
+    assert os.path.join(PORT, "ops", "session_fuse.py") in set(_port_files())
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", _FUSED_SESSION], cwd=REPO,
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "LOADED []" in out.stdout, out.stdout
+
+
+def test_every_kernel_source_is_built():
+    """Every csrc/*.cu (K13's fuse_heaps.cu among them) is a kernel the
+    builder compiles, and a CUDA source includes only the toolkit's
+    headers and the port's own."""
+    from volcano_tpu_torch import _build
+
+    csrc = os.path.join(PORT, "csrc")
+    sources = sorted(f[:-3] for f in os.listdir(csrc) if f.endswith(".cu"))
+    assert "fuse_heaps" in sources
+    assert sources == sorted(_build.KERNELS)
+    for f in os.listdir(csrc):
+        if not f.endswith((".cu", ".cuh")):
+            continue
+        with open(os.path.join(csrc, f)) as fh:
+            for line in fh:
+                if line.startswith("#include \""):
+                    local = line.split('"')[1]
+                    assert os.path.exists(os.path.join(csrc, local)), (f, line)
+
+
 def test_entry_points_raise_without_a_gpu():
     """Without device='cpu' the port asks for CUDA, and on a host without a
     GPU that raises — at the allocator, at staging, and in a session."""

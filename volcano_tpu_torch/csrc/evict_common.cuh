@@ -5,7 +5,12 @@
 // _heap_pop (:166) and _heap_push (:213), _job_less (:254), _queue_less
 // (:290), the victim verdicts _gang_verdict/_prop_verdict/_drf_verdict and
 // _victim_masks (:310-425), and the state mutators _log_append,
-// _apply_evict_slot, _apply_pipeline and _discard (:426-525).
+// _apply_evict_slot, _apply_pipeline and _discard (:426-525), which keep
+// the consumed-candidate mask p_done (set on pipeline, cleared on discard)
+// that the fused session chain carries from one stage to the next. K13
+// fuse_heaps (fuse_heaps.cu) reuses job_less, queue_less and heap_push, so
+// a heap rebuilt for the fused chain compares keys exactly as K9's and
+// K10's pops compare them.
 //
 // Design: one thread block runs a whole action. Its threads share the
 // per-step folds over the node axis: node i belongs to thread i % kThreads
@@ -60,11 +65,11 @@ enum { VF_GANG = 0, VF_CONFORMANCE = 1, VF_DRF = 2, VF_PROPORTION = 3 };
   X(vic_queue) X(vic_valid) X(vic_alive0) X(vic_conf) X(vic_cut_perm)        \
   X(vic_samejob) X(vic_samequeue) X(node_real) X(real_n) X(rr0)              \
   X(num_to_find) X(p_next) X(heap0) X(hsize0) X(queue_real) X(under_jobs)    \
-  X(qheap0) X(qhsize0)
+  X(qheap0) X(qhsize0) X(p_done0)
 #define EV_SCRATCH(X)                                                         \
   X(used) X(cnt) X(alive) X(ready) X(wait) X(job_alloc) X(queue_alloc) X(ptr) \
   X(heap) X(hsize) X(qheap) X(score) X(circ) X(flags) X(vcnt) X(under) X(vm)  \
-  X(iwork) X(fwork) X(cpos) X(out)
+  X(iwork) X(fwork) X(cpos) X(out) X(p_done)
 #define EV_DIMS(X)                                                            \
   X(N) X(V) X(T) X(J) X(Q) X(QP) X(JCAP) X(L) X(JU) X(QH) X(check_pod)       \
   X(use_nodeorder) X(use_binpack) X(use_gang_pipelined) X(use_prop_overused) \
@@ -282,6 +287,10 @@ struct Machine {
     if (reclaim)
       for (int i = tid; i < d(D_QH); i += kThreads) sc<int>(P_qheap)[i] = in<int>(P_qheap0)[i];
     for (int i = tid; i < 3 * L; i += kThreads) sc<int>(P_out)[i] = 0;
+    // the consumed-candidate mask: the carried skip on the fused chain,
+    // zeros (a null p_done0) on the per-action path
+    const uint8_t* pd0 = in<uint8_t>(P_p_done0);
+    for (int i = tid; i < d(D_T); i += kThreads) sc<uint8_t>(P_p_done)[i] = pd0 ? pd0[i] : 0;
     if (tid == 0) {
       c.log_len = 0;
       c.rr = *in<int>(P_rr0);
@@ -424,6 +433,9 @@ struct Machine {
     sc<int>(P_wait)[j] += 1;
     ja[2 * j] = ja[2 * j] + r0; ja[2 * j + 1] = ja[2 * j + 1] + r1;
     qa[2 * q] = qa[2 * q] + r0; qa[2 * q + 1] = qa[2 * q + 1] + r1;
+    // consumed-candidate mark: the fused chain hands it to the next stage
+    // as its skip mask (a pipelined task is no longer PENDING)
+    sc<uint8_t>(P_p_done)[t] = 1;
     log_append(OP_PIPELINE, t, node, true);
   }
 
@@ -455,6 +467,7 @@ struct Machine {
         sc<int>(P_wait)[pj] -= 1;
         ja[2 * pj] = ja[2 * pj] - r0; ja[2 * pj + 1] = ja[2 * pj + 1] - r1;
         qa[2 * pq] = qa[2 * pq] - r0; qa[2 * pq + 1] = qa[2 * pq + 1] - r1;
+        sc<uint8_t>(P_p_done)[x] = 0;
       }
       c.log_len = i;
     }

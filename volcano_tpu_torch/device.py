@@ -31,6 +31,10 @@ LAUNCHES: Dict[str, int] = {
     "evict_preempt": 0,
     "evict_reclaim": 0,
     "evict_backfill": 0,
+    "evict_preempt_fused": 0,
+    "evict_reclaim_fused": 0,
+    "fuse_heaps_preempt": 0,
+    "fuse_heaps_reclaim": 0,
 }
 
 

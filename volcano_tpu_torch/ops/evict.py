@@ -225,14 +225,25 @@ def build(ssn, kind: str):
 class _EvictPlan:
     """One encoded preempt/reclaim action: the action arrays + the decode
     maps the host replay needs. Pure until run() applies a successful
-    solve."""
+    solve.
 
-    def __init__(self, ssn, kind: str, view=None):
+    With ``fused=True`` (the session_fuse driver) the encode runs BEFORE
+    the allocate action instead of after it: the candidate/victim/job/queue
+    axes are identical either way (allocate only flips PENDING->BINDING,
+    which no axis layout depends on), but everything state-DEPENDENT — the
+    initial job heaps, the under-request list, which jobs still have
+    pending tasks — is left to the device stage, which rebuilds it from the
+    carry under post-allocate keys. The fused extras (push orders,
+    eligibility/validity vectors) encode the serial loop's STATIC
+    iteration order so the device can replay its dynamic decisions."""
+
+    def __init__(self, ssn, kind: str, fused: bool = False, view=None):
         from volcano_tpu_torch.ops import encoder as enc_mod
 
         t0 = time.perf_counter()
         self.ssn = ssn
         self.kind = kind
+        self.fused = fused
         view = _common_view(ssn, view)
         self.view = view
 
@@ -257,6 +268,13 @@ class _EvictPlan:
             raise _Unsupported("custom task-order comparator")
         drf = ssn.plugins.get("drf")
         decide = _check_victim_tier(ssn, kind, drf)
+        if fused and kind == "preempt":
+            # one fused encode serves both evict stages; the reclaim tier
+            # must clear the same gates, and the same-job/same-queue
+            # adjacency matrices below must cover the union of both tiers
+            self.reclaim_decide = _check_victim_tier(ssn, "reclaim", drf)
+        else:
+            self.reclaim_decide = ()
 
         fdt = _f_dtype(ssn)
         node_names = view.node_names
@@ -460,7 +478,7 @@ class _EvictPlan:
             arrays["rr0"] = np.int32(helper._last_processed_node_index)
             arrays["num_to_find"] = np.int32(
                 helper.calculate_num_of_feasible_nodes_to_find(n))
-        tiers_union = set(decide)
+        tiers_union = set(decide) | set(self.reclaim_decide)
         if "drf" in tiers_union or "gang" in tiers_union:
             vj = np.where(vic_valid, vic_job, -1 - np.arange(v)[None, :])
             arrays["vic_samejob"] = vj[:, :, None] == vj[:, None, :]
@@ -468,7 +486,8 @@ class _EvictPlan:
             vq = np.where(vic_valid, vic_queue, -1 - np.arange(v)[None, :])
             arrays["vic_samequeue"] = vq[:, :, None] == vq[:, None, :]
         # live-pointer permutation: identity on the per-action path (the
-        # candidate axis holds exactly the still-pending tasks)
+        # candidate axis holds exactly the still-pending tasks); the fused
+        # stages overlay a device-computed next-live map instead
         arrays["p_next"] = np.arange(tb, dtype=np.int32)
 
         # ---- heaps (initial arrays built by the REAL PriorityQueue at
@@ -479,7 +498,66 @@ class _EvictPlan:
         jcap = _bucket(max(1, max(
             (sum(1 for j in pre_jobs if j.queue == qn) for qn in qnames),
             default=1)))
-        if kind == "preempt":
+        if fused:
+            # the initial heaps depend on post-allocate state (which jobs
+            # still have pending tasks, and their drf/gang keys), so the
+            # fused chain builds them ON DEVICE from these static push
+            # orders — the serial loops' iteration order, with the dynamic
+            # conditions (pending-task liveness, job validity) left to the
+            # stage wrappers (session_fuse)
+            proc_rows: Dict[str, int] = {}
+            proc_queues: List[int] = []
+            push_jobs: List[int] = []
+            push_rows: List[int] = []
+            ev_jobs: List[int] = []
+            ev_qrow: List[int] = []
+            for job in eligible:
+                row = proc_rows.get(job.queue)
+                if row is None:
+                    row = proc_rows[job.queue] = len(proc_queues)
+                    proc_queues.append(qnames[job.queue])
+                ev_jobs.append(jidx[job.uid])
+                ev_qrow.append(qnames[job.queue])
+                if job.task_status_index.get(TaskStatus.PENDING):
+                    push_jobs.append(jidx[job.uid])
+                    push_rows.append(row)
+            qp = _bucket(max(len(proc_queues), 1))
+            queue_real = np.zeros(qp, bool)
+            queue_real[:len(proc_queues)] = True
+            pb = _bucket(max(len(push_jobs), 1))
+            f_push_jobs = np.full(pb, -1, np.int32)
+            f_push_jobs[:len(push_jobs)] = push_jobs
+            f_push_row = np.zeros(pb, np.int32)
+            f_push_row[:len(push_rows)] = push_rows
+            eb = _bucket(max(len(ev_jobs), 1))
+            f_ev_jobs = np.full(eb, -1, np.int32)
+            f_ev_jobs[:len(ev_jobs)] = ev_jobs
+            f_ev_qrow = np.zeros(eb, np.int32)
+            f_ev_qrow[:len(ev_qrow)] = ev_qrow
+            f_elig0 = np.zeros(jb, bool)
+            for job in eligible:
+                f_elig0[jidx[job.uid]] = True
+            # valid_task_num changes ONLY via evictions within the chain
+            # (RELEASING is neither allocated nor pending); the reclaim
+            # stage re-derives post-preempt validity as vtn0 - evicted
+            f_vtn0 = np.zeros(jb, np.int32)
+            f_job_attr = np.zeros(jb, bool)
+            for i, job in enumerate(jobs):
+                f_vtn0[i] = job.valid_task_num()
+                if drf is not None:
+                    f_job_attr[i] = drf.job_attrs.get(job.uid) is not None
+            arrays.update(
+                queue_real=queue_real,
+                f_push_jobs=f_push_jobs, f_push_row=f_push_row,
+                f_ev_jobs=f_ev_jobs, f_ev_qrow=f_ev_qrow,
+                f_elig0=f_elig0, f_vtn0=f_vtn0, f_job_attr=f_job_attr)
+            # every fused-stage size, off the bucket ladder (n is the node
+            # axis itself, unbucketed; the reference pads it to its mesh's
+            # device multiple, and the port runs on one device)
+            self.fuse_sizes = dict(
+                qp=qp, jcap=jcap, ju=pb, qb=qb, jb=jb, tb=tb, n=n,
+                qh=_bucket(max(len(proc_queues), 1)))
+        elif kind == "preempt":
             proc_queues: List[int] = []
             seen_q: Dict[str, PriorityQueue] = {}
             under: List[int] = []
@@ -551,6 +629,9 @@ class _EvictPlan:
             use_prop_overused="proportion" in ssn.overused_fns,
             use_prop_queue_order="proportion" in queue_order,
         )
+        if fused and kind == "preempt":
+            self.reclaim_spec = self.spec._replace(
+                kind="reclaim", victim_fns=tuple(self.reclaim_decide))
         self.jidx = jidx
         self.qnames = qnames
         self.t_real = t_real

@@ -10,7 +10,14 @@ Port of the device half of volcano_tpu/ops/evict.py:
   ``_reclaim_walk`` :861, ``_cut_reclaim`` :839) -> csrc/evict_reclaim.cu;
 - K11 ``solve_backfill`` (:1020) -> csrc/evict_backfill.cu;
 - K12 ``_solve_packed`` (:1175) is only a dispatch on ``spec.kind``; here
-  it is ``solve_packed``, plain Python with no kernel of its own.
+  it is ``solve_packed``, plain Python with no kernel of its own;
+- the device work of the fused session chain (volcano_tpu/ops/
+  session_fuse.py, K13): the carry bridges and the live-task maps as torch
+  ops (``alloc_bridge``, ``backfill_bridge``, ``live_next``,
+  ``live_job_mask``), the heap rebuilds under carried keys as
+  csrc/fuse_heaps.cu (``fuse_heaps``), and K9 and K10 fed the carried
+  state, K9 handing its final state on (``preempt_fused``,
+  ``reclaim_fused``).
 
 Each wrapper launches its kernel for CUDA tensors (and raises when it
 cannot) and runs the plain version for CPU tensors; it never falls back
@@ -26,10 +33,10 @@ folds, one accumulation per evicted victim in cut order, and discard by
 inverse ops in reverse log order. The result is the reference's packed
 int32 layout: the flattened [L, 3] op log (rows past ``log_len`` keep
 whatever a discarded statement wrote there), then the 6-wide tail
-[log_len, rr, victims, attempts, fail, underflow]. The reference also
-carries a consumed-candidate mask (``p_done``) for its fused session
-chain; it never reaches the per-action result, so neither version keeps
-it.
+[log_len, rr, victims, attempts, fail, underflow]. Both versions keep the
+consumed-candidate mask ``p_done`` as the reference does (from
+``p_done0``, zeros when the encode has none; set on pipeline, cleared on
+discard): the fused chain carries it from preempt to reclaim.
 """
 
 from __future__ import annotations
@@ -63,10 +70,12 @@ from volcano_tpu_torch.scheduler.plugins.drf import SHARE_DELTA
 # one that qualifies), walks (``walks``: one eligibility test over the
 # node axis each), candidate windows (one per preempt walk: a scan over
 # the node axis) and the window nodes that need a fused score
-# (``scored``); the chip smoke counts a kernel's operations from these,
-# since the machines' work depends on the data
+# (``scored``); for the last plain heap rebuild (K13) its pushes and key
+# comparisons; the chip smoke counts a kernel's operations from these,
+# since the work depends on the data
 STATS: Dict[str, int] = {"folds": 0, "fold_nodes": 0, "walks": 0,
-                         "windows": 0, "scored": 0}
+                         "windows": 0, "scored": 0, "pushes": 0,
+                         "compares": 0}
 
 # ---------------------------------------------------------------------------
 # plain versions: shared arithmetic
@@ -136,6 +145,9 @@ class _Plain:
         self.queue_alloc = enc["queue_alloc0"].clone()
         self.log = enc["log0"].clone()
         self.log_rows = self.log.shape[0]
+        p_done0 = enc.get("p_done0")
+        self.p_done = p_done0.clone() if p_done0 is not None else torch.zeros(
+            enc["p_req"].shape[0], dtype=torch.bool, device=self.dev)
         self.log_len = 0
         self.rr = int(enc["rr0"])
         self.victims = 0
@@ -268,6 +280,7 @@ class _Plain:
         self.wait[j] += 1
         self.job_alloc[j] += req
         self.queue_alloc[q] += req
+        self.p_done[t] = True
         self.log_append(OP_PIPELINE, t, node, True)
 
     def discard(self, stmt_start: int) -> None:
@@ -295,6 +308,7 @@ class _Plain:
                 self.wait[pj] -= 1
                 self.job_alloc[pj] -= req
                 self.queue_alloc[pq] -= req
+                self.p_done[a] = False
             self.log_len = i
 
     # -- victim tier masks ([N, V], session victim-fn twins) ----------------
@@ -431,6 +445,13 @@ class _Plain:
                              int(self.underflow)], dtype=torch.int32)
         return torch.cat([self.log.reshape(-1), tail.to(self.log.device)])
 
+    def carry(self) -> Dict[str, torch.Tensor]:
+        """The final state the fused chain hands to the next stage."""
+        return dict(used=self.used, cnt=self.cnt, alive=self.alive,
+                    ready=self.ready, wait=self.wait,
+                    job_alloc=self.job_alloc, queue_alloc=self.queue_alloc,
+                    skip=self.p_done)
+
 
 # ---------------------------------------------------------------------------
 # K9 plain: the preempt machine
@@ -513,6 +534,10 @@ def preempt_plain(spec: EvictSpec, enc: Dict[str, torch.Tensor]) -> torch.Tensor
     phase 2 intra-job task-vs-task with per-task commits), as the
     reference's preempt_machine runs it. Returns the packed int32
     result."""
+    return _preempt_run(spec, enc).tail()
+
+
+def _preempt_run(spec: EvictSpec, enc: Dict[str, torch.Tensor]) -> _Plain:
     m = _Plain(spec, enc)
     queue_real = enc["queue_real"].tolist()
     under_jobs = enc["under_jobs"].tolist()
@@ -599,7 +624,7 @@ def preempt_plain(spec: EvictSpec, enc: Dict[str, torch.Tensor]) -> torch.Tensor
                 mode = M_TASK
             else:
                 u2 += 1
-    return m.tail()
+    return m
 
 
 # ---------------------------------------------------------------------------
@@ -702,6 +727,209 @@ def backfill_plain(spec: EvictSpec, enc: Dict[str, torch.Tensor]) -> torch.Tenso
 
 
 # ---------------------------------------------------------------------------
+# the fused session chain's device helpers (torch ops)
+# ---------------------------------------------------------------------------
+
+
+def live_next(live: torch.Tensor) -> torch.Tensor:
+    """[T] bool -> [T] int32: for each i the smallest j >= i with live[j]
+    (T when none), a reversed running minimum (reference evict.py:232).
+    Candidate tasks are contiguous per job, so p_next[ptr] is the next
+    task the serial walk would pop once earlier stages consumed some."""
+    t_total = live.shape[0]
+    idx = torch.arange(t_total, dtype=torch.int32, device=live.device)
+    cand = torch.where(live, idx, torch.full_like(idx, t_total))
+    return torch.flip(torch.cummin(torch.flip(cand, (0,)), 0).values, (0,))
+
+
+def live_job_mask(enc, p_next: torch.Tensor) -> torch.Tensor:
+    """[J] bool: the job still has an unconsumed candidate task (reference
+    session_fuse.py:69)."""
+    t_total = p_next.shape[0]
+    start = enc["job_task_start"]
+    end = enc["job_task_end"]
+    nxt = p_next[torch.clamp(start, 0, t_total - 1).long()]
+    return (start < end) & (nxt < end)
+
+
+def _mark(mask: torch.Tensor, idx: torch.Tensor, on: torch.Tensor) -> torch.Tensor:
+    """``mask`` with ``mask[idx[i]]`` set where ``on[i]``: an idempotent
+    boolean set (every write is True; the rows that are off write to a
+    spare slot past the end), so duplicate indices cannot race."""
+    n = mask.shape[0]
+    buf = torch.cat([mask, mask.new_zeros(1)])
+    tgt = torch.where(on, idx, torch.full_like(idx, n)).long()
+    buf.index_put_((tgt,), torch.ones_like(on))
+    return buf[:n]
+
+
+def _add(size, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """zeros(size) scatter-added at ``idx`` (index_put_ with accumulate,
+    whose CUDA form sorts the indices: deterministic; the sums it bridges
+    are integral, so exact in any order)."""
+    out = torch.zeros(size, dtype=vals.dtype, device=vals.device)
+    return out.index_put_((idx.long(),), vals, accumulate=True)
+
+
+def alloc_bridge(enc, maps, assign: torch.Tensor, sizes) -> Dict[str, torch.Tensor]:
+    """The carry of the allocate stage (reference session_fuse.py:100-126):
+    per-evict-axis deltas of everything the allocate apply changes on the
+    host (node used/cnt, job ready/alloc, queue alloc) and the consumed
+    candidates. ``enc`` is the rounds encode, ``maps`` the index maps from
+    its axes to the evict axes, ``sizes`` (nodes, jobs, queues, tasks)."""
+    n_ev, j_ev, q_ev, tc = sizes
+    req = enc["cls_req"][enc["task_cls"].long()]               # [T, 2]
+    pm = assign >= 0
+    nb_r = enc["node_idle"].shape[0]
+    enode = maps["r2e_node"][torch.clamp(assign, 0, nb_r - 1).long()]
+    ejob = maps["r2e_job"][enc["task_job"].long()]
+    ok_n = pm & (enode >= 0)
+    ok_j = pm & (ejob >= 0)
+    zero = torch.zeros((), dtype=req.dtype, device=req.device)
+    reqn = torch.where(ok_n[:, None], req, zero)
+    reqj = torch.where(ok_j[:, None], req, zero)
+    en = torch.clamp(enode, 0, n_ev - 1)
+    ejc = torch.clamp(ejob, 0, j_ev - 1)
+    equeue = torch.clamp(maps["e_job_queue"][ejc.long()], 0, q_ev - 1)
+    ct = maps["r2e_task"]
+    skip = _mark(torch.zeros(tc, dtype=torch.bool, device=req.device), ct,
+                 pm & (ct >= 0))
+    return dict(used_add=_add((n_ev, 2), en, reqn),
+                cnt_add=_add(n_ev, en, ok_n.to(torch.int32)),
+                ready_add=_add(j_ev, ejc, ok_j.to(torch.int32)),
+                alloc_add=_add((j_ev, 2), ejc, reqj),
+                qalloc_add=_add((q_ev, 2), equeue, reqj),
+                skip=skip)
+
+
+def backfill_bridge(carry, maps, assign: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The carry after the backfill stage (reference session_fuse.py:149-
+    160): zero-request placements move pod counts, readiness and the
+    consumed candidates only."""
+    pm = assign >= 0
+    cnt_add = carry["cnt_add"]
+    n_ev = cnt_add.shape[0]
+    ejob = maps["b_ejob"]
+    ready_add = carry["ready_add"]
+    j_ev = ready_add.shape[0]
+    ok_j = pm & (ejob >= 0)
+    b2c = maps["b2cand"]
+    return dict(
+        carry,
+        cnt_add=cnt_add + _add(n_ev, torch.clamp(assign, 0, n_ev - 1),
+                               pm.to(torch.int32)),
+        ready_add=ready_add + _add(j_ev, torch.clamp(ejob, 0, j_ev - 1),
+                                   ok_j.to(torch.int32)),
+        skip=_mark(carry["skip"], b2c, pm & (b2c >= 0)))
+
+
+class _HostKeys:
+    """job_order_cmp and queue_order_cmp as less(a, b) over keys read to
+    the host once: a heap rebuild runs under fixed keys, and each share is
+    the state dtype's own value (``_share2`` over the whole axis), so a
+    comparison decides as the kernel's does."""
+
+    def __init__(self, spec: EvictSpec, enc, st):
+        self.spec = spec
+        self.prio = enc["job_prio"].tolist()
+        self.min_av = enc["job_min_av"].tolist()
+        self.job_tie = enc["job_tie"].tolist()
+        self.queue_tie = enc["queue_tie"].tolist()
+        self.ready = st["ready"].tolist()
+        self.jshare = _share2(st["job_alloc"], enc["drf_total"]).tolist()
+        qa = st.get("queue_alloc")
+        self.qshare = None if qa is None else _share2(
+            qa, enc["queue_deserved"]).tolist()
+
+    def job_less(self, a: int, b: int) -> bool:
+        for key in self.spec.job_order_keys:
+            if key == "priority":
+                pa, pb = self.prio[a], self.prio[b]
+                if pa != pb:
+                    return pa > pb
+            elif key == "gang":
+                ra = self.ready[a] >= self.min_av[a]
+                rb = self.ready[b] >= self.min_av[b]
+                if ra != rb:
+                    return (not ra) and rb
+            elif key == "drf":
+                sa, sb = self.jshare[a], self.jshare[b]
+                if sa != sb:
+                    return sa < sb
+        return self.job_tie[a] < self.job_tie[b]
+
+    def queue_less(self, a: int, b: int) -> bool:
+        if self.spec.use_prop_queue_order:
+            sa, sb = self.qshare[a], self.qshare[b]
+            if sa != sb:
+                return sa < sb
+        return self.queue_tie[a] < self.queue_tie[b]
+
+
+def fuse_heaps_plain(kind: str, spec: EvictSpec, enc, st, rows: int,
+                     jcap: int, qh: int = 0,
+                     use_gang_valid: bool = False) -> Dict[str, torch.Tensor]:
+    """The plain version of K13: heapq's push mechanics, in the static push
+    order, under the carried keys. ``st`` holds ``live_job`` [J] and the
+    carried ``ready`` and ``job_alloc`` (reclaim: also ``queue_alloc`` and
+    the victims' ``alive`` mask). Returns the int32 tensors ``heap``
+    [rows, jcap] and ``hsize`` [rows], and ``under_jobs`` (preempt) or
+    ``qheap`` [qh] and ``qhsize`` [] (reclaim)."""
+    keys = _HostKeys(spec, enc, st)
+    STATS.update(pushes=0, compares=0)
+
+    def counted(less):
+        def fn(a: int, b: int) -> bool:
+            STATS["compares"] += 1
+            return less(a, b)
+        return fn
+
+    job_less, queue_less = counted(keys.job_less), counted(keys.queue_less)
+    dev = st["ready"].device
+    live = st["live_job"].tolist()
+    j_total = len(live)
+    heap = [[0] * jcap for _ in range(rows)]
+    hsize = [0] * rows
+    if kind == "preempt":
+        under = []
+        for j, row in zip(enc["f_push_jobs"].tolist(),
+                          enc["f_push_row"].tolist()):
+            pushable = j >= 0 and live[min(max(j, 0), j_total - 1)]
+            under.append(j if pushable else -1)
+            if pushable:
+                r = min(max(row, 0), rows - 1)
+                hsize[r] = _Plain.heap_push(heap[r], hsize[r], j, job_less)
+                STATS["pushes"] += 1
+        out = dict(under_jobs=under)
+    else:
+        dead = (enc["vic_valid"] & ~st["alive"]).reshape(-1).to(torch.int32)
+        evicted = _add(j_total, enc["vic_job"].reshape(-1), dead).tolist()
+        elig0 = enc["f_elig0"].tolist()
+        vtn0 = enc["f_vtn0"].tolist()
+        qheap = [0] * qh
+        qhsize = 0
+        qpushed = [False] * rows
+        for j, qrow in zip(enc["f_ev_jobs"].tolist(),
+                           enc["f_ev_qrow"].tolist()):
+            jc = min(max(j, 0), j_total - 1)
+            q = min(max(qrow, 0), rows - 1)
+            elig = j >= 0 and elig0[jc]
+            if use_gang_valid:
+                elig = elig and vtn0[jc] - evicted[jc] >= keys.min_av[jc]
+            if elig and not qpushed[q]:
+                qhsize = _Plain.heap_push(qheap, qhsize, q, queue_less)
+                qpushed[q] = True
+                STATS["pushes"] += 1
+            if elig and live[jc]:
+                hsize[q] = _Plain.heap_push(heap[q], hsize[q], j, job_less)
+                STATS["pushes"] += 1
+        out = dict(qheap=qheap, qhsize=qhsize)
+    out.update(heap=heap, hsize=hsize)
+    return {k: torch.tensor(v, dtype=torch.int32, device=dev)
+            for k, v in out.items()}
+
+
+# ---------------------------------------------------------------------------
 # wrappers: the hand-written kernels (csrc/evict_*.cu)
 # ---------------------------------------------------------------------------
 
@@ -717,11 +945,15 @@ _INPUTS = (
     "vic_queue", "vic_valid", "vic_alive0", "vic_conf", "vic_cut_perm",
     "vic_samejob", "vic_samequeue", "node_real", "real_n", "rr0",
     "num_to_find", "p_next", "heap0", "hsize0", "queue_real", "under_jobs",
-    "qheap0", "qhsize0")
+    "qheap0", "qhsize0", "p_done0")
 _SCRATCH = (
     "used", "cnt", "alive", "ready", "wait", "job_alloc", "queue_alloc",
     "ptr", "heap", "hsize", "qheap", "score", "circ", "flags", "vcnt",
-    "under", "vm", "iwork", "fwork", "cpos", "out")
+    "under", "vm", "iwork", "fwork", "cpos", "out", "p_done")
+# the machine state the fused chain carries on (reference
+# session_fuse.py:237-240), beside p_done as the skip mask
+_CARRY = ("used", "cnt", "alive", "ready", "wait", "job_alloc",
+          "queue_alloc")
 _DIMS = (
     "N", "V", "T", "J", "Q", "QP", "JCAP", "L", "JU", "QH", "check_pod",
     "use_nodeorder", "use_binpack", "use_gang_pipelined",
@@ -735,7 +967,8 @@ _FLOATS = frozenset({
     "job_alloc0", "queue_alloc0", "queue_deserved", "vic_req"})
 _BOOLS = frozenset({
     "sig_mask", "p_has_pod", "queue_has_attr", "vic_valid", "vic_alive0",
-    "vic_conf", "vic_samejob", "vic_samequeue", "node_real", "queue_real"})
+    "vic_conf", "vic_samejob", "vic_samequeue", "node_real", "queue_real",
+    "p_done0"})
 
 
 def _check_order(lib) -> None:
@@ -747,9 +980,12 @@ def _check_order(lib) -> None:
             raise RuntimeError(f"evict kernel argument order mismatch: {got}")
 
 
-def _machine_cuda(kind: str, spec: EvictSpec, enc) -> torch.Tensor:
-    """Launch K9 (kind "preempt") or K10 ("reclaim") on the encoded arrays;
-    returns the packed int32 result (log then tail)."""
+def _machine_cuda(kind: str, spec: EvictSpec, enc,
+                  fused: bool = False) -> Dict[str, torch.Tensor]:
+    """Launch K9 (kind "preempt") or K10 ("reclaim") on the encoded arrays
+    (``fused``: on the fused chain's carried state, counted apart); returns
+    the kernel's scratch, whose ``out`` is the packed int32 result (log
+    then tail) and whose state tensors hold the machine's final state."""
     from volcano_tpu_torch import _build
 
     ref = enc["node_used"]
@@ -794,6 +1030,8 @@ def _machine_cuda(kind: str, spec: EvictSpec, enc) -> torch.Tensor:
                       under_jobs=(ju,))
     else:
         shapes.update(qheap0=(qh,), qhsize0=())
+    if "p_done0" in enc:
+        shapes["p_done0"] = (t_total,)
     if _FN_CODES["gang"] in fns or _FN_CODES["drf"] in fns:
         shapes["vic_samejob"] = (n, v, v)
     if _FN_CODES["proportion"] in fns:
@@ -824,7 +1062,8 @@ def _machine_cuda(kind: str, spec: EvictSpec, enc) -> torch.Tensor:
         flags=empty(n, torch.uint8), vcnt=empty(n, i32),
         under=empty(n, torch.uint8), vm=empty((n, v), torch.uint8),
         iwork=empty((n, v), i32), fwork=empty((n, v, 2), dt),
-        cpos=empty(n, i32), out=empty(log_rows * 3 + TAIL, i32))
+        cpos=empty(n, i32), out=empty(log_rows * 3 + TAIL, i32),
+        p_done=empty(t_total, torch.bool))
     dims = dict(
         N=n, V=v, T=t_total, J=j_total, Q=q_total, QP=qp, JCAP=jcap,
         L=log_rows, JU=ju, QH=qh, check_pod=int(spec.check_pod_count),
@@ -852,11 +1091,11 @@ def _machine_cuda(kind: str, spec: EvictSpec, enc) -> torch.Tensor:
     rc = fn(ptrs, dvals, _stream(ref))
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-    devmod.count_launch(name)
-    # the scratch and the stacked weights are freed when this returns; the
-    # caching allocator hands their blocks out again only to later work on
-    # this stream, which runs after the kernel
-    return scratch["out"]
+    devmod.count_launch(name + "_fused" if fused else name)
+    # the scratch the caller drops and the stacked weights are freed when
+    # this returns; the caching allocator hands their blocks out again only
+    # to later work on this stream, which runs after the kernel
+    return scratch
 
 
 def _backfill_cuda(spec: EvictSpec, enc) -> torch.Tensor:
@@ -897,7 +1136,7 @@ def preempt(spec: EvictSpec, enc) -> torch.Tensor:
     on CUDA tensors (raising if it cannot launch), the plain version on CPU
     tensors."""
     if devmod.on_cuda(*enc.values()):
-        return _machine_cuda("preempt", spec, enc)
+        return _machine_cuda("preempt", spec, enc)["out"]
     return preempt_plain(spec, enc)
 
 
@@ -905,7 +1144,7 @@ def reclaim(spec: EvictSpec, enc) -> torch.Tensor:
     """K10: the reclaim machine's packed int32 result (csrc/evict_reclaim.cu
     on CUDA tensors, the plain version on CPU tensors)."""
     if devmod.on_cuda(*enc.values()):
-        return _machine_cuda("reclaim", spec, enc)
+        return _machine_cuda("reclaim", spec, enc)["out"]
     return reclaim_plain(spec, enc)
 
 
@@ -915,6 +1154,150 @@ def backfill(spec: EvictSpec, enc) -> torch.Tensor:
     if devmod.on_cuda(*enc.values()):
         return _backfill_cuda(spec, enc)
     return backfill_plain(spec, enc)
+
+
+def preempt_fused_plain(spec: EvictSpec, enc):
+    """The plain version of ``preempt_fused``."""
+    m = _preempt_run(spec, enc)
+    return m.tail(), m.carry()
+
+
+def preempt_fused(spec: EvictSpec, enc):
+    """K9 on the fused chain (reference session_fuse.py:235-241): ``enc``
+    holds the carried state as the machine's initial state and the carried
+    skip mask as ``p_done0``. Returns (packed result, carry): the machine's
+    final used, cnt, alive, ready, wait, job_alloc, queue_alloc and skip
+    (p_done), on CUDA the kernel's own scratch, left on the card."""
+    if devmod.on_cuda(*enc.values()):
+        sc = _machine_cuda("preempt", spec, enc, fused=True)
+        return sc["out"], dict({k: sc[k] for k in _CARRY}, skip=sc["p_done"])
+    return preempt_fused_plain(spec, enc)
+
+
+def reclaim_fused(spec: EvictSpec, enc) -> torch.Tensor:
+    """K10 on the fused chain (reference session_fuse.py:327): the reclaim
+    machine from the carried state; its plain version is
+    ``reclaim_plain``."""
+    if devmod.on_cuda(*enc.values()):
+        return _machine_cuda("reclaim", spec, enc, fused=True)["out"]
+    return reclaim_plain(spec, enc)
+
+
+# argument tables of K13, in the order csrc/fuse_heaps.cu fixes (checked
+# against the library's fh_ptr_names()/fh_dim_names())
+_FH_PTRS = (
+    "job_prio", "job_min_av", "job_tie", "drf_total", "queue_deserved",
+    "queue_tie", "ready", "job_alloc", "queue_alloc", "live_job",
+    "push_jobs", "push_row", "ev_jobs", "ev_qrow", "elig0", "vtn0",
+    "vic_job", "vic_valid", "alive", "heap", "hsize", "under", "qheap",
+    "qhsize", "evicted", "qpushed")
+_FH_DIMS = (
+    "J", "ROWS", "JCAP", "PB", "EB", "NV", "QH", "use_gang_valid", "n_keys",
+    "key0", "key1", "key2", "use_prop_queue_order")
+
+
+def _fuse_heaps_cuda(kind, spec, enc, st, rows, jcap, qh, use_gang_valid):
+    from volcano_tpu_torch import _build
+
+    ja = st["job_alloc"]
+    dev, dt = ja.device, ja.dtype
+    if dt not in (torch.float32, torch.float64):
+        raise TypeError(f"job_alloc: dtype {dt}")
+    j_total = enc["job_prio"].shape[0]
+    q_total = enc["queue_tie"].shape[0]
+    n, v = enc["vic_job"].shape
+    reclaim = kind == "reclaim"
+    i32, b8 = torch.int32, torch.bool
+    ins = {
+        "job_prio": (enc["job_prio"], i32, (j_total,)),
+        "job_min_av": (enc["job_min_av"], i32, (j_total,)),
+        "job_tie": (enc["job_tie"], i32, (j_total,)),
+        "drf_total": (enc["drf_total"], dt, (2,)),
+        "queue_deserved": (enc["queue_deserved"], dt, (q_total, 2)),
+        "queue_tie": (enc["queue_tie"], i32, (q_total,)),
+        "ready": (st["ready"], i32, (j_total,)),
+        "job_alloc": (ja, dt, (j_total, 2)),
+        "live_job": (st["live_job"], b8, (j_total,)),
+    }
+    if reclaim:
+        eb = enc["f_ev_jobs"].shape[0]
+        ins.update({
+            "queue_alloc": (st["queue_alloc"], dt, (q_total, 2)),
+            "ev_jobs": (enc["f_ev_jobs"], i32, (eb,)),
+            "ev_qrow": (enc["f_ev_qrow"], i32, (eb,)),
+            "elig0": (enc["f_elig0"], b8, (j_total,)),
+            "vtn0": (enc["f_vtn0"], i32, (j_total,)),
+            "vic_job": (enc["vic_job"], i32, (n, v)),
+            "vic_valid": (enc["vic_valid"], b8, (n, v)),
+            "alive": (st["alive"], b8, (n, v)),
+        })
+        pb = 0
+    else:
+        pb = enc["f_push_jobs"].shape[0]
+        ins.update({
+            "push_jobs": (enc["f_push_jobs"], i32, (pb,)),
+            "push_row": (enc["f_push_row"], i32, (pb,)),
+        })
+        eb = 0
+    for name, (t, want, shape) in ins.items():
+        if t.device != dev:
+            raise ValueError(f"{name}: on {t.device}, expected {dev}")
+        kmod._check(t, name, want, shape)
+
+    def empty(shape, dtype=i32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    out = dict(heap=empty((rows, jcap)), hsize=empty(rows))
+    if reclaim:
+        out.update(qheap=empty(qh), qhsize=empty(()))
+        work = dict(evicted=empty(j_total), qpushed=empty(rows, b8))
+    else:
+        out.update(under_jobs=empty(pb))
+        work = {}
+    tensors = {k: t for k, (t, _, _) in ins.items()}
+    tensors.update(work, under=out.get("under_jobs"), heap=out["heap"],
+                   hsize=out["hsize"], qheap=out.get("qheap"),
+                   qhsize=out.get("qhsize"))
+    keys = [_KEY_CODES[k] for k in spec.job_order_keys]
+    dims = dict(J=j_total, ROWS=rows, JCAP=jcap, PB=pb, EB=eb, NV=n * v,
+                QH=qh, use_gang_valid=int(use_gang_valid), n_keys=len(keys),
+                use_prop_queue_order=int(spec.use_prop_queue_order))
+    for i in range(3):
+        dims[f"key{i}"] = keys[i] if i < len(keys) else -1
+
+    lib = _build.library("fuse_heaps")
+    for fn, want in ((lib.fh_ptr_names, _FH_PTRS), (lib.fh_dim_names, _FH_DIMS)):
+        fn.restype = ctypes.c_char_p
+        got = tuple(x for x in fn().decode().split(",") if x)
+        if got != want:
+            raise RuntimeError(f"fuse_heaps argument order mismatch: {got}")
+    ptrs = (ctypes.c_void_p * len(_FH_PTRS))(*[
+        (tensors[k].data_ptr() if tensors.get(k) is not None else 0)
+        for k in _FH_PTRS])
+    dvals = (ctypes.c_int * len(_FH_DIMS))(*[dims[k] for k in _FH_DIMS])
+    fn = lib.fuse_heaps_f64 if dt == torch.float64 else lib.fuse_heaps_f32
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rc = fn(ptrs, dvals, int(reclaim), _stream(ja))
+    if rc != 0:
+        raise RuntimeError(f"fuse_heaps kernel launch failed: CUDA error {rc}")
+    devmod.count_launch(f"fuse_heaps_{kind}")
+    return out
+
+
+def fuse_heaps(kind: str, spec: EvictSpec, enc, st, rows: int, jcap: int,
+               qh: int = 0, use_gang_valid: bool = False) -> Dict[str, torch.Tensor]:
+    """K13: the fused chain's heap rebuild for ``kind`` ("preempt":
+    reference session_fuse.py:196-215; "reclaim": :268-312), under the
+    carried keys in ``st`` (see ``fuse_heaps_plain``). csrc/fuse_heaps.cu
+    on CUDA tensors (raising if it cannot launch), the plain version on CPU
+    tensors."""
+    if devmod.on_cuda(*enc.values(), *st.values()):
+        return _fuse_heaps_cuda(kind, spec, enc, st, rows, jcap, qh,
+                                use_gang_valid)
+    return fuse_heaps_plain(kind, spec, enc, st, rows, jcap, qh,
+                            use_gang_valid)
 
 
 _PLAIN = {"preempt": preempt_plain, "reclaim": reclaim_plain,

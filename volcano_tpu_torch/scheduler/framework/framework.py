@@ -86,9 +86,11 @@ def takeover_recovery_sweep(ssn) -> int:
 
 
 def run_actions(ssn: Session, actions) -> dict:
-    """Run the session's action chain, one action after another.
-    ``actions`` is a sequence of action names or Action instances. Returns
-    {action name: wall ms}."""
+    """Run the session's action chain, preferring the whole-session fused
+    dispatch (ops/session_fuse.py) when the session is inside its envelope;
+    otherwise the plain per-action loop. ``actions`` is a sequence of
+    action names or Action instances. Returns {action name: wall ms}."""
+    from volcano_tpu_torch.ops import session_fuse
     from volcano_tpu_torch.scheduler.framework.plugins import get_action
 
     names = [a if isinstance(a, str) else a.name() for a in actions]
@@ -96,6 +98,9 @@ def run_actions(ssn: Session, actions) -> dict:
         # one recovery sweep per leadership term, before any placement
         ssn.cache.fence_sweep_due = False
         takeover_recovery_sweep(ssn)
+    out = session_fuse.try_run(ssn, names)
+    if out is not None:
+        return out
     action_ms = {}
     for name in names:
         t0 = time.perf_counter()
