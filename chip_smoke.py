@@ -56,6 +56,36 @@ Phases, each failing the run on any error:
    version with torch.equal (the packed int32 result, K13's every output,
    the fused K9's every carry tensor; float32 state), and timed.
 
+6. express parity: a small float64 express lane on the card against the
+   same lane on the CPU, on one event sequence (12 and 300 nodes, waves
+   of arrivals with a session between): the same reports, end state and
+   state stats;
+7. the express lane at cfg5 (50k x 10k), bench.py --express's traffic:
+   a settling session, a drain, 16 warm and 96 measured batches (the
+   Poisson arrivals of one 20 ms period at 50 jobs/s, at least one; one
+   pod of 100m/250m and 128Mi/256Mi each, seed 7), one full 64-task
+   batch, a reconciling session. Exactly one fetch and one K14 launch
+   per measured batch, no kernel built after the warm batches, one state
+   rebuild, no error, the breaker closed, no token left, every bind
+   feasible; prints p50/p99/max batch ms beside the card;
+8. the replica at cfg5 (with 8 one-pod jobs of 64 cores, which no
+   32-core node holds, so every session encodes), against a replica-off
+   twin: a cold serve, a settling session, an unchanged session
+   (whole-encode reuse, h2d_puts 0), and a capacity update of 8 nodes to
+   96 cores (a node-family scatter of exactly those rows, on which the
+   backlog then places); binds equal, standing tensors equal to the
+   mirror each time;
+9. preempt-terminal at cfg4: a fused chain ending at preempt, then 8
+   nodes grown to 256 cores and an allocate session that places pending
+   tasks on them, with and without the replica: binds and evictions
+   equal in order, standing tensors equal to the mirror;
+10. kernel phase (express and replica): K14 express_place on the lane's
+   captured 1-task and 64-task batches, a full-width 100-node case, a
+   tie-heavy case (fulls > 0) and a gang strip, and K8 scatter_rows on
+   the cfg5 replica's node family (1, 16, 100, 256 rows) and the lane's
+   columns, each held against its plain version with torch.equal and
+   timed.
+
 The last two lines of standard output are a {"kernels": [...]} JSON object
 and {"ok": true, "device": {...}}. Without a usable GPU, or without the
 package beside this script, it exits non-zero and prints no result.
@@ -1010,6 +1040,611 @@ def session_phase(scale):
     return launches, captured
 
 
+# ---------------------------------------------------------------------------
+# the express lane, the device replica, K8 and K14
+# ---------------------------------------------------------------------------
+
+EXPRESS_WARM, EXPRESS_MEASURED = 16, 96
+CARD = ""  # nvidia-smi's name and power limit, set by main
+
+
+def oversized_backlog(cache, cpu, jobs=8):
+    """Pending one-pod jobs of ``cpu`` cores, more than any node of the
+    config holds until one grows: every session keeps encoding them, so
+    the solver serves the replica every session, as an overcommitted
+    backlog does."""
+    from volcano_tpu_torch.api import objects
+    from volcano_tpu_torch.scheduler.util.test_utils import build_pod, build_pod_group
+
+    for g in range(jobs):
+        pg = f"huge-{g:03d}"
+        cache.add_pod_group(build_pod_group(pg, namespace="backlog", min_member=1))
+        cache.add_pod(build_pod("backlog", f"{pg}-t0", "", objects.POD_PHASE_PENDING,
+                                {"cpu": cpu, "memory": "1Gi"}, pg))
+
+
+def plain_session(cache, tiers, actions, replica=True):
+    """One session through the port's normal entry; returns its profile.
+    The scheduler's round-robin node cursor is process-wide: each cache
+    keeps its own (``cache._smoke_rr``), so twins run as if alone."""
+    import os
+
+    from volcano_tpu_torch.scheduler.framework import close_session, open_session, run_actions
+    from volcano_tpu_torch.scheduler.util import scheduler_helper
+
+    prev = os.environ.get("VOLCANO_TPU_REPLICA")
+    os.environ["VOLCANO_TPU_REPLICA"] = "1" if replica else "0"
+    scheduler_helper._last_processed_node_index = getattr(cache, "_smoke_rr", 0)
+    try:
+        ssn = open_session(cache, tiers)
+        run_actions(ssn, list(actions))
+        prof = dict(ssn.plugins["tpuscore"].profile) if "tpuscore" in ssn.plugins else {}
+        close_session(ssn)
+    finally:
+        cache._smoke_rr = scheduler_helper._last_processed_node_index
+        if prev is None:
+            del os.environ["VOLCANO_TPU_REPLICA"]
+        else:
+            os.environ["VOLCANO_TPU_REPLICA"] = prev
+    return prof
+
+
+def tpu_tiers(cfg, device="cuda", dtype="float32"):
+    from volcano_tpu_torch.bench.clusters import CONFIGS, make_tiers
+
+    return make_tiers(["tpuscore"], *CONFIGS[cfg].tiers, arguments={"tpuscore": {
+        "tpuscore.mode": "rounds", "tpuscore.device": device, "tpuscore.dtype": dtype}})
+
+
+def assert_mirror(rep, what):
+    """The replica's standing tensors equal its host mirror bit for bit,
+    and no serve healed an error (an ``error:<kind>`` rebuild)."""
+    import numpy as np
+
+    errors = {k: v for k, v in rep.stats["rebuilds"].items() if k.startswith("error:")}
+    if errors:
+        raise AssertionError(f"{what}: replica errors {errors}")
+    for name, dev in rep.dev.items():
+        want = torch.from_numpy(np.ascontiguousarray(rep.mirror[name]))
+        if not torch.equal(dev.cpu(), want):
+            raise AssertionError(f"{what}: standing {name} != mirror")
+
+
+def express_lane_phase(scale=1.0, device="cuda", dtype="float32"):
+    """cfg5 (50k tasks x 10k nodes) under bench.py --express's traffic: a
+    settling session, one drain, then 16 warm and 96 measured batches of
+    the Poisson arrivals of one 20 ms period at 50 jobs/s (at least one),
+    each job one pod of 100m or 250m cpu and 128Mi or 256Mi (seed 7), one
+    full 64-task batch, and a reconciling session. Returns (summary,
+    launches of the measured batches, captured K14 inputs, the lane)."""
+    import random
+    import statistics
+
+    from volcano_tpu_torch import _build
+    from volcano_tpu_torch import device as devmod
+    from volcano_tpu_torch.api import objects
+    from volcano_tpu_torch.bench.clusters import build_config
+    from volcano_tpu_torch.express import ExpressLane
+    from volcano_tpu_torch.express import place as place_mod
+    from volcano_tpu_torch.scheduler.util.test_utils import build_pod, build_pod_group
+
+    cache, _, _, actions, n_tasks = build_config(5, scale)
+    tiers = tpu_tiers(5, device, dtype)
+    lane = ExpressLane(cache, device=device, dtype=dtype)
+    t0 = time.perf_counter()
+    plain_session(cache, tiers, actions)
+    torch.cuda.synchronize()
+    settle_ms = (time.perf_counter() - t0) * 1e3
+    lane.run_once()  # drain the backlog notifications (all bound)
+
+    rng = random.Random(7)
+    counter = [0]
+
+    def submit(n):
+        for _ in range(n):
+            counter[0] += 1
+            pg = f"xpr-{counter[0]:05d}"
+            cache.add_pod_group(build_pod_group(pg, namespace="express", min_member=1))
+            cache.add_pod(build_pod(
+                "express", f"{pg}-t0", "", objects.POD_PHASE_PENDING,
+                {"cpu": f"{rng.choice([100, 250])}m",
+                 "memory": rng.choice(["128Mi", "256Mi"])}, pg))
+
+    def burst():
+        n, budget = 0, 0.02
+        while True:
+            gap = rng.expovariate(50.0)
+            if gap > budget and n > 0:
+                break
+            budget -= gap
+            n += 1
+        submit(max(n, 1))
+        return max(n, 1)
+
+    captured = {}
+    real = place_mod.solve_express
+
+    def capture(spec, *args):
+        key = f"tb{spec.tb}"
+        if key not in captured:
+            captured[key] = (spec, [a.clone() for a in args])
+        return real(spec, *args)
+
+    # host-clock split of each batch: classification, axis refresh, column
+    # staging (K8), dispatch (batch arrays, K14, the fetch), commit
+    from volcano_tpu_torch.express import commit as commit_mod
+
+    spent = {}
+
+    def timed(fn, part):
+        def wrapped(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spent[part] = spent.get(part, 0.0) + (time.perf_counter() - t) * 1e3
+        return wrapped
+
+    # the collector's pauses inside each batch (gc.callbacks)
+    import gc
+
+    gc_t = {}
+
+    def gc_probe(phase, info):
+        if phase == "start":
+            gc_t["t"] = time.perf_counter()
+        elif "t" in gc_t:
+            key = f"gc{info['generation']}"
+            spent[key] = spent.get(key, 0.0) + (time.perf_counter() - gc_t.pop("t")) * 1e3
+
+    real_commit = commit_mod.commit_batch
+    lane._classify = timed(lane._classify, "classify")
+    lane.state.refresh = timed(lane.state.refresh, "refresh")
+    lane.state.stage = timed(lane.state.stage, "stage")
+    lane._dispatch = timed(lane._dispatch, "dispatch")
+    commit_mod.commit_batch = timed(real_commit, "commit")
+    parts = []
+
+    builds = []
+    real_start = _build._start
+    place_mod.solve_express = capture
+    lat, sizes, fetches, reps = [], [], [], []
+    try:
+        for it in range(EXPRESS_WARM + EXPRESS_MEASURED):
+            if it == EXPRESS_WARM:
+                torch.cuda.synchronize()
+                devmod.reset_launches()
+                gc.callbacks.append(gc_probe)
+                _build._start = lambda name: builds.append(name) or real_start(name)
+            size = burst()
+            spent.clear()
+            rep = lane.run_once()
+            if rep["batches"] != 1:
+                raise AssertionError(f"express batch {it}: {rep}")
+            if it >= EXPRESS_WARM:
+                lat.append(rep["ms"])
+                sizes.append(size)
+                fetches.append(rep["profile"]["tpu_d2h_fetches"])
+                reps.append(rep)
+                gcs = {k: v for k, v in spent.items() if k.startswith("gc")}
+                main = {k: v for k, v in spent.items() if not k.startswith("gc")}
+                parts.append(dict(spent, other=rep["ms"] - sum(main.values()),
+                                  gc=sum(gcs.values())))
+        counts = devmod.launches()
+        gc.callbacks.remove(gc_probe)
+        _build._start = real_start
+        # one full batch: 64 one-pod jobs at once (tb = 64, window 256)
+        submit(place_mod.EXPRESS_MAX_BATCH)
+        full = lane.run_once()
+    finally:
+        place_mod.solve_express = real
+        _build._start = real_start
+        commit_mod.commit_batch = real_commit
+        if gc_probe in gc.callbacks:
+            gc.callbacks.remove(gc_probe)
+    if builds:
+        raise AssertionError(f"express: kernels built after the warm batches: {builds}")
+    if any(f != 1 for f in fetches):
+        raise AssertionError(f"express: fetches per batch {fetches}")
+    if counts["express_place"] != EXPRESS_MEASURED:
+        raise AssertionError(f"express: {counts['express_place']} K14 launches for "
+                             f"{EXPRESS_MEASURED} batches")
+    if full["batches"] != 1 or full["placed"] != place_mod.EXPRESS_MAX_BATCH:
+        raise AssertionError(f"express: the full batch {full}")
+    t0 = time.perf_counter()
+    plain_session(cache, tiers, actions)
+    torch.cuda.synchronize()
+    reconcile_ms = (time.perf_counter() - t0) * 1e3
+    summ = lane.summary()
+    if summ["counters"]["errors"] or summ["breaker"] != "closed":
+        raise AssertionError(f"express: errors or breaker open: {summ}")
+    if lane.state.stats["rebuilds"] != 1:
+        raise AssertionError(f"express: state rebuilt {lane.state.stats}")
+    if lane.outstanding:
+        raise AssertionError(f"express: {len(lane.outstanding)} tokens outstanding")
+    check_binds(cache, 5)
+    assert_mirror(cache._device_replica, "express sessions")
+    ordered = sorted(lat)
+
+    def pick(q):
+        return ordered[min(int(q * len(ordered)), len(ordered) - 1)]
+
+    out = {
+        "express": f"cfg5@{scale}", "card": CARD, "snapshot_tasks": n_tasks,
+        "settle_session_ms": settle_ms, "reconcile_session_ms": reconcile_ms,
+        "batches": len(lat), "arrivals": counter[0],
+        "mean_batch": statistics.mean(sizes),
+        "p50_ms": pick(0.5), "p99_ms": pick(0.99), "max_ms": ordered[-1],
+        "placed": summ["counters"]["placed"], "deferred": summ["counters"]["deferred"],
+        "reconciled": summ["counters"]["reconciled"],
+        "reverted": summ["counters"]["reverted"],
+        "full_sweep_steps": sum(r["full_sweep_steps"] for r in reps),
+        "fetches_per_batch": statistics.mean(fetches),
+        "sync_points_per_batch": statistics.mean(
+            r["profile"]["tpu_sync_points"] for r in reps),
+        "fetch_wait_ms_mean": statistics.mean(
+            r["profile"]["tpu_fence_wait_ms"] for r in reps),
+        "full_batch_ms": full["ms"], "full_batch_sweeps": full["full_sweep_steps"],
+        "launches": {k: v for k, v in counts.items() if v},
+        "split_ms_mean": {k: statistics.mean(p.get(k, 0.0) for p in parts)
+                          for k in ("classify", "refresh", "stage", "dispatch",
+                                    "commit", "other", "gc")},
+        "max_batch_index": lat.index(ordered[-1]),
+        "split_ms_of_max": parts[lat.index(ordered[-1])],
+        "state": dict(lane.state.stats)}
+    print(json.dumps(out), flush=True)
+    if "tb16" not in captured or "tb64" not in captured:
+        raise AssertionError(f"express: captured only {sorted(captured)}")
+    return out, counts, captured, lane
+
+
+def express_parity_phase():
+    """A small float64 lane on the card against the same lane on the CPU,
+    on one event sequence (waves of arrivals with a session between; a
+    300-node axis takes the windowed path): the same reports, end state
+    and state stats."""
+    import random
+
+    from volcano_tpu_torch.api import objects
+    from volcano_tpu_torch.bench.clusters import DEFAULT_TIERS, make_cache, make_tiers
+    from volcano_tpu_torch.express import ExpressLane
+    from volcano_tpu_torch.scheduler.util.test_utils import (
+        build_node, build_pod, build_pod_group, build_queue,
+        build_resource_list_with_pods)
+
+    def cluster(seed, n_nodes):
+        rng = random.Random(seed)
+        c = make_cache()
+        for n in range(n_nodes):
+            c.add_node(build_node(f"node-{n:03d}", build_resource_list_with_pods(
+                rng.choice(["4", "8", "16"]), rng.choice(["8Gi", "16Gi", "32Gi"]),
+                pods=rng.choice([3, 64]))))
+        c.add_queue(build_queue("default"))
+        return c
+
+    def end_state(cache):
+        tasks = {t.key: (int(t.status), t.node_name)
+                 for j in cache.jobs.values() for t in j.tasks.values()}
+        nodes = {n: (nd.used.milli_cpu, nd.used.memory) for n, nd in cache.nodes.items()}
+        return tasks, nodes
+
+    for seed, n_nodes in ((1, 12), (2, 300)):
+        caches = {d: cluster(seed, n_nodes) for d in ("cuda", "cpu")}
+        lanes = {d: ExpressLane(c, device=d, dtype=torch.float64) for d, c in caches.items()}
+        rng = random.Random(seed)
+        seq = 0
+        for wave in range(3):
+            shapes = []
+            for _ in range(rng.randint(1, 9)):
+                gang = rng.random() < 0.4
+                shapes.append((f"job-{seq:03d}", rng.choice([2, 3]) if gang else 1,
+                               2 if gang else 1, rng.choice(["250m", "2000m", "6000m"]),
+                               rng.choice(["256Mi", "1Gi", "6Gi"])))
+                seq += 1
+            for c in caches.values():
+                for name, tasks, mm, cpu, mem in shapes:
+                    c.add_pod_group(build_pod_group(name, namespace="xp", min_member=mm,
+                                                    phase=objects.PodGroupPhase.INQUEUE))
+                    for i in range(tasks):
+                        c.add_pod(build_pod("xp", f"{name}-t{i}", "", objects.POD_PHASE_PENDING,
+                                            {"cpu": cpu, "memory": mem}, name))
+            reps = {d: lanes[d].run_once() for d in lanes}
+            keys = ("placed", "deferred", "batches", "full_sweep_steps", "reasons")
+            if {k: reps["cuda"][k] for k in keys} != {k: reps["cpu"][k] for k in keys}:
+                raise AssertionError(f"express parity {seed}/{wave}: {reps}")
+            if wave == 1:
+                for c in caches.values():
+                    plain_session(c, make_tiers(*DEFAULT_TIERS), ("enqueue", "allocate", "backfill"))
+        if end_state(caches["cuda"]) != end_state(caches["cpu"]):
+            raise AssertionError(f"express parity {seed}: end states differ")
+        sc, sp = lanes["cuda"].summary(), lanes["cpu"].summary()
+        if sc["state"] != sp["state"] or sc["counters"] != sp["counters"]:
+            raise AssertionError(f"express parity {seed}: {sc} vs {sp}")
+        print(json.dumps({"express_parity": f"{n_nodes} nodes float64 cuda == cpu",
+                          "placed": sc["counters"]["placed"],
+                          "state": sc["state"]}), flush=True)
+
+
+def grow_nodes(caches, names, cpu, memory, pods):
+    """Raise the capacity of the named nodes in every cache (a node-row
+    update the replica must scatter)."""
+    from volcano_tpu_torch.scheduler.util.test_utils import (
+        build_node, build_resource_list_with_pods)
+
+    for cache in caches:
+        for name in names:
+            cache.add_node(build_node(name, build_resource_list_with_pods(
+                cpu, memory, pods=pods)))
+
+
+def landed_on(cache, before, names):
+    """The binds made since ``before`` (a copy of binder.binds), and how
+    many of them landed on the named nodes."""
+    new = {k: n for k, n in cache.binder.binds.items() if k not in before}
+    return new, sum(1 for n in new.values() if n in set(names))
+
+
+def replica_phase(scale=1.0, device="cuda", dtype="float32"):
+    """cfg5 with and without the replica: a cold serve, a settling
+    session, an unchanged session (whole-encode reuse, no transfer), and a
+    capacity update of 8 nodes to 96 cores (a node-family scatter of
+    exactly those rows, on which the 64-core backlog then places: the
+    solve must read the scattered rows). Binds equal replica-off after
+    each session; the standing tensors equal the mirror. Returns
+    (launches of the four replica-fed sessions, the replica)."""
+    from volcano_tpu_torch import device as devmod
+    from volcano_tpu_torch.bench.clusters import build_config
+    from volcano_tpu_torch.ops import replica as replica_mod
+
+    twins = {}
+    for on in (True, False):
+        cache, _, _, actions, n_tasks = build_config(5, scale)
+        oversized_backlog(cache, "64")
+        twins[on] = cache
+    tiers = tpu_tiers(5, device, dtype)
+    scattered = []
+    real = replica_mod.DeviceReplica._scatter_family
+
+    def spy(self, family, rows, arrays):
+        scattered.append((family, list(rows)))
+        return real(self, family, rows, arrays)
+
+    replica_mod.DeviceReplica._scatter_family = spy
+    counts = {k: 0 for k in devmod.LAUNCHES}
+    lines = []
+    try:
+        for step in ("cold", "settle", "unchanged", "update8"):
+            if step == "update8":
+                names = sorted(twins[True].nodes)[:8]
+                grow_nodes(twins.values(), names, "96", "64Gi", 256)
+            before = dict(twins[True].binder.binds)
+            del scattered[:]
+            torch.cuda.synchronize()
+            devmod.reset_launches()
+            t0 = time.perf_counter()
+            prof = plain_session(twins[True], tiers, actions)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            for k, v in devmod.launches().items():
+                counts[k] += v
+            prof_off = plain_session(twins[False], tiers, actions, replica=False)
+            rep = twins[True]._device_replica
+            if twins[True].binder.binds != twins[False].binder.binds:
+                raise AssertionError(f"replica {step}: binds differ from replica-off")
+            if prof.get("mode") != "rounds":
+                raise AssertionError(f"replica {step}: {prof.get('fallback')}")
+            assert_mirror(rep, f"replica {step}")
+            if step == "unchanged" and not (prof.get("encode_reused") is True
+                                            and prof.get("h2d_puts") == 0):
+                raise AssertionError(f"replica unchanged: no reuse: {prof}")
+            if step == "update8":
+                node_rows = sorted(r for f, rows in scattered if f == "node" for r in rows)
+                want = sorted(rep._node_names.index(n) for n in names)
+                if node_rows != want:
+                    raise AssertionError(f"replica update8: scattered {node_rows}, "
+                                         f"changed {want}")
+                new, on_grown = landed_on(twins[True], before, names)
+                if not new or on_grown != len(new):
+                    raise AssertionError(f"replica update8: {len(new)} binds, "
+                                         f"{on_grown} on the grown nodes")
+            line = {"replica": step, "card": CARD, "binds": len(twins[True].binder.binds),
+                    "new_binds": len(twins[True].binder.binds) - len(before),
+                    "session_ms": wall, "encode_reused": bool(prof.get("encode_reused")),
+                    "h2d_puts": prof.get("h2d_puts"), "h2d_puts_off": prof_off.get("h2d_puts"),
+                    "h2d_bytes": prof.get("h2d_bytes"), "h2d_bytes_off": prof_off.get("h2d_bytes"),
+                    "encode_ms": prof["encode_s"] * 1e3, "encode_ms_off": prof_off["encode_s"] * 1e3,
+                    "replica_serve_ms": prof.get("replica_serve_ms"),
+                    "scattered": scattered[:], "rebuilds": dict(rep.stats["rebuilds"]),
+                    "scatter_launches": devmod.launches()["scatter_rows"]}
+            lines.append(line)
+            print(json.dumps(line), flush=True)
+    finally:
+        replica_mod.DeviceReplica._scatter_family = real
+    return counts, twins[True]._device_replica
+
+
+def preempt_terminal_phase(scale=1.0, device="cuda", dtype="float32"):
+    """cfg4 (30k x 8k) with and without the replica: a preempt-terminal
+    fused chain (allocate, backfill, preempt); then 8 nodes grow to 256
+    cores, which lifts queue-a's proportional share above what it holds,
+    and an allocate session must place its pending tasks on them. Binds and evictions equal replica-off in order;
+    the standing tensors equal the mirror after each session (the chain
+    hands the replica no carry: ops/replica.py)."""
+    import os
+
+    from volcano_tpu_torch.bench.clusters import build_config
+    from volcano_tpu_torch.ops import replica as replica_mod
+
+    twins = {on: build_config(4, scale)[0] for on in (True, False)}
+    tiers = tpu_tiers(4, device, dtype)
+    names = sorted(twins[True].nodes)[:8]
+    prev = os.environ.get("VOLCANO_TPU_FUSE")
+    os.environ["VOLCANO_TPU_FUSE"] = "1"
+    try:
+        out = {}
+        for step, chain in (("chain", ("allocate", "backfill", "preempt")),
+                            ("next", ("allocate",))):
+            if step == "next":
+                grow_nodes(twins.values(), names, "256", "512Gi", 256)
+            a, b = twins[True], twins[False]
+            before = dict(a.binder.binds)
+            profs = {on: plain_session(c, tiers, chain, replica=on) for on, c in twins.items()}
+            if step == "chain" and (profs[True].get("fuse") != 1
+                                    or profs[True].get("fuse_stages") != list(chain)):
+                raise AssertionError(f"preempt-terminal: the chain did not fuse: "
+                                     f"{profs[True].get('fuse_fallback')}")
+            if a.binder.binds != b.binder.binds or a.evictor.evicts != b.evictor.evicts:
+                raise AssertionError(f"preempt-terminal {step}: differs from replica-off")
+            rep = a._device_replica
+            assert_mirror(rep, f"preempt-terminal {step}")
+            out[step] = {"binds": len(a.binder.binds), "evicts": len(a.evictor.evicts)}
+            if step == "next":
+                new, on_grown = landed_on(a, before, names)
+                if not on_grown:
+                    raise AssertionError(f"preempt-terminal next: {len(new)} binds, "
+                                         f"none on the grown nodes")
+                out[step].update(new_binds=len(new), on_grown_nodes=on_grown)
+    finally:
+        if prev is None:
+            del os.environ["VOLCANO_TPU_FUSE"]
+        else:
+            os.environ["VOLCANO_TPU_FUSE"] = prev
+    out.update(rebuilds=rep.stats["rebuilds"], scatter_rows=rep.stats["scatter_rows"])
+    print(json.dumps({"preempt_terminal": "cfg4 chain then allocate == replica-off",
+                      "card": CARD, **out}), flush=True)
+    replica_mod.detach(twins[True])
+
+
+def scatter_kernel_phase(node_dev, lane_dev):
+    """K8 against its plain version (index_copy_) with torch.equal, on
+    clones of the cfg5 replica's node family (N = 10000) with 1, 16, 100
+    and 256 dirty rows, and of the express lane's columns with 1 row;
+    timed over 20 calls after 3 warm-ups, beside the index_copy_ calls
+    with sources already on the card (library_ms)."""
+    import numpy as np
+    from volcano_tpu_torch.ops import replica as R
+
+    rng = np.random.default_rng(8)
+    records = []
+    for what, base, dirty in (("node", node_dev, (1, 16, 100, 256)),
+                              ("express", lane_dev, (1,))):
+        n = next(iter(base.values())).shape[0]
+        for d in dirty:
+            rows = sorted(rng.choice(n, min(d, n), replace=False).tolist())
+            idx = R.bucket_pad_rows(rows)
+            vals = {}
+            for k, t in base.items():
+                host = t.cpu().numpy()
+                v = host[idx].copy()
+                if v.dtype == np.bool_:
+                    v = ~v
+                else:
+                    v = v + np.ones_like(v)
+                vals[k] = v
+            got = {k: t.clone() for k, t in base.items()}
+            want = {k: t.clone() for k, t in base.items()}
+            R.scatter_rows(got, idx, vals)
+            R.scatter_rows_plain(want, idx, vals)
+            torch.cuda.synchronize()
+            for k in base:
+                if not torch.equal(got[k], want[k]):
+                    raise AssertionError(f"scatter_rows {what}/{d}: {k} != plain")
+            # the kernel alone, on sources staged once; the wrapper (host
+            # staging, one pinned copy, the launch) per call apart
+            staged = R.stage_scatter(got, idx, vals)
+            ms = time_ms(lambda: R.launch_scatter(staged))
+            wrapper_ms = time_ms(lambda: R.scatter_rows(got, idx, vals))
+            plain_ms = time_ms(lambda: R.scatter_rows_plain(want, idx, vals))
+            dsrc = {k: torch.from_numpy(np.ascontiguousarray(v)).to(base[k].device)
+                    for k, v in vals.items()}
+            didx = torch.from_numpy(idx.astype(np.int64)).to(got[next(iter(got))].device)
+            lib_ms = time_ms(lambda: [want[k].index_copy_(0, didx, dsrc[k]) for k in base])
+            row_bytes = sum(t[0].numel() * t.element_size() for t in base.values())
+            rec = dict(
+                name="scatter_rows" if what == "node" else "scatter_rows_express",
+                kernel="scatter_rows", route="cuda",
+                launch_path="replica" if what == "node" else "express",
+                source="volcano_tpu_torch/csrc/scatter_rows.cu",
+                replaces="volcano_tpu/ops/replica.py:144" if what == "node"
+                else "volcano_tpu/express/encode.py:199",
+                max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bytes=d * 4 + 2 * d * row_bytes, ops=0, dtype=torch.float32,
+                shape=f"{what} family, {len(base)} buffers, N={n}, {d} rows "
+                      f"(padded {len(idx)}); wrapper {wrapper_ms:.4f} ms a call")
+            finish_record(rec)
+            if (what, d) in (("node", 16), ("express", 1)):
+                records.append(rec)
+    return records
+
+
+def express_kernel_phase(captured):
+    """K14 against its plain version with torch.equal on the packed
+    result: the cfg5 lane's first 1-task batch (tb = 16, W = 64) and its
+    64-task batch (tb = 64, W = 256); a full-width case (window 0 on the
+    first 100 nodes); a tie-heavy case (every node the same shape, so the
+    window cannot prove coverage: fulls > 0); a gang-strip case (jobs of 4
+    on 20 nodes of 300m idle). Each timed with CUDA events."""
+    import numpy as np
+    from volcano_tpu_torch.express import place as P
+
+    spec1, args1 = captured["tb16"]
+    spec64, args64 = captured["tb64"]
+    cases = [("express_place", "cfg5 lane, 1 task", spec1, args1),
+             ("express_place_tb64", "cfg5 lane, 64 tasks", spec64, args64)]
+    small = [a[:100].contiguous() for a in args1[:5]] + list(args1[5:])
+    cases.append(("express_place_full", "first 100 nodes, window 0",
+                  spec1._replace(window_k=0), small))
+    tie = list(args64)
+    tie[0] = torch.full_like(args64[0], 0.0) + args64[1][0]   # idle = alloc of node 0
+    tie[1] = torch.zeros_like(args64[1]) + args64[1][0]
+    tie[2] = torch.zeros_like(args64[2])
+    tie[3] = torch.ones_like(args64[3])
+    cases.append(("express_place_ties", "every node one shape", spec64, tie))
+    gang = list(args64)
+    idle = torch.zeros_like(args64[0])
+    idle[:20, 0] = 300.0        # 300m on 20 nodes: three 100m or one 250m pod
+    idle[:20, 1] = args64[0][:20, 1]
+    gang[0] = idle
+    tj = torch.arange(spec64.tb, device=args64[0].device, dtype=torch.int32) // 4
+    gang[10] = tj
+    need = torch.full((spec64.jb,), 2**31 - 1, dtype=torch.int32, device=tj.device)
+    need[:spec64.tb // 4] = 4
+    gang[12] = need
+    cases.append(("express_place_strip", "jobs of 4 on 20 nodes of 300m", spec64, gang))
+    records = []
+    for name, what, spec, args in cases:
+        got = P.solve_express(spec, *args)
+        want, plain_ms = timed_plain(lambda: P.solve_express_plain(spec, *args))
+        same(got, want, name)
+        tail = got[-2:].tolist()
+        valid = int(args[9].sum())
+        if name == "express_place_ties" and tail[0] == 0:
+            raise AssertionError(f"{name}: no full-width fallback: {tail}")
+        if name == "express_place_strip":
+            loose_args = list(args)
+            loose_args[12] = torch.zeros_like(args[12])
+            loose = P.solve_express_plain(spec, *loose_args)
+            if not int(loose[-1]) > tail[1]:
+                raise AssertionError(f"{name}: nothing stripped ({loose[-1]} vs {tail[1]})")
+        ms = time_ms(lambda: P.solve_express(spec, *args))
+        n = args[0].shape[0]
+        w = spec.window_k
+        fulls = tail[0]
+        scored = (valid * n if w else 0) + (valid - fulls) * w + fulls * n
+        rec = dict(
+            name=name, kernel="express_place", route="cuda", launch_path="express",
+            source="volcano_tpu_torch/csrc/express_place.cu",
+            replaces="volcano_tpu/express/place.py:94", max_abs_err=0.0,
+            ms=ms, plain_ms=plain_ms, library_ms=None,
+            bytes=nbytes(*args) + nbytes(got), ops=scored * (SCORE_OPS + 6),
+            dtype=args[0].dtype,
+            shape=f"{what}: N={n} tb={spec.tb} W={w} valid={valid} "
+                  f"fulls={fulls} placed={tail[1]}")
+        finish_record(rec)
+        records.append(rec)
+    return records
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=float, default=1.0,
@@ -1025,7 +1660,8 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smi = smi_line()
+    global CARD
+    smi = CARD = smi_line()
     print(f"device: {smi}", flush=True)
     t0 = time.perf_counter()
     libs = _build.build_all()
@@ -1040,6 +1676,20 @@ def main() -> int:
     launches, captured = session_phase(args.scale)
     records += evict_kernel_phase(captured)
     records += fused_kernel_phase(captured)
+    from volcano_tpu_torch.ops.replica import FAMILIES
+
+    express_parity_phase()
+    _, launches["express"], xcaptured, lane = express_lane_phase()
+    launches["replica"], rep = replica_phase()
+    preempt_terminal_phase()
+    for path, kernels in (("express", ("express_place", "scatter_rows")),
+                          ("replica", ("scatter_rows",))):
+        idle = [k for k in kernels if not launches[path][k]]
+        if idle:
+            raise AssertionError(f"{path}: kernels never launched: {idle}")
+    records += express_kernel_phase(xcaptured)
+    records += scatter_kernel_phase({k: rep.dev[k] for k in FAMILIES["node"]},
+                                    lane.state.dev)
     # each kernel's launches on the path that runs it: K1-K5 on cfg5; the
     # per-action K9 on cfg4's and K10 on the reclaim path's per-action run;
     # K11, K13 and the fused K9 on cfg4's fused run, the fused K10 on the
@@ -1054,7 +1704,7 @@ def main() -> int:
         out.append({
             "name": rec["name"], "route": rec["route"], "source": rec["source"],
             "replaces": rec["replaces"],
-            "launches": launches[path_of.get(rec["kernel"], 5)][rec["kernel"]],
+            "launches": launches[rec.get("launch_path", path_of.get(rec["kernel"], 5))][rec["kernel"]],
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})

@@ -113,6 +113,60 @@ def test_fused_session_loads_no_jax_module():
     assert "LOADED []" in out.stdout, out.stdout
 
 
+_EXPRESS_AND_REPLICA = r"""
+import sys
+import torch
+torch.set_num_threads(1)
+from volcano_tpu_torch.api import objects
+from volcano_tpu_torch.bench.clusters import CONFIGS, DEFAULT_TIERS, build_config, make_tiers
+from volcano_tpu_torch.express import ExpressLane
+from volcano_tpu_torch.scheduler.framework import close_session, open_session, run_actions
+from volcano_tpu_torch.scheduler.util.test_utils import build_pod, build_pod_group
+import volcano_tpu_torch.scheduler.actions, volcano_tpu_torch.scheduler.plugins
+cache, _, _, _, n = build_config(5, 0.01)
+tiers = make_tiers(["tpuscore"], *CONFIGS[5].tiers, arguments={"tpuscore": {
+    "tpuscore.mode": "rounds", "tpuscore.device": "cpu", "tpuscore.dtype": "float64"}})
+profs = []
+for k in range(2):
+    if k:  # a new arrival between the sessions: the second serves a delta
+        cache.add_pod_group(build_pod_group("late", namespace="xp", min_member=1,
+                                            phase=objects.PodGroupPhase.INQUEUE))
+        cache.add_pod(build_pod("xp", "late-t0", "", objects.POD_PHASE_PENDING,
+                                {"cpu": "100m", "memory": "128Mi"}, "late"))
+    ssn = open_session(cache, tiers)
+    run_actions(ssn, ["allocate"])
+    profs.append(dict(ssn.plugins["tpuscore"].profile))
+    close_session(ssn)
+assert profs[0]["replica_rebuilds"] == {"cold": 1}, profs[0]
+assert profs[1]["replica_rebuilds"]["cold"] == 1, profs[1]
+lane = ExpressLane(cache, device="cpu", dtype=torch.float64)
+cache.add_pod_group(build_pod_group("svc", namespace="xp", min_member=1,
+                                    phase=objects.PodGroupPhase.INQUEUE))
+cache.add_pod(build_pod("xp", "svc-t0", "", objects.POD_PHASE_PENDING,
+                        {"cpu": "100m", "memory": "128Mi"}, "svc"))
+rep = lane.run_once()
+assert rep["batches"] == 1 and rep["placed"] == 1, rep
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0].startswith("jax") or m.split(".")[0] == "volcano_tpu")
+print("LOADED", bad)
+"""
+
+
+def test_express_batch_and_replica_sessions_load_no_jax_module():
+    """Two replica-fed allocate sessions (a cold serve, then the standing
+    replica) and one express batch run without loading jax or the JAX
+    package."""
+    for f in ("ops/replica.py", "express/place.py", "express/trigger.py",
+              "scheduler/degrade.py", "analysis/witness.py"):
+        assert os.path.join(PORT, f) in set(_port_files()), f
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", _EXPRESS_AND_REPLICA],
+                         cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "LOADED []" in out.stdout, out.stdout
+
+
 def test_every_kernel_source_is_built():
     """Every csrc/*.cu (K13's fuse_heaps.cu among them) is a kernel the
     builder compiles, and a CUDA source includes only the toolkit's
@@ -121,7 +175,7 @@ def test_every_kernel_source_is_built():
 
     csrc = os.path.join(PORT, "csrc")
     sources = sorted(f[:-3] for f in os.listdir(csrc) if f.endswith(".cu"))
-    assert "fuse_heaps" in sources
+    assert {"fuse_heaps", "express_place", "scatter_rows"} <= set(sources)
     assert sources == sorted(_build.KERNELS)
     for f in os.listdir(csrc):
         if not f.endswith((".cu", ".cuh")):

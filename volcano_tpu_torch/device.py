@@ -35,6 +35,8 @@ LAUNCHES: Dict[str, int] = {
     "evict_reclaim_fused": 0,
     "fuse_heaps_preempt": 0,
     "fuse_heaps_reclaim": 0,
+    "scatter_rows": 0,
+    "express_place": 0,
 }
 
 

@@ -42,9 +42,12 @@ launch failure raises.
 
 Trimmed from the reference: the mesh staging (``_pack_staged``,
 ``_stage``; staging is ``solver.from_numpy_encoded``), the adoption of a
-preempt-terminal chain's carry into the device replica (``_offer_carry``;
-the replica is not ported), and the ``except Exception`` that turned a
-dispatch error into a per-action run.
+preempt-terminal chain's carry into the device replica (``_offer_carry``:
+the reference's adopted carry holds preempt's pipelined requests and
+skips node rows the chain placed on, so its next session diverges from
+replica-off; the replica here scatters every changed row instead), and
+the ``except Exception`` that turned a dispatch error into a per-action
+run.
 """
 
 from __future__ import annotations
@@ -398,8 +401,6 @@ def _run_fused(ssn, chain, action_ms, prep, plan, bf, t_chain) -> None:
             return
 
         # --- stage 4: reclaim op-log replay ------------------------------
-        # (a preempt-terminal chain's final carry is where the reference
-        # feeds its device replica; the port has no replica yet)
         if "reclaim" in chain:
             t0 = time.perf_counter()
             ok = plan.consume(_timed_wait(prof, "reclaim", wait_r),

@@ -7,9 +7,14 @@ encoded snapshot is staged on the device by ``from_numpy_encoded``, solved
 by ``rounds.solve_rounds``, fetched back as ONE packed array, and applied
 in bulk with the same end state as the statement path.
 
-Left out here: the parity scan (a later slice), the device replica, the
-mesh, the native fast-apply loop, and the serial fallback on a solve
-error — in the port a build, launch or solve failure raises.
+The state-dependent accounting arrays (ops/replica.py SERVED) ride the
+cache's standing device replica: committed deltas since the last session
+become bucketed row scatters (K8) into the standing tensors, and an
+unchanged session reuses the whole previous prepare bundle.
+
+Left out here: the parity scan (a later slice), the mesh, the native
+fast-apply loop, and the serial fallback on a solve error — in the port a
+build, launch or solve failure raises.
 """
 
 from __future__ import annotations
@@ -171,22 +176,37 @@ def _pack(arrays: Dict[str, np.ndarray]):
     return tuple(layout), bufs
 
 
-def from_numpy_encoded(arrays: Dict[str, np.ndarray], *, device,
-                       dtype) -> Dict[str, torch.Tensor]:
-    """Stage the padded encoded snapshot (the keys and layout of
-    pad_encoded) on ``device``: floats cast to ``dtype``, ints to int32,
-    one host-to-device copy per packed group buffer, then viewed back
-    into per-array tensors by rounds.unpack_layout."""
-    dev = devmod.resolve_device(device)
-    dt = devmod.resolve_dtype(dtype, dev)
-    np_dt = np.float64 if dt == torch.float64 else np.float32
+def cast_arrays(arrays: Dict[str, np.ndarray], dtype) -> Dict[str, np.ndarray]:
+    """The host arrays as they are staged: floats cast to ``dtype``, ints
+    to int32, bools kept (copy=False keeps the identity of already-typed
+    arrays, which the replica's row diff uses as a fast path)."""
+    np_dt = np.float64 if dtype == torch.float64 else np.float32
     cast = {}
     for k, v in arrays.items():
         v = np.asarray(v)
-        cast[k] = v.astype(np_dt, copy=False) if v.dtype.kind == "f" else v
-    layout, bufs = _pack(cast)
+        if v.dtype.kind == "f":
+            v = v.astype(np_dt, copy=False)
+        elif v.dtype.kind in "iu":
+            v = v.astype(np.int32, copy=False)
+        cast[k] = v
+    return cast
+
+
+def from_numpy_encoded(arrays: Dict[str, np.ndarray], *, device,
+                       dtype, profile: Optional[dict] = None) -> Dict[str, torch.Tensor]:
+    """Stage the padded encoded snapshot (the keys and layout of
+    pad_encoded) on ``device``: floats cast to ``dtype``, ints to int32,
+    one host-to-device copy per packed group buffer, then viewed back
+    into per-array tensors by rounds.unpack_layout. With ``profile``,
+    records the buffers that crossed (``h2d_puts``) and their bytes."""
+    dev = devmod.resolve_device(device)
+    dt = devmod.resolve_dtype(dtype, dev)
+    layout, bufs = _pack(cast_arrays(arrays, dt))
     staged = {key: torch.from_numpy(np.ascontiguousarray(buf)).to(dev)
               for key, buf in bufs.items()}
+    if profile is not None:
+        profile["h2d_puts"] = len(bufs)
+        profile["h2d_bytes"] = int(sum(b.nbytes for b in bufs.values()))
     return rounds_mod.unpack_layout(layout, staged)
 
 
@@ -229,6 +249,27 @@ class BatchAllocator:
             self.profile["fallback"] = (
                 f"rounds apply cannot honor custom plugins: {sorted(unknown)}")
             return None
+        # whole-encode reuse (ops/replica.py): when NOTHING the encode
+        # reads has moved since the last prepare — the cache's pipeline
+        # fingerprint, the tiers identity, the round-robin cursor, the
+        # serving device/dtype and mode — the previous session's entire
+        # prepare bundle (enc + spec + staged tensors) is still exact
+        from volcano_tpu_torch.ops import replica as replica_mod
+
+        rep = replica_mod.get(getattr(ssn, "cache", None)) \
+            if getattr(ssn, "cache", None) is not None else None
+        place = (self.device, self.dtype)
+        if rep is not None:
+            token = rep.encode_token(ssn, place, self.mode)
+            prev = rep.serve_prepare(token)
+            if prev is not None:
+                prev["t0"] = t0
+                prev["t1"] = time.perf_counter()
+                self.profile["encode_reused"] = True
+                self.profile["h2d_puts"] = 0
+                self.profile["h2d_bytes"] = 0
+                self.profile["replica_epoch"] = rep.replica_epoch
+                return prev
         try:
             # un-modeled constructs stay PENDING as a serial residue
             enc = encode_session(ssn, allow_residue=True)
@@ -249,7 +290,7 @@ class BatchAllocator:
                 f"is cheaper than a device solve")
             return None
 
-        arrays = pad_encoded(enc)
+        arrays = cast_arrays(pad_encoded(enc), self.dtype)
         rounds_arrays = {k: v for k, v in arrays.items() if k not in _ROUNDS_SKIP}
         # diminishing-returns floor and straggler rounds, keyed to the
         # padded buckets; only when the class axis spans several chunks
@@ -261,13 +302,29 @@ class BatchAllocator:
             straggler_rounds=4 if kb > rounds_mod.CHUNK else 0,
             window_k=wf["window_k"], dirty_k=wf["dirty_k"])
         t1 = time.perf_counter()
-        staged = from_numpy_encoded(rounds_arrays, device=self.device,
-                                    dtype=self.dtype)
+        # the state-dependent accounting arrays leave the pack and ride
+        # the standing device replica: committed deltas since the last
+        # session become bucketed row scatters into the standing tensors,
+        # and the replica's plain-keyed tensors join the unpacked groups
+        rep_part = {}
+        if rep is not None:
+            rep_part = {k: v for k, v in rounds_arrays.items()
+                        if k in replica_mod.SERVED}
+        rest = {k: v for k, v in rounds_arrays.items() if k not in rep_part}
+        staged = from_numpy_encoded(rest, device=self.device,
+                                    dtype=self.dtype, profile=self.profile)
+        if rep_part:
+            staged.update(rep.serve(rep_part, ssn, enc, place, self.profile))
         t2 = time.perf_counter()
-        self.profile["h2d_bytes"] = int(sum(
-            np.asarray(v).nbytes for v in rounds_arrays.values()))
-        return dict(enc=enc, spec=spec, staged=staged, t0=t0, t1=t1,
+        prep = dict(enc=enc, spec=spec, staged=staged, t0=t0, t1=t1,
                     h2d_s=t2 - t1)
+        if rep is not None:
+            # token recomputed AFTER the serve: the serve bumps the
+            # replica epoch (a fingerprint component), and the stored
+            # token must describe the state this bundle was built against
+            # so an unchanged next session hits
+            rep.store_prepare(rep.encode_token(ssn, place, self.mode), prep)
+        return prep
 
     def parse_packed(self, out: np.ndarray):
         """Split the packed single-fetch result into (assign, meta dict)."""

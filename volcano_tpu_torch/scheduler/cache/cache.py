@@ -125,7 +125,7 @@ class SchedulerCache:
         # mirror being one flush behind inside a cycle is the faithful
         # semantic (cache.go:123-135,597-613)
         self._pending_mirrors: List[dict] = []
-        # express lane (a later slice of the port): the lane registers itself
+        # express lane (volcano_tpu_torch/express): the lane registers itself
         # plus an arrival listener; the listener runs under the cache lock
         # from the watch handlers and must only enqueue
         self.express_lane = None
@@ -848,7 +848,7 @@ class SchedulerCache:
         speculative snapshot did not see — the stage is discarded. The
         device replica's epoch (ops/replica.py) rides along: a sealed
         stage captured its staged buffers from a specific replica state,
-        and a scatter/rebuild/adoption between seal and check means the
+        and a scatter/rebuild between seal and check means the
         device content it dispatched against has been superseded."""
         keeper = self.snap_keeper
         rep = getattr(self, "_device_replica", None)

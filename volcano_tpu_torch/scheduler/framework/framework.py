@@ -94,6 +94,14 @@ def run_actions(ssn: Session, actions) -> dict:
     from volcano_tpu_torch.scheduler.framework.plugins import get_action
 
     names = [a if isinstance(a, str) else a.name() for a in actions]
+    if getattr(ssn.cache, "express_lane", None) is not None:
+        # reconcile every outstanding express bind FIRST: the session is
+        # the fairness/preemption authority, and reverts must free their
+        # capacity before this session's own placement decisions encode
+        from volcano_tpu_torch.express.reconcile import reconcile_session
+
+        ssn.cache.express_lane.set_tiers(ssn.tiers)
+        reconcile_session(ssn)
     if getattr(ssn.cache, "fence_sweep_due", False):
         # one recovery sweep per leadership term, before any placement
         ssn.cache.fence_sweep_due = False

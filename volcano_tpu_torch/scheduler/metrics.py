@@ -116,7 +116,7 @@ class Registry:
             f"{_NAMESPACE}_unschedule_job_count", "Number of unschedulable jobs")
         self.job_retry_counts = Counter(
             f"{_NAMESPACE}_job_retry_counts", "Job retries", ("job_id",))
-        # express lane (a later slice of the port): optimistic placements
+        # express lane (volcano_tpu_torch/express): optimistic placements
         # between sessions, the session-time reverts, and the fast-path
         # latency distribution (sub-10 ms is the design envelope, so the
         # buckets resolve single milliseconds)

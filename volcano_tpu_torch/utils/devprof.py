@@ -11,7 +11,9 @@ port waits for the device routes through here so it can be counted:
   work between the two calls overlaps the device and is summed into
   ``overlap_s``, the time ``wait()`` blocks into ``fence_wait_s``;
 - ``readback(x)`` reads loop-control scalars (one sync point): the rounds
-  solver's host-driven loop makes one per loop test.
+  solver's host-driven loop makes one per loop test;
+- ``note_overlappable(rows)`` counts a launch nobody waits for (the
+  device replica's row scatters).
 
 ``session(profile)`` scopes the counters to one scheduler session; on exit
 ``tpu_sync_points``, ``tpu_d2h_fetches``, ``tpu_overlap_ms`` and
@@ -43,7 +45,8 @@ class _Collector(object):
         global _active
         self._prev = _active
         _active = {"sync_points": 0, "d2h_fetches": 0, "overlap_s": 0.0,
-                   "fence_wait_s": 0.0}
+                   "fence_wait_s": 0.0, "overlappable_dispatches": 0,
+                   "overlappable_rows": 0}
         return _active
 
     def __exit__(self, *exc) -> None:
@@ -61,6 +64,10 @@ class _Collector(object):
                 counters["overlap_s"] * 1e3, 3)
             self.profile["tpu_fence_wait_ms"] = round(
                 counters["fence_wait_s"] * 1e3, 3)
+            self.profile["tpu_overlappable_dispatches"] = \
+                counters["overlappable_dispatches"]
+            self.profile["tpu_overlappable_rows"] = \
+                counters["overlappable_rows"]
 
 
 def session(profile: dict) -> _Collector:
@@ -113,6 +120,17 @@ def start_fetch(x: torch.Tensor) -> Callable[[], np.ndarray]:
         return out
 
     return wait
+
+
+def note_overlappable(rows: int = 0) -> None:
+    """Count an asynchronous device launch whose result is never fetched
+    or fenced by its issuer — the replica's row scatters (ops/replica.py):
+    the scatter enqueues, the session's host work continues, and the
+    tensors are consumed on the card by the next solve. These are the
+    opposite of sync points."""
+    if _active is not None:
+        _active["overlappable_dispatches"] += 1
+        _active["overlappable_rows"] += int(rows)
 
 
 def readback(x):
