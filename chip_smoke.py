@@ -4,6 +4,10 @@ Run from the repository root on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py               # full scale: cfg2, cfg3, cfg5, cfg4
     python3 chip_smoke.py --scale 0.05  # cfg2/3/5 smaller; cfg4 stays full
+    python3 chip_smoke.py --only parity,pipeline  # some phase groups only
+
+Phase groups (``--only``; all by default): allocate (phases 2-5),
+express (6-10), parity (11), pipeline (12), loop (13).
 
 Phases, each failing the run on any error:
 
@@ -84,7 +88,29 @@ Phases, each failing the run on any error:
    tie-heavy case (fulls > 0) and a gang strip, and K8 scatter_rows on
    the cfg5 replica's node family (1, 16, 100, 256 rows) and the lane's
    columns, each held against its plain version with torch.equal and
-   timed.
+   timed;
+11. parity mode (K15): (a) cfg2 at full scale in float32, one parity
+   session through the tpuscore plugin launches K15 exactly once, binds
+   feasible and gangs whole; on the captured inputs K15 is torch.equal to
+   its plain version (assign and the cursor) and timed (5 calls after 1
+   warm-up); (b) float64 parity sessions on the card give the host serial
+   loop's binds and cursor at cfg2 1.0 and cfg3 0.4; (c) one cfg5 parity
+   session at full width in float32, feasible, K15 timed;
+12. the pipeline at cfg5 (plus an oversized backlog, so every cycle
+   solves): Scheduler(pipeline=True).run_once_pipelined() against
+   Scheduler.run_once() on twins with their own cursors over 8 cycles
+   (quiet, a fitting gang, quiet, a bound pod deleted, quiet, a gang,
+   quiet, quiet): equal end signatures, the driver's accounting, at least
+   one commit and one read-set or watch-delta discard; each cycle of each
+   twin printed (session ms, sync points, fetch wait, tpu_overlap_ms, the
+   stage's dispatch and device times, action ms);
+13. the scheduler loop at cfg5: Scheduler(express=True, pipeline=True)
+   .run() on its thread until a stage commits, then bench.py --express's
+   arrivals for 8 s, until every arrival is bound; stop(); at least 3
+   cycles, a commit, automatic GC off while it ran and restored after, no
+   "scheduling cycle failed" or "express run failed" record; the lane's
+   p50/p99/max (beside phase 7's p99) and the collections the
+   interpreter ran are printed.
 
 The last two lines of standard output are a {"kernels": [...]} JSON object
 and {"ok": true, "device": {...}}. Without a usable GPU, or without the
@@ -256,10 +282,11 @@ def over_deserved(ssn):
             if not a.allocated.less_equal(a.deserved)}
 
 
-def check_binds(cache, cfg, before=None):
+def check_binds(cache, cfg, before=None, gone=()):
     """Feasibility, capacity and gang atomicity of the FakeBinder result.
     Capacity counts the tasks running at open that were not evicted (an
-    evicted victim's request is released) plus every bind."""
+    evicted victim's request is released) plus every bind but those of
+    the pods in ``gone`` (deleted since they were bound)."""
     from volcano_tpu_torch.api.resource import Resource
 
     binds = cache.binder.binds
@@ -274,6 +301,8 @@ def check_binds(cache, cfg, before=None):
         if key not in evicted:
             per_node.setdefault(node_name, []).append(req)
     for key, node_name in binds.items():
+        if key in gone:
+            continue
         job, t = tasks[key]
         per_node.setdefault(node_name, []).append(t.resreq)
         per_job[job.uid] = per_job.get(job.uid, 0) + 1
@@ -1515,6 +1544,465 @@ def preempt_terminal_phase(scale=1.0, device="cuda", dtype="float32"):
     replica_mod.detach(twins[True])
 
 
+# ---------------------------------------------------------------------------
+# the scheduler's own loop: K15 (parity mode), the pipeline, the loop
+# ---------------------------------------------------------------------------
+
+# operations of one examined node in a parity step beyond its R fit tests
+# (signature mask, pod cap, and, the window's scan), and of one job row or
+# queue/namespace row of a visit's lexicographic argmin (keys, comparator)
+PARITY_NODE_OPS, LEX_ROW_OPS = 8, 12
+
+
+def loop_conf(mode="rounds", device="cuda", dtype="float32"):
+    """TPU_SCHEDULER_CONF with the tpuscore arguments of this run."""
+    from volcano_tpu_torch.scheduler.scheduler import TPU_SCHEDULER_CONF
+
+    return TPU_SCHEDULER_CONF.replace(
+        "  - name: tpuscore\n",
+        f"  - name: tpuscore\n    arguments:\n      tpuscore.mode: {mode}\n"
+        f"      tpuscore.device: {device}\n      tpuscore.dtype: {dtype}\n")
+
+
+def parity_session(cfg, scale, dtype, tpu=True, device="cuda"):
+    """One allocate session of a bench config in parity mode on the card
+    (or, with ``tpu`` False, the serial loop on the host, tpuscore off);
+    the cursor starts at 0 (build_config's fresh cache). Returns (cache,
+    profile, launches, wall ms, K15's captured inputs, final cursor)."""
+    from volcano_tpu_torch import device as devmod
+    from volcano_tpu_torch.bench.clusters import CONFIGS, build_config, make_tiers
+    from volcano_tpu_torch.ops import parity_kernels as PK
+    from volcano_tpu_torch.scheduler.framework import close_session, open_session, run_actions
+    from volcano_tpu_torch.scheduler.util import scheduler_helper
+
+    cache, _, _, actions, _ = build_config(cfg, scale)
+    if tpu:
+        tiers = make_tiers(["tpuscore"], *CONFIGS[cfg].tiers, arguments={"tpuscore": {
+            "tpuscore.mode": "parity", "tpuscore.device": device, "tpuscore.dtype": dtype}})
+    else:
+        tiers = make_tiers(*CONFIGS[cfg].tiers)
+    captured = {}
+    real = PK.solve_allocate
+
+    def capture(spec, enc, rr0, ntf):
+        captured.setdefault("args", (spec, {k: v.clone() for k, v in enc.items()}, rr0, ntf))
+        return real(spec, enc, rr0, ntf)
+
+    PK.solve_allocate = capture
+    torch.cuda.synchronize()
+    devmod.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        ssn = open_session(cache, tiers)
+        run_actions(ssn, list(actions))
+        prof = dict(ssn.plugins["tpuscore"].profile) if tpu else {}
+        close_session(ssn)
+        torch.cuda.synchronize()
+    finally:
+        PK.solve_allocate = real
+    wall = (time.perf_counter() - t0) * 1e3
+    if tpu and (prof.get("mode") != "parity" or "fallback" in prof):
+        raise AssertionError(f"cfg{cfg} parity session did not run the scan: {prof}")
+    return (cache, prof, devmod.launches(), wall, captured.get("args"),
+            scheduler_helper._last_processed_node_index)
+
+
+def parity_phase(scale=1.0, device="cuda", dtype="float32"):
+    """K15 on the card. (a) cfg2 at full scale, float32: one parity session
+    through the tpuscore plugin launches K15 exactly once, its binds are
+    feasible and whole; on the captured inputs K15 is torch.equal to the
+    plain version (assign and the cursor) and timed (5 calls after 1
+    warm-up; the plain version once). (b) float64 parity sessions on the
+    card give the host serial loop's binds and cursor: cfg2 at 1.0 and
+    cfg3 at 0.4 (cfg3: ten weighted queues, the overused purge). (c) cfg5
+    at full width, float32: one parity session, feasible binds, K15 timed
+    (2 calls after 1 warm-up). Returns (K15's record, the launches of
+    (a)'s session)."""
+    from volcano_tpu_torch.ops import parity_kernels as PK
+
+    launched = 1 if device == "cuda" else 0  # a CPU rehearsal runs the plain version
+    cache, prof, counts_a, wall, args, _ = parity_session(2, scale, dtype, device=device)
+    if counts_a["parity_scan"] != launched:
+        raise AssertionError(f"cfg2 parity: {counts_a['parity_scan']} K15 launches")
+    check_binds(cache, 2)
+    n_binds = len(cache.binder.binds)
+    del cache
+    spec, enc, rr0, ntf = args
+    got = PK.solve_allocate(spec, enc, rr0, ntf)
+    want, plain_ms = timed_plain(lambda: PK.solve_allocate_plain(spec, enc, rr0, ntf))
+    stats = dict(PK.STATS)
+    same(got, want, "parity_scan")
+    ms = time_ms(lambda: PK.solve_allocate(spec, enc, rr0, ntf), reps=5, warmup=1)
+    T, R = enc["task_req"].shape
+    Q, S = enc["queue_deserved"].shape[0], enc["ns_active0"].shape[0]
+    ops = (stats["examined"] * (3 * R + PARITY_NODE_OPS) + stats["scored"] * SCORE_OPS
+           + (stats["job_rows"] + stats["visits"] * (Q + S)) * LEX_ROW_OPS)
+    rec = dict(
+        name="parity_scan", kernel="parity_scan", route="cuda",
+        source="volcano_tpu_torch/csrc/parity_scan.cu",
+        replaces="volcano_tpu/ops/kernels.py:389", max_abs_err=0.0,
+        ms=ms, plain_ms=plain_ms, library_ms=None,
+        bytes=nbytes(*(enc[k] for k, _ in PK._INPUTS)) + nbytes(got), ops=ops,
+        dtype=enc["node_idle"].dtype, launch_path="parity",
+        shape=(f"cfg2 T={T} N={enc['node_idle'].shape[0]} R={R} "
+               f"J={enc['job_task_start'].shape[0]} Q={Q} S={S} ntf={ntf} "
+               f"visits={stats['visits']} steps={stats['steps']} "
+               f"examined={stats['examined']} scored={stats['scored']} "
+               f"placed={int((got[:-1] >= 0).sum())} rr={int(got[-1])}"))
+    finish_record(rec)
+    print(json.dumps({"parity": f"cfg2@{scale} {dtype}", "card": CARD, "session_ms": wall,
+                      "binds": n_binds, "k15_ms": ms, "plain_ms": plain_ms,
+                      "split_ms": {k: round(prof[k] * 1e3, 3) for k in
+                                   ("encode_s", "solve_s", "apply_s")}}), flush=True)
+
+    # (b) float64 on the card == the serial loop on the host
+    for cfg, sc in ((2, 1.0), (3, 0.4)):
+        pc, pprof, _, pwall, _, prr = parity_session(cfg, sc, "float64", device=device)
+        sc_cache, _, _, swall, _, srr = parity_session(cfg, sc, "float64", tpu=False)
+        if pc.binder.binds != sc_cache.binder.binds or prr != srr:
+            raise AssertionError(
+                f"cfg{cfg}@{sc}: float64 parity binds differ from the serial loop "
+                f"({len(pc.binder.binds)} vs {len(sc_cache.binder.binds)}, "
+                f"cursor {prr} vs {srr})")
+        print(json.dumps({"parity_vs_serial": f"cfg{cfg}@{sc} float64",
+                          "binds": len(pc.binder.binds), "cursor": prr,
+                          "parity_session_ms": pwall, "serial_session_ms": swall,
+                          "k15_solve_ms": round(pprof["solve_s"] * 1e3, 3)}), flush=True)
+        del pc, sc_cache
+
+    # (c) cfg5 at full width
+    cache, prof, counts, wall, args, _ = parity_session(5, scale, dtype, device=device)
+    if counts["parity_scan"] != launched:
+        raise AssertionError(f"cfg5 parity: {counts['parity_scan']} K15 launches")
+    check_binds(cache, 5)
+    spec, enc, rr0, ntf = args
+    ms5 = time_ms(lambda: PK.solve_allocate(spec, enc, rr0, ntf), reps=2, warmup=1)
+    print(json.dumps({"parity": f"cfg5@{scale} {dtype}", "card": CARD, "session_ms": wall,
+                      "binds": len(cache.binder.binds), "k15_ms": ms5,
+                      "T": enc["task_req"].shape[0], "N": enc["node_idle"].shape[0],
+                      "J": enc["job_task_start"].shape[0], "ntf": ntf,
+                      "split_ms": {k: round(prof[k] * 1e3, 3) for k in
+                                   ("encode_s", "solve_s", "apply_s")}}), flush=True)
+    log(f"kernel parity_scan [cfg5]: {ms5:.4f} ms")
+    return rec, counts_a
+
+
+def signature(cache):
+    """The end state two twins must share: each job's PodGroup phase and
+    its tasks' status and node, each node's accounting, the binds and the
+    evictions in order (tests/test_continuous_pipeline.py's signature)."""
+    jobs = {}
+    for uid in sorted(cache.jobs):
+        job = cache.jobs[uid]
+        jobs[uid] = (str(job.pod_group.status.phase) if job.pod_group is not None else None,
+                     {t: (int(job.tasks[t].status), job.tasks[t].node_name)
+                      for t in sorted(job.tasks)})
+    nodes = {name: (round(n.used.milli_cpu, 6), round(n.idle.milli_cpu, 6),
+                    round(n.used.memory, 3)) for name, n in sorted(cache.nodes.items())}
+    return {"jobs": jobs, "nodes": nodes, "binds": dict(cache.binder.binds),
+            "evicts": list(cache.evictor.evicts)}
+
+
+def check_accounting(stats):
+    """Every dispatched stage was applied or discarded, every discard but
+    the abandoned re-ran its cycle, and no stale stage reached apply."""
+    if stats["stale_commits"]:
+        raise AssertionError(f"pipeline: stale commits {stats}")
+    if stats["spec_applied"] + stats["spec_discarded"] != stats["spec_dispatched"]:
+        raise AssertionError(f"pipeline: stages unaccounted {stats}")
+    reruns = sum(n for r, n in stats["spec_discards"].items() if r != "abandoned")
+    if reruns != stats["spec_reruns"]:
+        raise AssertionError(f"pipeline: discards without a rerun {stats}")
+
+
+def probe_profiles():
+    """Keep a copy of each committed session's tpuscore profile (the
+    plugin's close hook) in the returned list."""
+    from volcano_tpu_torch.scheduler.plugins import tpuscore
+
+    seen = []
+    real = tpuscore.TpuScorePlugin.on_session_close
+
+    def close(self, ssn):
+        seen.append(dict(self.profile))
+        return real(self, ssn)
+
+    tpuscore.TpuScorePlugin.on_session_close = close
+
+    def restore():
+        tpuscore.TpuScorePlugin.on_session_close = real
+    return seen, restore
+
+
+PIPELINE_TRACE = ("quiet", "gang", "quiet", "delete", "quiet", "gang", "quiet", "quiet")
+
+
+def find_pod(cache, key):
+    for job in cache.jobs.values():
+        for t in job.tasks.values():
+            if f"{t.namespace}/{t.name}" == key:
+                return t.pod
+    raise AssertionError(f"no task {key}")
+
+
+def pipeline_phase(scale=1.0, device="cuda", dtype="float32"):
+    """cfg5 plus an oversized backlog (every cycle encodes and solves), two
+    twins with their own cursors: Scheduler(pipeline=True).run_once_pipelined
+    against Scheduler.run_once, TPU_SCHEDULER_CONF in rounds mode on the
+    card, over PIPELINE_TRACE (a fitting gang added, a bound pod deleted,
+    quiet cycles between). The end signatures must be equal, the driver's
+    accounting hold, at least one stage commit and one be discarded by a
+    read-set or watch-delta verdict. Prints each cycle of each twin.
+    Returns the launches of the pipelined twin's cycles."""
+    from volcano_tpu_torch import device as devmod
+    from volcano_tpu_torch.bench.clusters import build_config
+    from volcano_tpu_torch.pipeline import PipelineDriver
+    from volcano_tpu_torch.scheduler.scheduler import Scheduler
+    from volcano_tpu_torch.scheduler.util import scheduler_helper
+    from volcano_tpu_torch.scheduler.util.test_utils import build_pod, build_pod_group
+    from volcano_tpu_torch.api import objects
+
+    twins, gone = {}, set()
+    for name in ("pipelined", "serial"):
+        cache, *_ = build_config(5, scale)
+        oversized_backlog(cache, "64")
+        s = Scheduler(cache, loop_conf(device=device, dtype=dtype))
+        if name == "pipelined":
+            s.pipeline_driver = PipelineDriver(cache, s._cycle_policy, degrade=s.degrade)
+        twins[name] = dict(cache=cache, sched=s, rr=0)
+    profiles, restore = probe_profiles()
+    launches = {}
+    rows = []
+    try:
+        for k, kind in enumerate(PIPELINE_TRACE):
+            target = None
+            if kind == "delete":
+                target = sorted(twins["pipelined"]["cache"].binder.binds)[0]
+                gone.add(target)
+            for name, tw in twins.items():
+                cache = tw["cache"]
+                if kind == "gang":
+                    pg = f"fit-{k}"
+                    cache.add_pod_group(build_pod_group(pg, namespace="trace", min_member=4))
+                    for i in range(4):
+                        cache.add_pod(build_pod("trace", f"{pg}-t{i}", "", objects.POD_PHASE_PENDING,
+                                                {"cpu": "500m", "memory": "512Mi"}, pg))
+                elif kind == "delete":
+                    cache.delete_pod(find_pod(cache, target))
+                scheduler_helper._last_processed_node_index = tw["rr"]
+                profiles.clear()
+                if name == "pipelined":
+                    devmod.reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if name == "pipelined":
+                    info = tw["sched"].run_once_pipelined()
+                    action_ms = info.get("action_ms", {})
+                else:
+                    info = {}
+                    action_ms = tw["sched"].run_once()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+                tw["rr"] = scheduler_helper._last_processed_node_index
+                if name == "pipelined":
+                    for kk, v in devmod.launches().items():
+                        launches[kk] = launches.get(kk, 0) + v
+                prof = profiles[-1] if profiles else {}
+                row = {"cycle": k, "delta": kind, "twin": name, "session_ms": wall,
+                       "sync_points": prof.get("tpu_sync_points"),
+                       "fetch_wait_ms": prof.get("tpu_fence_wait_ms"),
+                       "tpu_overlap_ms": prof.get("tpu_overlap_ms"),
+                       "action_ms": action_ms}
+                for key in ("mode", "spec", "spec_commit", "dispatch_ms",
+                            "fetch_wait_ms", "stage_device_ms", "device_overlap_ms",
+                            "overlap_ms", "close_ms"):
+                    if key in info:
+                        row["cycle_" + key] = info[key]
+                rows.append(row)
+                print(json.dumps(row), flush=True)
+    finally:
+        restore()
+    drv = twins["pipelined"]["sched"].pipeline_driver
+    drv.abandon()
+    for tw in twins.values():
+        tw["cache"].flush_mirror()
+        check_binds(tw["cache"], 5, gone=gone)
+    stats = dict(drv.stats)
+    check_accounting(stats)
+    if signature(twins["pipelined"]["cache"]) != signature(twins["serial"]["cache"]):
+        raise AssertionError("pipeline: pipelined and serial end states differ")
+    scoped = {r: n for r, n in stats["spec_discards"].items()
+              if r.startswith("readset:") or r == "watch_delta"}
+    if stats["spec_applied"] < 1 or not scoped:
+        raise AssertionError(f"pipeline: no commit or no read-set discard {stats}")
+    idle = [k for k in ALLOC_KERNELS if not launches.get(k)]
+    if idle and device == "cuda":
+        raise AssertionError(f"pipeline: kernels never launched: {idle}")
+    print(json.dumps({"pipeline": f"cfg5@{scale} + backlog", "card": CARD,
+                      "stats": {k: stats[k] for k in (
+                          "cycles", "spec_dispatched", "spec_applied", "spec_discarded",
+                          "spec_discards", "spec_commits", "spec_skips")},
+                      "binds": len(twins["serial"]["cache"].binder.binds)}), flush=True)
+    return launches
+
+
+def scheduler_loop_phase(arrival_s=8.0, period=4.0, scale=1.0, device="cuda",
+                         dtype="float32", express_p99_ms=None):
+    """Scheduler(cfg5, TPU_SCHEDULER_CONF in rounds mode, express=True,
+    pipeline=True).run() on its own thread: first until a speculative
+    stage has committed, then under bench.py --express's arrivals (the
+    Poisson arrivals of each 20 ms at 50 jobs/s, one pod of 100m/250m and
+    128Mi/256Mi each, seed 7) for ``arrival_s`` seconds, then until every
+    arrival is bound; then stop(). Asserts every arrival bound, at least 3
+    cycles, a committed stage, automatic GC off while the loop ran and
+    restored after, and no "scheduling cycle failed" or "express run
+    failed" record. Prints the lane's p50/p99/max batch ms (beside
+    ``express_p99_ms``, the express phase's p99 outside the loop's GC
+    policy, when that phase ran) and the collections the interpreter ran
+    while the loop ran. Returns the launches over the loop's run."""
+    import gc
+    import logging
+    import random
+
+    from volcano_tpu_torch import device as devmod
+    from volcano_tpu_torch.api import objects
+    from volcano_tpu_torch.bench.clusters import build_config
+    from volcano_tpu_torch.express import ExpressLane
+    from volcano_tpu_torch.scheduler.scheduler import Scheduler
+    from volcano_tpu_torch.scheduler.util.test_utils import build_pod, build_pod_group
+
+    cache, *_ = build_config(5, scale)
+    oversized_backlog(cache, "64")
+    s = Scheduler(cache, loop_conf(device=device, dtype=dtype), schedule_period=period,
+                  express=True, pipeline=True)
+    lane = ExpressLane(cache, device=device, dtype=dtype)
+    reps = []
+    real_run = lane.run_once
+
+    def run_once():
+        rep = real_run()
+        reps.append(rep)
+        return rep
+
+    lane.run_once = run_once
+    s.express_lane = lane
+
+    class Failures(logging.Handler):
+        def __init__(self):
+            super().__init__(logging.ERROR)
+            self.seen = []
+
+        def emit(self, record):
+            msg = record.getMessage()
+            if "scheduling cycle failed" in msg or "express run failed" in msg:
+                self.seen.append(msg)
+
+    failures = Failures()
+    logging.getLogger().addHandler(failures)
+    collections = {}
+    gc_t = {}
+
+    def gc_probe(phase, info):
+        if phase == "start":
+            gc_t["t"] = time.perf_counter()
+        elif "t" in gc_t:
+            g = f"gen{info['generation']}"
+            n, ms = collections.get(g, (0, 0.0))
+            collections[g] = (n + 1, ms + (time.perf_counter() - gc_t.pop("t")) * 1e3)
+
+    rng = random.Random(7)
+    keys = []
+
+    def burst():
+        n, budget = 0, 0.02
+        while True:
+            gap = rng.expovariate(50.0)
+            if gap > budget and n > 0:
+                break
+            budget -= gap
+            n += 1
+        for _ in range(max(n, 1)):
+            pg = f"xpl-{len(keys):05d}"
+            cache.add_pod_group(build_pod_group(pg, namespace="express", min_member=1))
+            cache.add_pod(build_pod("express", f"{pg}-t0", "", objects.POD_PHASE_PENDING,
+                                    {"cpu": f"{rng.choice([100, 250])}m",
+                                     "memory": rng.choice(["128Mi", "256Mi"])}, pg))
+            keys.append(f"express/{pg}-t0")
+
+    was = gc.isenabled()
+    gc.enable()
+    enabled = []
+    torch.cuda.synchronize()
+    devmod.reset_launches()
+    gc.callbacks.append(gc_probe)
+    t0 = time.perf_counter()
+    s.run()
+    try:
+        # the loop thread installs the policy before its first cycle;
+        # sample from the first cycle's end on
+        deadline = time.perf_counter() + 120.0
+        while s.pipeline_driver.stats["cycles"] < 1 and time.perf_counter() < deadline:
+            time.sleep(0.01)
+        while (s.pipeline_driver.stats["spec_applied"] < 1
+               and time.perf_counter() < deadline):
+            enabled.append(gc.isenabled())
+            time.sleep(0.05)
+        t_arrivals = time.perf_counter()
+        while time.perf_counter() - t_arrivals < arrival_s:
+            burst()
+            enabled.append(gc.isenabled())
+            time.sleep(0.02)
+        deadline = time.perf_counter() + 60.0
+        while (any(k not in cache.binder.binds for k in keys)
+               and time.perf_counter() < deadline):
+            enabled.append(gc.isenabled())
+            time.sleep(0.05)
+    finally:
+        gc.callbacks.remove(gc_probe)
+        s.stop()
+        logging.getLogger().removeHandler(failures)
+    wall = time.perf_counter() - t0
+    restored = gc.isenabled()
+    (gc.enable if was else gc.disable)()
+    counts = devmod.launches()
+    stats = dict(s.pipeline_driver.stats)
+    unbound = [k for k in keys if k not in cache.binder.binds]
+    in_order = [r["ms"] for r in reps if r.get("batches")]
+    batches = sorted(in_order)
+    out = {"loop": f"cfg5@{scale} + backlog, express + pipeline", "card": CARD,
+           "wall_s": wall, "period_s": period, "arrivals": len(keys),
+           "unbound": len(unbound), "lane_batches": len(batches),
+           "lane_placed": lane.counters["placed"],
+           "cycles": stats["cycles"], "spec_applied": stats["spec_applied"],
+           "spec_commits": stats["spec_commits"],
+           "spec_discards": stats["spec_discards"], "spec_skips": stats["spec_skips"],
+           "gc_enabled_while_running": any(enabled), "gc_restored": restored,
+           "collections": {g: {"n": n, "ms": ms} for g, (n, ms) in collections.items()},
+           "launches": {k: v for k, v in counts.items() if v}}
+    if batches:
+        def pick(q):
+            return batches[min(int(q * len(batches)), len(batches) - 1)]
+        out.update(p50_ms=pick(0.5), p99_ms=pick(0.99), max_ms=batches[-1],
+                   max_batch_index=in_order.index(batches[-1]),
+                   first_batch_ms=in_order[0], express_phase_p99_ms=express_p99_ms)
+    print(json.dumps(out), flush=True)
+    if failures.seen:
+        raise AssertionError(f"loop: failure records {failures.seen[:3]}")
+    if unbound:
+        raise AssertionError(f"loop: {len(unbound)} arrivals never bound")
+    if stats["cycles"] < 3 or stats["spec_applied"] < 1:
+        raise AssertionError(f"loop: too few cycles or no commit {stats}")
+    if any(enabled) or not restored:
+        raise AssertionError(f"loop: GC policy not held ({any(enabled)}, {restored})")
+    if not batches:
+        raise AssertionError("loop: the lane never placed a batch")
+    check_binds(cache, 5)
+    idle = [k for k in ALLOC_KERNELS + ("express_place",) if not counts.get(k)]
+    if idle and device == "cuda":
+        raise AssertionError(f"loop: kernels never launched: {idle}")
+    return counts
+
+
 def scatter_kernel_phase(node_dev, lane_dev):
     """K8 against its plain version (index_copy_) with torch.equal, on
     clones of the cfg5 replica's node family (N = 10000) with 1, 16, 100
@@ -1645,13 +2133,23 @@ def express_kernel_phase(captured):
     return records
 
 
+PHASE_GROUPS = ("allocate", "express", "parity", "pipeline", "loop")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=float, default=1.0,
                     help="cluster scale of the cfg2/3/5 sessions (1.0 = full)")
+    ap.add_argument("--only", default="",
+                    help="comma-separated phase groups to run (default: all): "
+                         + ",".join(PHASE_GROUPS))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device is available")
+        return 2
+    groups = set(args.only.split(",")) if args.only else set(PHASE_GROUPS)
+    if groups - set(PHASE_GROUPS):
+        log(f"chip_smoke: unknown phase groups {sorted(groups - set(PHASE_GROUPS))}")
         return 2
     import volcano_tpu_torch  # noqa: F401  (fails outside the repository)
     from volcano_tpu_torch import _build
@@ -1671,29 +2169,42 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
-    records = kernel_phase(args.scale)
-    reference_check()
-    launches, captured = session_phase(args.scale)
-    records += evict_kernel_phase(captured)
-    records += fused_kernel_phase(captured)
-    from volcano_tpu_torch.ops.replica import FAMILIES
+    records, launches, express_p99 = [], {}, None
+    if "allocate" in groups:
+        records = kernel_phase(args.scale)
+        reference_check()
+        launches, captured = session_phase(args.scale)
+        records += evict_kernel_phase(captured)
+        records += fused_kernel_phase(captured)
+    if "express" in groups:
+        from volcano_tpu_torch.ops.replica import FAMILIES
 
-    express_parity_phase()
-    _, launches["express"], xcaptured, lane = express_lane_phase()
-    launches["replica"], rep = replica_phase()
-    preempt_terminal_phase()
-    for path, kernels in (("express", ("express_place", "scatter_rows")),
-                          ("replica", ("scatter_rows",))):
-        idle = [k for k in kernels if not launches[path][k]]
-        if idle:
-            raise AssertionError(f"{path}: kernels never launched: {idle}")
-    records += express_kernel_phase(xcaptured)
-    records += scatter_kernel_phase({k: rep.dev[k] for k in FAMILIES["node"]},
-                                    lane.state.dev)
+        express_parity_phase()
+        xsum, launches["express"], xcaptured, lane = express_lane_phase()
+        express_p99 = xsum["p99_ms"]
+        launches["replica"], rep = replica_phase()
+        preempt_terminal_phase()
+        for path, kernels in (("express", ("express_place", "scatter_rows")),
+                              ("replica", ("scatter_rows",))):
+            idle = [k for k in kernels if not launches[path][k]]
+            if idle:
+                raise AssertionError(f"{path}: kernels never launched: {idle}")
+        records += express_kernel_phase(xcaptured)
+        records += scatter_kernel_phase({k: rep.dev[k] for k in FAMILIES["node"]},
+                                        lane.state.dev)
+        del lane, rep
+    if "parity" in groups:
+        rec, launches["parity"] = parity_phase(args.scale)
+        records.append(rec)
+    if "pipeline" in groups:
+        launches["pipeline"] = pipeline_phase(args.scale)
+    if "loop" in groups:
+        launches["loop"] = scheduler_loop_phase(express_p99_ms=express_p99)
     # each kernel's launches on the path that runs it: K1-K5 on cfg5; the
     # per-action K9 on cfg4's and K10 on the reclaim path's per-action run;
     # K11, K13 and the fused K9 on cfg4's fused run, the fused K10 on the
-    # reclaim path's
+    # reclaim path's; K8 and K14 on the express lane (a record names its
+    # path), K15 on the cfg2 parity session
     path_of = {"evict_preempt": (4, "per_action"),
                "evict_reclaim": ("reclaim", "per_action"),
                "evict_backfill": 4, "fuse_heaps_preempt": 4,

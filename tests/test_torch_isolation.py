@@ -167,6 +167,63 @@ def test_express_batch_and_replica_sessions_load_no_jax_module():
     assert "LOADED []" in out.stdout, out.stdout
 
 
+_LOOP_AND_PARITY = r"""
+import sys
+import torch
+torch.set_num_threads(1)
+from volcano_tpu_torch.bench.clusters import CONFIGS, build_config, make_tiers
+from volcano_tpu_torch.scheduler.framework import close_session, open_session, run_actions
+from volcano_tpu_torch.scheduler.scheduler import TPU_SCHEDULER_CONF, Scheduler
+import volcano_tpu_torch.scheduler.actions, volcano_tpu_torch.scheduler.plugins
+conf = TPU_SCHEDULER_CONF.replace(
+    "  - name: tpuscore\n",
+    "  - name: tpuscore\n    arguments:\n      tpuscore.mode: rounds\n"
+    "      tpuscore.device: cpu\n      tpuscore.dtype: float64\n")
+from volcano_tpu_torch.api import objects
+from volcano_tpu_torch.scheduler.util.test_utils import build_pod, build_pod_group
+cache, _, _, _, n = build_config(5, 0.01)
+# a backlog no node holds: the next cycle's session still has a solve
+cache.add_pod_group(build_pod_group("huge", namespace="backlog", min_member=1))
+cache.add_pod(build_pod("backlog", "huge-t0", "", objects.POD_PHASE_PENDING,
+                        {"cpu": "640", "memory": "1Gi"}, "huge"))
+s = Scheduler(cache, conf, pipeline=True)
+s.run()
+s.stop()
+info = s.run_once_pipelined()
+assert info["mode"] == "pipelined" and info["spec"] == "dispatched", info
+assert s.pipeline_driver._inflight is not None
+s.pipeline_driver.abandon()
+assert len(cache.binder.binds) > 0
+cache, _, _, _, n = build_config(2, 0.02)
+tiers = make_tiers(["tpuscore"], *CONFIGS[2].tiers, arguments={"tpuscore": {
+    "tpuscore.mode": "parity", "tpuscore.device": "cpu", "tpuscore.dtype": "float64"}})
+ssn = open_session(cache, tiers)
+run_actions(ssn, ["allocate"])
+mode = ssn.plugins["tpuscore"].profile.get("mode")
+close_session(ssn)
+assert mode == "parity", mode
+assert len(cache.binder.binds) > 0
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0].startswith("jax") or m.split(".")[0] == "volcano_tpu")
+print("LOADED", bad)
+"""
+
+
+def test_scheduler_cycle_and_parity_session_load_no_jax_module():
+    """One pipelined Scheduler cycle (the driver, its solve-ahead, the
+    conf reader, the GC policy) and one parity-mode session (K15's plain
+    version) run without loading jax or the JAX package."""
+    for f in ("scheduler/scheduler.py", "pipeline/driver.py",
+              "ops/parity_kernels.py", "utils/gcpolicy.py"):
+        assert os.path.join(PORT, f) in set(_port_files()), f
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", _LOOP_AND_PARITY],
+                         cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "LOADED []" in out.stdout, out.stdout
+
+
 def test_every_kernel_source_is_built():
     """Every csrc/*.cu (K13's fuse_heaps.cu among them) is a kernel the
     builder compiles, and a CUDA source includes only the toolkit's
@@ -175,7 +232,7 @@ def test_every_kernel_source_is_built():
 
     csrc = os.path.join(PORT, "csrc")
     sources = sorted(f[:-3] for f in os.listdir(csrc) if f.endswith(".cu"))
-    assert {"fuse_heaps", "express_place", "scatter_rows"} <= set(sources)
+    assert {"fuse_heaps", "express_place", "scatter_rows", "parity_scan"} <= set(sources)
     assert sources == sorted(_build.KERNELS)
     for f in os.listdir(csrc):
         if not f.endswith((".cu", ".cuh")):

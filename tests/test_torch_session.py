@@ -111,11 +111,33 @@ def test_serial_session_binds_match_reference(cfg, scale):
 
 
 def test_parity_mode_is_not_ported_yet():
+    """tpuscore.mode: parity runs the parity scan (K15) and binds what the
+    serial loop binds, and the cursor ends where the serial helper's
+    does; any mode but auto/parity/rounds still raises."""
+    from volcano_tpu_torch.scheduler.util import scheduler_helper
+
+    runs = []
+    for args in ({"tpuscore.enable": "false"},
+                 {"tpuscore.mode": "parity", "tpuscore.device": "cpu"}):
+        cache = tclusters.make_cache()
+        tclusters.CONFIGS[1].populate(cache, 0.1)
+        tiers = tclusters.make_tiers(["tpuscore"], ["priority", "gang"],
+                                     arguments={"tpuscore": args})
+        ssn = tframework.open_session(cache, tiers)
+        tframework.run_actions(ssn, ["allocate"])
+        prof = dict(ssn.plugins["tpuscore"].profile)
+        tframework.close_session(ssn)
+        runs.append((cache.binder.binds, scheduler_helper._last_processed_node_index,
+                     prof.get("mode")))
+    (serial, rr_serial, _), (parity, rr_parity, mode) = runs
+    assert mode == "parity"
+    assert parity == serial and len(parity) > 0
+    assert rr_parity == rr_serial
     cache = tclusters.make_cache()
     tclusters.CONFIGS[1].populate(cache, 0.1)
     tiers = tclusters.make_tiers(["tpuscore"], ["priority", "gang"], arguments={
-        "tpuscore": {"tpuscore.mode": "parity", "tpuscore.device": "cpu"}})
-    with pytest.raises(NotImplementedError, match="parity"):
+        "tpuscore": {"tpuscore.mode": "oracle", "tpuscore.device": "cpu"}})
+    with pytest.raises(ValueError, match="oracle"):
         tframework.open_session(cache, tiers)
 
 

@@ -30,7 +30,7 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD = os.path.join(CSRC, "build")
 KERNELS = ("score_block", "window_topk", "resolve_prefix", "queue_budget",
            "evict_preempt", "evict_reclaim", "evict_backfill", "fuse_heaps",
-           "scatter_rows", "express_place")
+           "scatter_rows", "express_place", "parity_scan")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

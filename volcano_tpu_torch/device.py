@@ -37,6 +37,7 @@ LAUNCHES: Dict[str, int] = {
     "fuse_heaps_reclaim": 0,
     "scatter_rows": 0,
     "express_place": 0,
+    "parity_scan": 0,
 }
 
 

@@ -1,20 +1,29 @@
 """Batch-allocator orchestration: encode -> pad -> stage -> solve -> apply.
 
-Port of volcano_tpu/ops/solver.py, rounds mode only. The tpuscore plugin
+Port of volcano_tpu/ops/solver.py. The tpuscore plugin
 (scheduler/plugins/tpuscore.py) attaches a BatchAllocator to the session,
 and actions/allocate.py hands the whole placement pass to it. The padded
-encoded snapshot is staged on the device by ``from_numpy_encoded``, solved
-by ``rounds.solve_rounds``, fetched back as ONE packed array, and applied
-in bulk with the same end state as the statement path.
+encoded snapshot is staged on the device by ``from_numpy_encoded``, solved,
+fetched back as ONE array, and applied:
 
-The state-dependent accounting arrays (ops/replica.py SERVED) ride the
-cache's standing device replica: committed deltas since the last session
-become bucketed row scatters (K8) into the standing tensors, and an
-unchanged session reuses the whole previous prepare bundle.
+- rounds mode: ``rounds.solve_rounds``, the packed result, and the bulk
+  writeback with the same end state as the statement path. The
+  state-dependent accounting arrays (ops/replica.py SERVED) ride the
+  cache's standing device replica: committed deltas since the last
+  session become bucketed row scatters (K8) into the standing tensors,
+  and an unchanged session reuses the whole previous prepare bundle.
+- parity mode: the sequential scan K15 (ops/parity_kernels.py
+  ``solve_allocate``), replayed through per-job Statements; its binds
+  equal the serial loop's. The round-robin cursor carries into
+  ``scheduler_helper._last_processed_node_index`` as the serial helper
+  carries it. Parity mode keeps the encoder's session-wide fallback (no
+  residue), and the replica is not consulted beyond the whole-encode memo
+  probe, which never hits: only rounds prepares are stored, and the token
+  carries the mode.
 
-Left out here: the parity scan (a later slice), the mesh, the native
-fast-apply loop, and the serial fallback on a solve error — in the port a
-build, launch or solve failure raises.
+Left out here: the mesh, the native fast-apply loop, and the serial
+fallback on a solve error — in the port a build, launch or solve failure
+raises.
 """
 
 from __future__ import annotations
@@ -218,6 +227,8 @@ class BatchAllocator:
     threshold).
 
     mode:
+      - "parity": the sequential scan (ops/parity_kernels.py, K15), binds
+        identical to the serial loop's (one device step per task);
       - "rounds": the bulk-synchronous solve (ops/rounds.py);
       - "auto" (default): rounds when tasks >= AUTO_ROUNDS_THRESHOLD, else
         the serial host loop.
@@ -227,8 +238,8 @@ class BatchAllocator:
 
     def __init__(self, device=None, dtype=None,
                  profile: Optional[dict] = None, mode: str = "auto"):
-        if mode not in ("auto", "rounds"):
-            raise ValueError(f"BatchAllocator mode {mode!r} (auto/rounds)")
+        if mode not in ("auto", "parity", "rounds"):
+            raise ValueError(f"BatchAllocator mode {mode!r} (auto/parity/rounds)")
         self.device = devmod.resolve_device(device)
         self.dtype = devmod.resolve_dtype(dtype, self.device)
         self.mode = mode
@@ -239,16 +250,17 @@ class BatchAllocator:
         bundle consumed by __call__, or None after recording the fallback
         reason in the profile (the caller then runs the serial loop)."""
         t0 = time.perf_counter()
-        # the bulk writeback bypasses the Statement event machinery and
-        # hardcodes drf/proportion share updates; any other plugin would
-        # silently lose its allocate-event effects
-        unknown = {
-            p.name for tier in ssn.tiers for p in tier.plugins
-        } - ROUNDS_SAFE_PLUGINS
-        if unknown:
-            self.profile["fallback"] = (
-                f"rounds apply cannot honor custom plugins: {sorted(unknown)}")
-            return None
+        if self.mode in ("rounds", "auto"):
+            # the bulk writeback bypasses the Statement event machinery and
+            # hardcodes drf/proportion share updates; any other plugin
+            # would silently lose its allocate-event effects
+            unknown = {
+                p.name for tier in ssn.tiers for p in tier.plugins
+            } - ROUNDS_SAFE_PLUGINS
+            if unknown:
+                self.profile["fallback"] = (
+                    f"rounds apply cannot honor custom plugins: {sorted(unknown)}")
+                return None
         # whole-encode reuse (ops/replica.py): when NOTHING the encode
         # reads has moved since the last prepare — the cache's pipeline
         # fingerprint, the tiers identity, the round-robin cursor, the
@@ -271,8 +283,10 @@ class BatchAllocator:
                 self.profile["replica_epoch"] = rep.replica_epoch
                 return prev
         try:
-            # un-modeled constructs stay PENDING as a serial residue
-            enc = encode_session(ssn, allow_residue=True)
+            # rounds mode leaves un-modeled constructs PENDING as a serial
+            # residue; parity mode stays bit-exact, so it keeps the
+            # session-wide fallback to the serial loop
+            enc = encode_session(ssn, allow_residue=self.mode in ("rounds", "auto"))
         except EncoderFallback as e:
             logger.info("tpuscore falling back to serial allocate: %s", e)
             self.profile["fallback"] = str(e)
@@ -291,6 +305,21 @@ class BatchAllocator:
             return None
 
         arrays = cast_arrays(pad_encoded(enc), self.dtype)
+        # host half of the read set the pipeline seals at a speculative
+        # dispatch: the job uids the solve encoded, the queue/namespace
+        # rows it consumed, and whether the apply reads the whole node
+        # axis serially (residue or releasing capacity)
+        readset = dict(job_uids=[j.uid for j in enc.job_infos],
+                       queue_ids=list(enc.queue_uids),
+                       ns_ids=list(enc.ns_names),
+                       read_all_nodes=bool(enc.residue_count or enc.has_releasing))
+        if self.mode == "parity":
+            t1 = time.perf_counter()
+            staged = from_numpy_encoded(arrays, device=self.device,
+                                        dtype=self.dtype, profile=self.profile)
+            return dict(mode="parity", enc=enc, spec=enc.spec, staged=staged,
+                        t0=t0, t1=t1, h2d_s=time.perf_counter() - t1,
+                        readset=readset)
         rounds_arrays = {k: v for k, v in arrays.items() if k not in _ROUNDS_SKIP}
         # diminishing-returns floor and straggler rounds, keyed to the
         # padded buckets; only when the class axis spans several chunks
@@ -316,8 +345,8 @@ class BatchAllocator:
         if rep_part:
             staged.update(rep.serve(rep_part, ssn, enc, place, self.profile))
         t2 = time.perf_counter()
-        prep = dict(enc=enc, spec=spec, staged=staged, t0=t0, t1=t1,
-                    h2d_s=t2 - t1)
+        prep = dict(mode="rounds", enc=enc, spec=spec, staged=staged, t0=t0,
+                    t1=t1, h2d_s=t2 - t1, readset=readset)
         if rep is not None:
             # token recomputed AFTER the serve: the serve bumps the
             # replica epoch (a fingerprint component), and the stored
@@ -371,6 +400,13 @@ class BatchAllocator:
         )
         return True
 
+    @staticmethod
+    def dispatch(prep: dict) -> torch.Tensor:
+        """Launch a rounds prepare's solve; returns the packed result
+        (assign, touched mask, profile tail) on the device, unfetched."""
+        raw = rounds_mod.solve_rounds(prep["spec"], prep["staged"])
+        return rounds_mod.pack_result(prep["staged"], raw)
+
     def __call__(self, ssn) -> bool:
         from volcano_tpu_torch.utils import devprof
 
@@ -379,13 +415,86 @@ class BatchAllocator:
             if prep is None:
                 return False
             tp = time.perf_counter()
-            raw = rounds_mod.solve_rounds(prep["spec"], prep["staged"])
+            if prep["mode"] == "parity":
+                return self._solve_parity(ssn, prep)
             # ONE fetch of the packed result (assign, touched mask, profile)
-            out = devprof.fetch(rounds_mod.pack_result(prep["staged"], raw))
+            out = devprof.fetch(self.dispatch(prep))
             self.profile["h2d_s"] = prep["h2d_s"]
             self.profile["dispatch_s"] = time.perf_counter() - tp
             assign, meta = self.parse_packed(out)
             return self.apply_packed(ssn, prep, assign, meta)
+
+    def _solve_parity(self, ssn, prep: dict) -> bool:
+        """K15 over the staged encode, one fetch of (assign, rr), the
+        cursor carried on, and the statement replay."""
+        from volcano_tpu_torch.ops import parity_kernels
+        from volcano_tpu_torch.scheduler.util import scheduler_helper
+        from volcano_tpu_torch.utils import devprof
+
+        enc = prep["enc"]
+        out = devprof.fetch(parity_kernels.solve_allocate(
+            enc.spec, prep["staged"], enc.rr0, enc.num_to_find))
+        assign = out[:-1]
+        # the round-robin index continues across sessions exactly like the
+        # serial helper's (scheduler_helper.go:38)
+        scheduler_helper._last_processed_node_index = int(out[-1])
+        t2 = time.perf_counter()
+        self.profile["mode"] = "parity"
+        self._apply(ssn, enc, assign)
+        t3 = time.perf_counter()
+        t, n, j, *_ = enc.shape
+        self.profile.update(
+            encode_s=prep["t1"] - prep["t0"], solve_s=t2 - prep["t1"],
+            apply_s=t3 - t2, h2d_s=prep["h2d_s"],
+            tasks=t, nodes=n, jobs=j,
+            placed=int((assign[: len(enc.task_infos)] >= 0).sum()),
+            residue=enc.residue_count,
+            has_releasing=enc.has_releasing,
+        )
+        return True
+
+    def _apply(self, ssn, enc: EncodedSnapshot, assign: np.ndarray) -> None:
+        """Replay the parity scan's placements through per-job statements;
+        every committed job is gang-ready by construction, so
+        stmt.commit() dispatches binds exactly as the serial path would."""
+        from volcano_tpu_torch.api.unschedule_info import FitErrors
+
+        start = enc.arrays["job_task_start"]
+        count = enc.arrays["job_task_count"]
+        for ji, job in enumerate(enc.job_infos):
+            lo, hi = int(start[ji]), int(start[ji]) + int(count[ji])
+            placed = [
+                (ti, int(assign[ti])) for ti in range(lo, hi) if assign[ti] >= 0
+            ]
+            if len(placed) < hi - lo and not job.ready():
+                # the solve left this gang short: record a fit error for
+                # the first unplaced task so gang.on_session_close emits the
+                # same Unschedulable condition as the serial path
+                for ti in range(lo, hi):
+                    if assign[ti] < 0:
+                        fe = FitErrors()
+                        fe.set_error(
+                            "0/%d nodes are available in the batched "
+                            "feasibility/fit solve" % len(enc.node_names))
+                        job.nodes_fit_errors[enc.task_infos[ti].uid] = fe
+                        break
+            if not placed:
+                continue
+            stmt = ssn.statement()
+            ok = True
+            for ti, ni in placed:
+                task = enc.task_infos[ti]
+                try:
+                    stmt.allocate(task, enc.node_names[ni])
+                except (KeyError, RuntimeError) as e:  # pragma: no cover
+                    logger.error("tpuscore apply failed for %s -> %s: %s",
+                                 task.uid, enc.node_names[ni], e)
+                    ok = False
+                    break
+            if ok and ssn.job_ready(job):
+                stmt.commit()
+            else:  # pragma: no cover - device decisions are gang-consistent
+                stmt.discard()
 
     def _apply_bulk(self, ssn, enc: EncodedSnapshot, assign: np.ndarray) -> None:
         """Bulk writeback for rounds mode: same end state as the statement

@@ -15,10 +15,10 @@ Arguments:
     tpuscore.dtype:  "float32"/"float64" (default float32 on the card,
                      float64 on the CPU; bf16 is refused — memory-byte
                      epsilons need more than 8 mantissa bits)
-    tpuscore.mode:   "rounds"/"auto" (default auto — rounds for large
-                     sessions, the serial loop for small ones). "parity"
-                     (the sequential-scan oracle) raises
-                     NotImplementedError: it comes with a later slice.
+    tpuscore.mode:   "parity"/"rounds"/"auto" (default auto — rounds for
+                     large sessions, the serial loop for small ones;
+                     parity is the sequential scan, K15, whose binds equal
+                     the serial loop's). Any other mode raises.
 """
 
 from __future__ import annotations
@@ -51,13 +51,9 @@ class TpuScorePlugin(Plugin):
         from volcano_tpu_torch.ops.solver import BatchAllocator
 
         mode = str(args.get(MODE, "auto")) or "auto"
-        if mode == "parity":
-            raise NotImplementedError(
-                "tpuscore.mode: parity (the sequential-scan oracle, "
-                "kernels.solve_allocate) is not ported yet; it comes with "
-                "the parity-scan slice of the PyTorch port")
-        if mode not in ("auto", "rounds"):
-            raise ValueError(f"tpuscore.mode {mode!r} not supported (auto/rounds)")
+        if mode not in ("auto", "parity", "rounds"):
+            raise ValueError(
+                f"tpuscore.mode {mode!r} not supported (auto/parity/rounds)")
         ssn.batch_allocator = BatchAllocator(
             device=str(args.get(DEVICE, "cuda")) or "cuda",
             dtype=str(args.get(DTYPE, "")) or None,

@@ -13,7 +13,12 @@ port waits for the device routes through here so it can be counted:
 - ``readback(x)`` reads loop-control scalars (one sync point): the rounds
   solver's host-driven loop makes one per loop test;
 - ``note_overlappable(rows)`` counts a launch nobody waits for (the
-  device replica's row scatters).
+  device replica's row scatters);
+- ``register(x)`` tracks a launched result consumed on the device,
+  ``discard(x)`` forgets one without fetching it (the pipeline's
+  invalidated speculative stages), and ``fence(x)`` / ``drain()`` wait for
+  one or for everything tracked: on a CUDA event recorded behind the
+  result's producer (a counted sync point).
 
 ``session(profile)`` scopes the counters to one scheduler session; on exit
 ``tpu_sync_points``, ``tpu_d2h_fetches``, ``tpu_overlap_ms`` and
@@ -26,12 +31,37 @@ that owns it.
 from __future__ import annotations
 
 import time
-from typing import Callable, Optional
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 _active: Optional[dict] = None
+
+# launched results with a pending fetch or fence, as (tensor, CUDA event
+# recorded behind its producer, or None on the CPU); dropped once waited on
+_inflight: List[Tuple[torch.Tensor, Optional[torch.cuda.Event]]] = []
+
+
+def _forget(x) -> None:
+    """Drop ``x`` from the in-flight list by IDENTITY: list.remove would
+    compare tensors with ``==``, which broadcasts (and raises outright for
+    mismatched shapes, as soon as two solves of different buckets are in
+    flight)."""
+    for i, (t, _) in enumerate(_inflight):
+        if t is x:
+            del _inflight[i]
+            return
+
+
+def _behind(x: torch.Tensor) -> Optional[torch.cuda.Event]:
+    """A CUDA event recorded now on the current stream (behind the work
+    that produces ``x``), or None for a CPU tensor."""
+    if x.device.type != "cuda":
+        return None
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(x.device))
+    return done
 
 
 class _Collector(object):
@@ -103,10 +133,10 @@ def start_fetch(x: torch.Tensor) -> Callable[[], np.ndarray]:
     if x.device.type == "cuda":
         host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
         host.copy_(x, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record(torch.cuda.current_stream(x.device))
     else:
-        host, done = x, None
+        host = x
+    done = _behind(x)
+    _inflight.append((x, done))
 
     def wait() -> np.ndarray:
         t1 = time.perf_counter()
@@ -117,6 +147,7 @@ def start_fetch(x: torch.Tensor) -> Callable[[], np.ndarray]:
             _active["sync_points"] += 1
             _active["overlap_s"] += t1 - t0
             _active["fence_wait_s"] += time.perf_counter() - t1
+        _forget(x)
         return out
 
     return wait
@@ -131,6 +162,48 @@ def note_overlappable(rows: int = 0) -> None:
     if _active is not None:
         _active["overlappable_dispatches"] += 1
         _active["overlappable_rows"] += int(rows)
+
+
+def register(x: torch.Tensor) -> None:
+    """Track a launched result that is consumed on the device, so that a
+    later fence() waits for it."""
+    _inflight.append((x, _behind(x)))
+
+
+def discard(x) -> None:
+    """Forget a launched result WITHOUT fetching it: the pipeline's
+    invalidated speculative stages. The value is never read, and later
+    fence() calls no longer wait on it."""
+    _forget(x)
+
+
+def fence(x: Optional[torch.Tensor] = None) -> None:
+    """Wait until ``x`` (or, with no argument, every tracked result) is
+    computed: on the CUDA event recorded behind its producer, or by
+    synchronising its stream when it was never tracked. A counted sync
+    point. With no argument the waited results are forgotten."""
+    t0 = time.perf_counter()
+    if x is None:
+        targets = list(_inflight)
+    else:
+        targets = [e for e in _inflight if e[0] is x] or [(x, None)]
+    blocked = False
+    for t, done in targets:
+        if done is not None:
+            done.synchronize()
+        elif t.device.type == "cuda":
+            torch.cuda.current_stream(t.device).synchronize()
+        blocked = True
+        if x is None:
+            _forget(t)
+    if _active is not None and blocked:
+        _active["sync_points"] += 1
+        _active["fence_wait_s"] += time.perf_counter() - t0
+
+
+def drain() -> None:
+    """fence() of everything in flight."""
+    fence(None)
 
 
 def readback(x):
