@@ -3,24 +3,32 @@
 Run from the repository root on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py               # full scale: cfg2, cfg3, cfg5, cfg4
-    python3 chip_smoke.py --scale 0.05  # cfg2/3/5 smaller; cfg4 stays full
+    python3 chip_smoke.py --scale 0.05  # cfg2/3/5 smaller; cfg4, cfg6 and K7's phase stay full
     python3 chip_smoke.py --only parity,pipeline  # some phase groups only
 
-Phase groups (``--only``; all by default): allocate (phases 2-5),
+Phase groups (``--only``; all by default): allocate (phases 2-5, 3b),
 express (6-10), parity (11), pipeline (12), loop (13).
+
+Every rounds solve on the card is one replay of its bucket's CUDA graph
+(K7, volcano_tpu_torch/ops/rounds_graph.py): the kernel wrappers launch
+while the graph is captured, so a launch count is the kernels captured in
+each graph body times the times the body ran, added when the solve's
+result is fetched.
 
 Phases, each failing the run on any error:
 
-1. the card's name and power limit (nvidia-smi), then the build of every
-   CUDA kernel under volcano_tpu_torch/csrc, one nvcc per source, in
-   parallel;
+1. the card's name and power limit (nvidia-smi), the torch, CUDA and
+   driver versions, then the build of every CUDA kernel under
+   volcano_tpu_torch/csrc, one nvcc per source, in parallel;
 2. kernel phase (allocate): one cfg5 allocate session on the card records
    the first input each kernel wrapper sees on that path (K1 score_block
    full and dirty-column, K2 window_topk, K4 resolve_prefix, K5
    queue_budget); each kernel is then held against its plain PyTorch
    version on those inputs with torch.equal (exact), and both are timed
    with CUDA events; the same session times the rounds solver's torch-op
-   parts (K2b, K3, K6) with CUDA events around each call;
+   parts (K2b, K3, K6) with CUDA events around each call. These sessions
+   run the step machine from the host (loop="host"), so each call is an
+   eager launch;
 3. reference check: small sessions in float64 on the card give the same
    binds (and, for the eviction sessions, the same evictions in order) as
    the same sessions on the CPU (plain versions): cfg5, and cfg4 and the
@@ -31,9 +39,22 @@ Phases, each failing the run on any error:
    preempt and reclaim), falls back to preempt's serial walk (recorded in
    the profile and the fallback counter) and still gives the CPU's binds
    and evictions;
-4. session phase: cfg2 (5k x 1k), cfg3 (20k x 5k) and cfg5 (50k x 10k)
+3b. K7, the rounds loop: cfg2, cfg3, cfg5 and cfg6 solves at full scale
+   (the solver's own encode; the first solves of these buckets in the
+   run): the graph solve, cold (it captures) and
+   warm (it must not), is torch.equal to the host-driven step machine on
+   the card (loop="host": the plain controller and tail) with exactly one
+   sync point, the fetch; K7a rounds_ctl is held against its plain
+   version on every controller input the host runs recorded, K7b
+   tail_pass on the capped cfg6 tail's inputs (every state tensor), both
+   timed; solve ms of the graph beside the host loop, the capture ms and
+   the graphs cached are printed;
+4. session phase: cfg2 (5k x 1k), cfg3 (20k x 5k), cfg5 (50k x 10k) and
+   cfg6 (cfg2 with anti-affinity groups, always at full scale: it caps
+   and runs the tail pass)
    through build_config -> open_session -> run_actions(["allocate"]) ->
-   close_session, twice each; then cfg4 (30k x 8k) and the reclaim path
+   close_session, twice each (the second session of a bucket must capture
+   no graph); then cfg4 (30k x 8k) and the reclaim path
    (an overcommitted two-queue cluster of cfg4's width under the
    reclaim-tier conf, where reclaim evicts: cfg4's preempt pipelines every
    pending task, so its reclaim has nothing to do) through
@@ -41,7 +62,8 @@ Phases, each failing the run on any error:
    the fused session chain and once more on the per-action path
    (VOLCANO_TPU_FUSE=0), each on a fresh cache with tpuscore on cuda.
    Launch counters are zeroed just before each run and read just after:
-   every kernel of the path must have launched (K1/K2/K4/K5 everywhere;
+   every kernel of the path must have launched (K1/K2/K4/K5 and K7a
+   everywhere, K7b exactly once on cfg6;
    on a fused run K13 fuse_heaps twice, the fused K9 and K10 once each and
    K11 once where backfill has work, and no per-action K9/K10; on the
    per-action run K9 and K11 on cfg4, K9 and K10 on the reclaim path, and
@@ -101,7 +123,9 @@ Phases, each failing the run on any error:
    Scheduler.run_once() on twins with their own cursors over 8 cycles
    (quiet, a fitting gang, quiet, a bound pod deleted, quiet, a gang,
    quiet, quiet): equal end signatures, the driver's accounting, at least
-   one commit and one read-set or watch-delta discard; each cycle of each
+   one commit and one read-set or watch-delta discard, and on each
+   committed stage a device overlap of at least half its device time (the
+   dispatch returns before the solve ends); each cycle of each
    twin printed (session ms, sync points, fetch wait, tpu_overlap_ms, the
    stage's dispatch and device times, action ms);
 13. the scheduler loop at cfg5: Scheduler(express=True, pipeline=True)
@@ -374,22 +398,20 @@ def capture_inputs():
 
 
 # the rounds solver's parts that stay torch ops (ROADMAP Queue 2 K2b, K3,
-# K6) and its host-driven loop (K7): counted on the cfg5 session
+# K6), timed call by call on a cfg5 session of the host-driven machine;
+# inside the solve's graph they run as captured nodes
 TORCH_OP_ROWS = {
     "K2b": ("_cap_walk", "_nominate_full"),
     "K3": ("_select",),
     "K6": ("_job_rank", "_rank_in_class", "_excl_grank"),
-    "K7": ("solve_rounds",),
 }
 
 
-def tensor_bytes(x, dicts=False):
+def tensor_bytes(x):
     if isinstance(x, torch.Tensor):
         return nbytes(x)
     if isinstance(x, (tuple, list)):
-        return sum(tensor_bytes(v, dicts) for v in x)
-    if dicts and isinstance(x, dict):
-        return sum(tensor_bytes(v, dicts) for v in x.values())
+        return sum(tensor_bytes(v) for v in x)
     return 0
 
 
@@ -397,8 +419,8 @@ def count_torch_ops():
     """Wrap the torch-op rows' functions: calls per session, CUDA events
     around each call (the span on the stream from its first launch to its
     last), and the bytes of the first call's tensor arguments and results
-    (solve_rounds: with the whole encode it reads; the others: without
-    the encoded fields they read, so their bound is a lower one)."""
+    (without the encoded fields they read, so their bound is a lower
+    one)."""
     from volcano_tpu_torch.ops import rounds
 
     calls, first, events = {}, {}, {}
@@ -414,9 +436,8 @@ def count_torch_ops():
             events.setdefault(name, []).append((start, end))
             calls[name] = calls.get(name, 0) + 1
             if name not in first:
-                whole = name == "solve_rounds"
-                first[name] = tensor_bytes(args, whole) \
-                    + tensor_bytes(list(kw.values()), whole) + tensor_bytes(out, whole)
+                first[name] = tensor_bytes(args) + tensor_bytes(list(kw.values())) \
+                    + tensor_bytes(out)
             return out
         return fn
 
@@ -433,8 +454,15 @@ def kernel_phase(scale):
     """Hold every kernel against its plain version on cfg5 main-path
     inputs; time both. Returns the kernel records (launches filled later)."""
     from volcano_tpu_torch.ops import kernels as K
+    from volcano_tpu_torch.ops import rounds
     from volcano_tpu_torch.ops import rounds_kernels as RK
 
+    # these sessions run the step machine from the host (loop="host"), so
+    # every wrapper call is an eager launch whose inputs can be copied and
+    # whose torch ops can be timed one call at a time (inside the graph a
+    # wrapper is called once, at the capture)
+    graph_solve = rounds.solve
+    rounds.solve = lambda spec, enc, loop=None: graph_solve(spec, enc, "host")
     seen, restore = capture_inputs()
     try:
         run_session(5, scale, "cuda", "float32")
@@ -452,6 +480,7 @@ def kernel_phase(scale):
         run_session(5, scale, "cuda", "float32")
     finally:
         restore_ops()
+        rounds.solve = graph_solve
     torch.cuda.synchronize()
     rows = {}
     for row, names in TORCH_OP_ROWS.items():
@@ -927,7 +956,8 @@ def reference_check():
                           "evicts": len(gpu.evictor.evicts)}), flush=True)
 
 
-ALLOC_KERNELS = ("score_block", "window_topk", "resolve_prefix", "queue_budget")
+ALLOC_KERNELS = ("score_block", "window_topk", "resolve_prefix", "queue_budget",
+                 "rounds_ctl")
 EVICT_KERNELS = ("evict_preempt", "evict_reclaim", "evict_backfill")
 FUSED_KERNELS = ("fuse_heaps_preempt", "fuse_heaps_reclaim", "evict_preempt_fused",
                  "evict_reclaim_fused")
@@ -937,6 +967,7 @@ FUSED_KERNELS = ("fuse_heaps_preempt", "fuse_heaps_reclaim", "evict_preempt_fuse
 # path's
 PATH_KERNELS = {
     2: ALLOC_KERNELS, 3: ALLOC_KERNELS, 5: ALLOC_KERNELS,
+    6: ALLOC_KERNELS + ("tail_pass",),
     4: ALLOC_KERNELS + ("evict_preempt", "evict_backfill"),
     "reclaim": ("evict_preempt", "evict_reclaim"),
 }
@@ -962,12 +993,14 @@ def check_plans(cfg, prof):
             raise AssertionError(f"cfg{cfg}: evict_{kind} did no work: {plan}")
 
 
-def check_launches(cfg, prof, counts, fused):
+def check_launches(cfg, prof, counts, fused, cold=False):
     """Every kernel of the path launched (the fused chain's exactly once),
-    and none of another path."""
+    and none of another path. ``cold``: the run captured a solve graph,
+    whose build runs every graph body once eagerly first."""
     # K2 is on the path only when the solve used a candidate window
     # (window_k 0 means full-width sweeps, as cfg4 runs)
     alloc = [k for k in ALLOC_KERNELS if k != "window_topk" or prof.get("window_k")]
+    alloc += ["tail_pass"] if cfg == 6 else []
     if fused:
         need = (alloc if cfg == 4 else []) + list(FUSED_ONCE[cfg])
         wrong = {k: counts[k] for k in FUSED_ONCE[cfg] if counts[k] != 1}
@@ -977,6 +1010,9 @@ def check_launches(cfg, prof, counts, fused):
         need = [k for k in PATH_KERNELS[cfg] if k in EVICT_KERNELS or k in alloc]
         bad = FUSED_KERNELS + (EVICT_KERNELS if cfg not in FUSED_ONCE else ())
         wrong = {k: counts[k] for k in bad if counts[k]}
+        if cfg == 6 and counts["tail_pass"] != 1 + int(cold):
+            # the capped cfg6 solve runs its whole tail in one K7b launch
+            wrong["tail_pass"] = counts["tail_pass"]
     idle = [k for k in need if counts[k] == 0]
     if idle:
         raise AssertionError(f"cfg{cfg}: kernels never launched: {idle}")
@@ -1009,28 +1045,38 @@ def split(prof, wall, action_ms):
 
 
 def session_phase(scale):
-    """cfg2/3/5 at ``scale``, twice each; cfg4 and the reclaim path always
+    """cfg2/3/5/6 at ``scale``, twice each; cfg4 and the reclaim path always
     at full width, twice on the fused chain (the first run captures the
-    fused kernels' inputs) and once per-action (capturing K9/K10/K11's)."""
+    fused kernels' inputs) and once per-action (capturing K9/K10/K11's).
+    Every rounds solve is a graph replay: the first session of a bucket
+    captures it, the second must capture nothing."""
+    from volcano_tpu_torch.ops import rounds_graph
+
     launches, captured = {}, {}
-    for cfg in (2, 3, 5, 4, "reclaim"):
+    for cfg in (2, 3, 5, 6, 4, "reclaim"):
         evicting = cfg in (4, "reclaim")
         src = "cfg4" if cfg == 4 else "reclaim path"
         plan = ([(True, capture_fused), (True, None), (False, capture_evict)]
                 if evicting else [(True, None), (True, None)])
         runs = []
-        for fuse, capture in plan:
+        for i, (fuse, capture) in enumerate(plan):
+            caps0 = rounds_graph.STATS["captures"]
             seen, restore = capture() if capture is not None else ({}, None)
             try:
                 cache, prof, counts, n_tasks, wall, action_ms, before = run_session(
-                    cfg, 1.0 if evicting else scale, "cuda", "float32", fuse=fuse)
+                    cfg, 1.0 if evicting or cfg == 6 else scale, "cuda", "float32",
+                    fuse=fuse)
             finally:
                 if restore is not None:
                     restore()
             captured.setdefault(src, {}).update(seen)
+            cold = rounds_graph.STATS["captures"] != caps0
+            if i == 1 and cold:
+                raise AssertionError(f"cfg{cfg}: a warm session of the bucket "
+                                     "captured a graph")
             if prof.get("mode") != "rounds":
                 raise AssertionError(f"cfg{cfg}: mode {prof.get('mode')}: {prof}")
-            check_launches(cfg, prof, counts, fuse and evicting)
+            check_launches(cfg, prof, counts, fuse and evicting, cold)
             check_binds(cache, cfg, before)
             if evicting:
                 if fuse:
@@ -1046,12 +1092,16 @@ def session_phase(scale):
                 raise AssertionError(f"cfg{cfg}: runs gave different binds or evictions "
                                      "(fused twice, then per-action)")
         binds, evicts, prof, counts, n_tasks, wall, action_ms = runs[1]
-        launches[cfg] = runs[0][3]
+        # the launches of the warm session (the first one of a bucket also
+        # counts its graph build's eager pass)
+        launches[cfg] = runs[1][3]
         line = {
             "cfg": cfg, "tasks": n_tasks, "nodes": prof.get("nodes"),
             "placed": prof.get("placed"), "binds": len(binds),
             "evicts": len(evicts), "rounds": prof.get("rounds"),
             "sync_points": prof["session_devprof"]["tpu_sync_points"],
+            "tail_placed": prof.get("tail_placed"),
+            "round_capped": prof.get("round_capped"),
             "window_k": prof.get("window_k"), "dirty_k": prof.get("dirty_k"),
             "full_sweep_rounds": prof.get("full_sweep_rounds"),
             "encode_ms": prof["encode_s"] * 1e3,
@@ -1067,6 +1117,238 @@ def session_phase(scale):
             line["fused_equals_per_action"] = True
         print(json.dumps(line), flush=True)
     return launches, captured
+
+
+# ---------------------------------------------------------------------------
+# K7: the rounds solve's loop on the card (one graph replay a solve)
+# ---------------------------------------------------------------------------
+
+K7_CFGS = (2, 3, 5, 6)
+
+
+def probe_versions():
+    """torch, CUDA and driver versions, and whether torch itself offers
+    conditional-node capture (the port makes its own nodes either way)."""
+    drv = subprocess.run(["nvidia-smi", "--query-gpu=driver_version",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    info = {"torch": torch.__version__, "cuda": torch.version.cuda, "driver": drv,
+            "torch_if_node_capture": hasattr(torch.cuda.CUDAGraph,
+                                             "begin_capture_to_if_node")}
+    print(json.dumps({"versions": info}), flush=True)
+    return info
+
+
+def solve_inputs(cfg, scale, device="cuda", dtype="float32"):
+    """(spec, staged encode) of the allocate solve a session of ``cfg``
+    prepares (the solver's own encode, pad and staging)."""
+    from volcano_tpu_torch.bench.clusters import CONFIGS, build_config, make_tiers
+    from volcano_tpu_torch.scheduler.framework import close_session, open_session
+
+    cache, *_ = build_config(cfg, scale)
+    tiers = make_tiers(["tpuscore"], *CONFIGS[cfg].tiers, arguments={
+        "tpuscore": {"tpuscore.mode": "rounds", "tpuscore.device": device,
+                     "tpuscore.dtype": dtype}})
+    ssn = open_session(cache, tiers)
+    try:
+        prep = ssn.batch_allocator._prepare(ssn)
+    finally:
+        close_session(ssn)
+    if prep is None or prep["mode"] != "rounds":
+        raise AssertionError(f"cfg{cfg}: no rounds solve prepared")
+    return prep["spec"], prep["staged"]
+
+
+def record_host_machine():
+    """Wrap the host-driven machine's controller and tail so that a
+    ``loop="host"`` solve records each controller input (the host copy of
+    ctl before the fold) and the tail's inputs."""
+    from volcano_tpu_torch.ops import rounds_kernels as RK
+
+    seen = {"ctl": [], "tail": None}
+    real_ctl, real_tail = RK._ctl_fold_decide, RK.tail_pass_plain
+
+    def ctl(c, params):
+        seen["ctl"].append((list(c), params))
+        return real_ctl(c, params)
+
+    def tail(spec, enc, st, c):
+        seen["tail"] = (spec, {k: v.clone() for k, v in enc.items()},
+                        {k: v.clone() for k, v in st.items()}, c.clone())
+        return real_tail(spec, enc, st, c)
+
+    RK._ctl_fold_decide, RK.tail_pass_plain = ctl, tail
+
+    def restore():
+        RK._ctl_fold_decide, RK.tail_pass_plain = real_ctl, real_tail
+    return seen, restore
+
+
+def timed_solve(spec, enc, loop):
+    """One solve and its fetch, timed with CUDA events around the solve's
+    enqueue and the device work; returns (packed result on the host, raw,
+    device ms, the devprof counters of the solve and its fetch, with the
+    host ms the solve call held as dispatch_ms)."""
+    from volcano_tpu_torch.ops import rounds
+    from volcano_tpu_torch.utils import devprof
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    counters = {}
+    with devprof.session(counters):
+        start.record()
+        t0 = time.perf_counter()
+        raw, packed = rounds.solve(spec, enc, loop=loop)
+        counters["dispatch_ms"] = (time.perf_counter() - t0) * 1e3
+        end.record()
+        out = devprof.fetch(packed)
+    torch.cuda.synchronize()
+    return out, raw, start.elapsed_time(end), counters
+
+
+def rounds_loop_phase():
+    """K7: cfg2, cfg3, cfg5 and cfg6 at full scale (cfg6 caps and runs the
+    tail pass only there, where its class axis spans several chunks).
+    Each solve by the bucket's graph (a cold one that captures, then a
+    warm one that must not) is torch.equal to the host-driven step
+    machine on the card (loop="host": the plain controller and tail), with
+    one sync point (the fetch); K7a is held against its plain version on
+    every controller input the host run recorded, K7b on the cfg6 tail's
+    inputs. Returns (records of K7a and K7b, the K7 row)."""
+    from volcano_tpu_torch import device as devmod
+    from volcano_tpu_torch.ops import rounds_graph
+    from volcano_tpu_torch.ops import rounds_kernels as RK
+
+    scale = 1.0
+    rows, ctl_inputs, tail_inputs = [], [], None
+    for cfg in K7_CFGS:
+        spec, enc = solve_inputs(cfg, scale)
+        seen, restore = record_host_machine()
+        try:
+            host, _, host_ms, host_dp = timed_solve(spec, enc, "host")
+        finally:
+            restore()
+        ctl_inputs += seen["ctl"]
+        caps0 = rounds_graph.STATS["captures"]
+        cap_s0 = rounds_graph.STATS["capture_s"]
+        devmod.reset_launches()
+        cold, _, cold_ms, cold_dp = timed_solve(spec, enc, None)
+        cold_launch = devmod.launches()
+        captured = rounds_graph.STATS["captures"] - caps0
+        capture_ms = (rounds_graph.STATS["capture_s"] - cap_s0) * 1e3
+        devmod.reset_launches()
+        warm, raw, warm_ms, warm_dp = timed_solve(spec, enc, None)
+        launch = devmod.launches()
+        if captured != 1 or rounds_graph.STATS["captures"] != caps0 + 1:
+            raise AssertionError(f"K7 cfg{cfg}: {captured} captures cold, "
+                                 "the warm solve must capture nothing")
+        for name, got in (("cold", cold), ("warm", warm)):
+            if not (got.shape == host.shape and (got == host).all()):
+                bad = int((got != host).sum()) if got.shape == host.shape else -1
+                raise AssertionError(f"K7 cfg{cfg}: the {name} graph solve differs from "
+                                     f"loop=host at {bad} entries")
+        for name, dp in (("cold", cold_dp), ("warm", warm_dp)):
+            if dp["tpu_sync_points"] != 1 or dp["tpu_d2h_fetches"] != 1:
+                raise AssertionError(f"K7 cfg{cfg}: the {name} solve made "
+                                     f"{dp['tpu_sync_points']} sync points")
+        capped, tail_placed = bool(raw[4]), int(raw[2])
+        if launch["rounds_ctl"] < 2 or launch["tail_pass"] != int(capped):
+            raise AssertionError(f"K7 cfg{cfg}: launches {launch}")
+        if cfg == 6:
+            if not capped or tail_placed <= 0 or seen["tail"] is None:
+                raise AssertionError(f"K7 cfg6: must cap and place in the tail "
+                                     f"(capped {capped}, tail_placed {tail_placed})")
+            tail_inputs = seen["tail"]
+        row = {"k7": f"cfg{cfg}@{scale}", "card": CARD, "rounds": int(raw[1]),
+               "capped": capped, "tail_placed": tail_placed,
+               "full_sweeps": int(raw[3]), "steps": len(seen["ctl"]) - 1,
+               "graph_solve_ms_cold": cold_ms, "graph_solve_ms_warm": warm_ms,
+               "graph_dispatch_ms_warm": warm_dp["dispatch_ms"],
+               "capture_ms": capture_ms,
+               "host_loop_ms": host_ms, "host_loop_sync_points": host_dp["tpu_sync_points"],
+               "graph_sync_points": warm_dp["tpu_sync_points"], "continuations": 0,
+               "captures": captured, "launches": {k: v for k, v in launch.items() if v},
+               "launches_cold": {k: v for k, v in cold_launch.items() if v},
+               "inputs_bytes": nbytes(*enc.values()) + nbytes(torch.from_numpy(warm))}
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+    print(json.dumps({"k7_graphs": {
+        "graphs_cached": rounds_graph.graphs_cached(),
+        "captures": rounds_graph.STATS["captures"],
+        "capture_ms": rounds_graph.STATS["capture_s"] * 1e3}}), flush=True)
+
+    # K7a on every recorded controller input
+    dev = torch.device("cuda")
+    for c, params in ctl_inputs:
+        ctl = torch.tensor(c, dtype=torch.int32, device=dev)
+        pred = torch.zeros(RK.NPRED, dtype=torch.bool, device=dev)
+        RK.rounds_ctl(ctl, pred, params)
+        want_c = list(c)
+        want_p = RK._ctl_fold_decide(want_c, params)
+        same(ctl.cpu(), torch.tensor(want_c, dtype=torch.int32), "rounds_ctl ctl")
+        same(pred.cpu(), torch.tensor(want_p, dtype=torch.bool), "rounds_ctl pred")
+    c0, params0 = ctl_inputs[len(ctl_inputs) // 2]
+    ctl = torch.tensor(c0, dtype=torch.int32, device=dev)
+    pred = torch.zeros(RK.NPRED, dtype=torch.bool, device=dev)
+    ctl_rec = dict(
+        name="rounds_ctl", kernel="rounds_ctl", route="cuda",
+        source="volcano_tpu_torch/csrc/rounds_ctl.cu",
+        replaces="volcano_tpu/ops/rounds.py:925", max_abs_err=0.0,
+        ms=time_ms(lambda: RK.rounds_ctl(ctl, pred, params0)),
+        plain_ms=timed_plain(lambda: RK._ctl_fold_decide(list(c0), params0))[1],
+        library_ms=None, bytes=2 * (RK.CTL_LEN * 4 + RK.NPRED), ops=64,
+        dtype=torch.int32, launch_path=5,
+        shape=f"{len(ctl_inputs)} controller inputs of cfg{K7_CFGS} held equal")
+
+    # K7b on the cfg6 tail's inputs
+    spec6, tenc, st0, ctl0 = tail_inputs
+
+    def fresh():
+        return {k: v.clone() for k, v in st0.items()}, ctl0.clone()
+
+    st_k, c_k = fresh()
+    RK.tail_pass(spec6, tenc, st_k, c_k)
+    st_p, c_p = fresh()
+    _, tail_plain_ms = timed_plain(lambda: RK.tail_pass_plain(spec6, tenc, st_p, c_p))
+    for name in st_k:
+        same(st_k[name], st_p[name], f"tail_pass {name}")
+    same(c_k, c_p, "tail_pass ctl")
+    reps = []
+    for _ in range(5):
+        st_t, c_t = fresh()
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        RK.tail_pass(spec6, tenc, st_t, c_t)
+        b.record()
+        torch.cuda.synchronize()
+        reps.append(a.elapsed_time(b))
+    retired = int((st0["active"] & ~st_p["active"]).sum())
+    t_n, (n_n, r_n) = tenc["task_cls"].shape[0], st0["idle"].shape
+    steps = retired + int(retired < RK.tail_budget(spec6) and bool(st_p["active"].any()))
+    tail_rec = dict(
+        name="tail_pass", kernel="tail_pass", route="cuda",
+        source="volcano_tpu_torch/csrc/tail_pass.cu",
+        replaces="volcano_tpu/ops/rounds.py:980", max_abs_err=0.0,
+        ms=sum(reps) / len(reps), plain_ms=tail_plain_ms, library_ms=None,
+        bytes=nbytes(*(tenc[k] for k, _ in RK.TAIL_INPUTS))
+        + 2 * nbytes(*(v for k, v in st0.items()
+                       if k in dict(RK.TAIL_STATE))),
+        ops=steps * (t_n * 8 + n_n * (30 + 12 * r_n)), dtype=st0["idle"].dtype,
+        launch_path=6,
+        shape=f"cfg6 tail: T={t_n} N={n_n} R={r_n}, {steps} steps, "
+              f"{int(c_p[RK.C_TAIL_PLACED])} placed")
+    for rec in (ctl_rec, tail_rec):
+        finish_record(rec)
+    warm5 = next(r for r in rows if r["k7"].startswith("cfg5"))
+    k7_row = {"solve_ms": warm5["graph_solve_ms_warm"], "host_loop_ms": warm5["host_loop_ms"],
+              "sync_points": warm5["graph_sync_points"],
+              "bound_ms": warm5["inputs_bytes"] / MEM_BPS * 1e3,
+              "capture_ms": warm5["capture_ms"]}
+    print(json.dumps({"K7": k7_row, "card": CARD}), flush=True)
+    return [ctl_rec, tail_rec], k7_row
 
 
 # ---------------------------------------------------------------------------
@@ -1756,6 +2038,7 @@ def pipeline_phase(scale=1.0, device="cuda", dtype="float32"):
     Returns the launches of the pipelined twin's cycles."""
     from volcano_tpu_torch import device as devmod
     from volcano_tpu_torch.bench.clusters import build_config
+    from volcano_tpu_torch.ops import rounds_graph
     from volcano_tpu_torch.pipeline import PipelineDriver
     from volcano_tpu_torch.scheduler.scheduler import Scheduler
     from volcano_tpu_torch.scheduler.util import scheduler_helper
@@ -1791,6 +2074,7 @@ def pipeline_phase(scale=1.0, device="cuda", dtype="float32"):
                     cache.delete_pod(find_pod(cache, target))
                 scheduler_helper._last_processed_node_index = tw["rr"]
                 profiles.clear()
+                caps0 = rounds_graph.STATS["captures"]
                 if name == "pipelined":
                     devmod.reset_launches()
                 torch.cuda.synchronize()
@@ -1809,6 +2093,7 @@ def pipeline_phase(scale=1.0, device="cuda", dtype="float32"):
                         launches[kk] = launches.get(kk, 0) + v
                 prof = profiles[-1] if profiles else {}
                 row = {"cycle": k, "delta": kind, "twin": name, "session_ms": wall,
+                       "captures": rounds_graph.STATS["captures"] - caps0,
                        "sync_points": prof.get("tpu_sync_points"),
                        "fetch_wait_ms": prof.get("tpu_fence_wait_ms"),
                        "tpu_overlap_ms": prof.get("tpu_overlap_ms"),
@@ -1838,6 +2123,16 @@ def pipeline_phase(scale=1.0, device="cuda", dtype="float32"):
     idle = [k for k in ALLOC_KERNELS if not launches.get(k)]
     if idle and device == "cuda":
         raise AssertionError(f"pipeline: kernels never launched: {idle}")
+    piped = [r for r in rows if r["twin"] == "pipelined"]
+    for prev, row in zip(piped, piped[1:]):
+        dev_ms = row.get("cycle_stage_device_ms")
+        # the dispatch must return before the solve ends; a stage whose
+        # bucket was new captured its graph inside the dispatch (the
+        # capture synchronises), so only stages of a known bucket count
+        if dev_ms and not prev["captures"] \
+                and row["cycle_device_overlap_ms"] < 0.5 * dev_ms:
+            raise AssertionError(f"pipeline cycle {row['cycle']}: device overlap "
+                                 f"{row['cycle_device_overlap_ms']} ms of {dev_ms} ms")
     print(json.dumps({"pipeline": f"cfg5@{scale} + backlog", "card": CARD,
                       "stats": {k: stats[k] for k in (
                           "cycles", "spec_dispatched", "spec_applied", "spec_discarded",
@@ -2169,10 +2464,12 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
+    probe_versions()
     records, launches, express_p99 = [], {}, None
     if "allocate" in groups:
         records = kernel_phase(args.scale)
         reference_check()
+        records += rounds_loop_phase()[0]
         launches, captured = session_phase(args.scale)
         records += evict_kernel_phase(captured)
         records += fused_kernel_phase(captured)

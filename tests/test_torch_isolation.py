@@ -224,6 +224,49 @@ def test_scheduler_cycle_and_parity_session_load_no_jax_module():
     assert "LOADED []" in out.stdout, out.stdout
 
 
+_ROUNDS_LOOP = r"""
+import sys
+import torch
+torch.set_num_threads(1)
+from volcano_tpu_torch.bench.clusters import CONFIGS, build_config, make_tiers
+from volcano_tpu_torch.ops import rounds, rounds_graph, rounds_kernels
+from volcano_tpu_torch.scheduler.framework import close_session, open_session
+import volcano_tpu_torch.scheduler.actions, volcano_tpu_torch.scheduler.plugins
+cache, _, _, _, n = build_config(6, 0.06)
+tiers = make_tiers(["tpuscore"], *CONFIGS[6].tiers, arguments={"tpuscore": {
+    "tpuscore.mode": "rounds", "tpuscore.device": "cpu", "tpuscore.dtype": "float64"}})
+ssn = open_session(cache, tiers)
+prep = ssn.batch_allocator._prepare(ssn)
+close_session(ssn)
+spec = prep["spec"]._replace(round_min_progress=40, straggler_rounds=2)
+raw, packed = rounds.solve(spec, prep["staged"])
+assert bool(raw[4]) and int(raw[2]) > 0, raw[1:5]
+try:
+    rounds.solve(spec, prep["staged"], loop="graph")
+    raise SystemExit("a graph solve of CPU tensors must raise")
+except ValueError:
+    pass
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0].startswith("jax") or m.split(".")[0] == "volcano_tpu")
+print("LOADED", bad)
+"""
+
+
+def test_rounds_loop_modules_load_no_jax_module():
+    """The rounds loop's modules (the step machine, K7a/K7b's wrappers and
+    plain versions, the graph cache) run a capped solve through its tail
+    pass without loading jax or the JAX package; asking for the graph on
+    CPU tensors raises instead of falling back."""
+    for f in ("ops/rounds.py", "ops/rounds_kernels.py", "ops/rounds_graph.py"):
+        assert os.path.join(PORT, f) in set(_port_files()), f
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", _ROUNDS_LOOP],
+                         cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "LOADED []" in out.stdout, out.stdout
+
+
 def test_every_kernel_source_is_built():
     """Every csrc/*.cu (K13's fuse_heaps.cu among them) is a kernel the
     builder compiles, and a CUDA source includes only the toolkit's
@@ -232,7 +275,8 @@ def test_every_kernel_source_is_built():
 
     csrc = os.path.join(PORT, "csrc")
     sources = sorted(f[:-3] for f in os.listdir(csrc) if f.endswith(".cu"))
-    assert {"fuse_heaps", "express_place", "scatter_rows", "parity_scan"} <= set(sources)
+    assert {"fuse_heaps", "express_place", "scatter_rows", "parity_scan",
+            "rounds_ctl", "tail_pass"} <= set(sources)
     assert sources == sorted(_build.KERNELS)
     for f in os.listdir(csrc):
         if not f.endswith((".cu", ".cuh")):

@@ -342,3 +342,59 @@ class TestLowLatencyGC:
             (gc.enable if was else gc.disable)()
         assert gens.count(2) >= 1
         assert len(gens) >= LowLatencyGC.FULL_EVERY
+
+
+def _stop_during_a_cycle(s, drv):
+    """Hold the loop thread inside a cycle, right before its solve-ahead
+    dispatch, until either abandon() has run or the stop flag is set (the
+    two orders the packages' stop() take); then stop(). Returns the stage
+    left in flight."""
+    import threading
+
+    held, abandoned = threading.Event(), threading.Event()
+    real_speculate, real_abandon = drv._speculate, drv.abandon
+
+    def speculate(*args, **kw):
+        held.set()
+        deadline = time.time() + 30.0
+        while not (abandoned.is_set() or s._stop.is_set()):
+            assert time.time() < deadline, "stop() never reached the loop"
+            time.sleep(0.001)
+        return real_speculate(*args, **kw)
+
+    def abandon():
+        real_abandon()
+        abandoned.set()
+
+    drv._speculate, drv.abandon = speculate, abandon
+    assert held.wait(timeout=60.0), "the loop never reached a solve-ahead"
+    s.stop()
+    return drv._inflight
+
+
+def test_stop_leaves_no_stage_in_flight_unlike_the_reference():
+    """The reference's stop() abandons the pipeline BEFORE it joins the
+    loop, so a cycle still running dispatches a new speculative stage
+    after the abandon and leaves it in flight; the port joins first, then
+    abandons, and the abandon fetches the stage's solve (still running on
+    a card after its dispatch returned) without applying it."""
+    from tests.test_torch_pipeline import _CPU_TPU_CONF, _Jax, _cluster
+
+    jax_conf = _CPU_TPU_CONF.replace(
+        "      tpuscore.device: cpu\n      tpuscore.dtype: float64\n", "")
+    state = _cluster(31, pkg=_Jax)
+    sj = jscheduler.Scheduler(state["cache"], jax_conf, schedule_period=0.05,
+                              pipeline=True)
+    sj.run()
+    drv_j = sj.pipeline_driver
+    left = _stop_during_a_cycle(sj, drv_j)
+    assert left is not None, "the reference's stop() left nothing in flight"
+    drv_j.abandon()
+
+    state = _cluster(31)
+    s = Scheduler(state["cache"], _CPU_TPU_CONF, schedule_period=0.05,
+                  pipeline=True)
+    s.run()
+    drv = s.pipeline_driver
+    assert _stop_during_a_cycle(s, drv) is None
+    assert drv.stats["spec_discards"].get("abandoned", 0) >= 1

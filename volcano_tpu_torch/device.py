@@ -14,7 +14,8 @@ dtype the CPU tests use), and bf16/fp16 are refused: the memory epsilon is
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Union
+import contextlib
+from typing import Dict, List, Optional, Union
 
 import torch
 
@@ -22,7 +23,11 @@ DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
 # launches of each hand-written kernel, bumped by its wrapper right where
 # the kernel is launched (never on the plain-version path); chip_smoke.py
-# zeroes them before it drives the main path and reads them after
+# zeroes them before it drives the main path and reads them after. A launch
+# recorded into a CUDA graph is no launch: while a graph body is captured
+# its wrapper's count goes to the body's sink (capture_sink), and the
+# graph's owner adds sink x the times the body ran once it knows them
+# (ops/rounds_graph.py, at the solve's fetch)
 LAUNCHES: Dict[str, int] = {
     "score_block": 0,
     "window_topk": 0,
@@ -38,11 +43,35 @@ LAUNCHES: Dict[str, int] = {
     "scatter_rows": 0,
     "express_place": 0,
     "parity_scan": 0,
+    "rounds_ctl": 0,
+    "tail_pass": 0,
 }
+
+_SINKS: List[Dict[str, int]] = []
 
 
 def count_launch(name: str) -> None:
+    if _SINKS:
+        _SINKS[-1][name] = _SINKS[-1].get(name, 0) + 1
+        return
     LAUNCHES[name] += 1
+
+
+@contextlib.contextmanager
+def capture_sink():
+    """Collect the launches recorded while a graph body is captured."""
+    sink: Dict[str, int] = {}
+    _SINKS.append(sink)
+    try:
+        yield sink
+    finally:
+        _SINKS.pop()
+
+
+def add_launches(counts: Dict[str, int], times: int = 1) -> None:
+    """Count launches a graph replay made: ``counts`` x ``times``."""
+    for name, n in counts.items():
+        LAUNCHES[name] += n * times
 
 
 def reset_launches() -> None:

@@ -7,18 +7,23 @@ float64 on the CPU, ``solve_rounds`` returns the reference's ``assign``,
 round count, placed histogram, full-sweep count and touched-node mask bit
 for bit (tests/test_torch_rounds.py).
 
-What differs from the reference is where the loop runs. The reference is
-one jitted program with ``lax.while_loop``s; here the round, rollback,
-straggler and tail loops are driven from the host, and every loop test
-reads back the few scalars it needs in ONE transfer, counted as a sync
-point (utils/devprof.py). A windowed round that is not a stall retry reads
-one more scalar (does any class lack coverage). Moving the loop onto the
-device is later work.
+The reference's loop nest (the inner rounds, the rollback fixpoint, the
+straggler rounds, the tail pass under lax.cond) is a flat step machine here
+(``StepMachine``): the solve state lives in fixed tensors, a step is one
+round (plain, conservative or straggler), the rollback or the tail pass,
+and after every step K7a ``rounds_ctl`` folds the step's counters into an
+int32 control vector and decides the next step, taking the decisions the
+reference's lax.while_loop/lax.cond take. On the card a solve is one replay
+of a CUDA graph that runs the machine (ops/rounds_graph.py): nothing is
+read back before the one fetch of the packed result. On the CPU, and on
+the card when asked (``loop="host"``), the same machine is driven from the
+host with the plain controller and the plain tail.
 
 The kernel-shaped steps run through hand-written CUDA kernels on the card:
 K1 ``score_block`` (ops/kernels.py) for the full and the dirty-column
-score refresh and the tail pass, K2 ``window_topk``, K4
-``resolve_prefix`` and K5 ``queue_budget`` (ops/rounds_kernels.py). Sorts,
+score refresh, K2 ``window_topk``, K4 ``resolve_prefix``, K5
+``queue_budget``, K7a ``rounds_ctl`` and K7b ``tail_pass`` (the whole
+sequential tail in one launch; ops/rounds_kernels.py). Sorts,
 gathers and scatters around them are torch ops. Scatter-adds of float
 state use ``index_put_(accumulate=True)``, which accumulates the updates
 of one row in their original order on both devices (on CUDA it sorts the
@@ -30,6 +35,8 @@ from __future__ import annotations
 
 import torch
 
+from volcano_tpu_torch import device as devmod
+from volcano_tpu_torch.ops import rounds_kernels as RK
 from volcano_tpu_torch.ops.kernels import (
     CHUNK,
     SolveSpec,
@@ -50,7 +57,7 @@ from volcano_tpu_torch.utils import devprof
 # node-count header (sizes the touched-node mask that precedes the tail),
 # placed-per-round histogram slots plus the scalar tail (round-count limbs,
 # tail_placed, full-sweep round count, capped flag)
-PROF_SLOTS = 64
+PROF_SLOTS = RK.PROF_SLOTS
 PROF_TAIL = 6 + PROF_SLOTS
 
 
@@ -114,9 +121,10 @@ def _job_rank(spec: SolveSpec, enc, job_placed, job_alloc):
     return _inverse(_lexsort(keys))
 
 
-def _dirty_cols(dirty, n_dirty: int, dirty_k: int):
+def _dirty_cols(dirty, n_dirty, dirty_k: int):
     """jnp.nonzero(dirty, size=dirty_k, fill_value=0) without a dynamic
-    shape: a stable sort brings the dirty columns first, ascending."""
+    shape: a stable sort brings the dirty columns first, ascending.
+    ``n_dirty`` is the dirty count, a 0-d tensor (or a number)."""
     n_total = dirty.shape[0]
     srt = torch.argsort((~dirty).to(torch.int8), stable=True).to(torch.int32)
     if dirty_k > n_total:
@@ -129,7 +137,7 @@ def _dirty_cols(dirty, n_dirty: int, dirty_k: int):
 
 
 def _rescore_dirty(spec, enc, idle, used, cnt, excl_occ, scores, dirty,
-                   n_dirty: int):
+                   n_dirty):
     """Dirty-column rescoring: K1 over the <= dirty_k columns the previous
     round touched, written into the carried matrix in place. Padding slots
     of the column list alias column 0 and rewrite identical values."""
@@ -361,16 +369,21 @@ def pack_result(enc, raw):
     touched-node mask, then a PROF_TAIL-long profile tail (node-count
     header, round-counter limbs, tail_placed, full-sweep round count,
     capped flag, the placed-per-round histogram); int16 when the node
-    count allows."""
+    count allows. Built on the device from device scalars, so it can run
+    inside a CUDA graph."""
     (assign, n_rounds, tail_placed, full_sweeps, capped, placed_hist,
-     touched) = raw
+     touched) = (x.to(torch.int32) for x in raw)
     n_total = enc["node_idle"].shape[0]
-    tail = [n_total, n_rounds & 0x7FFF, n_rounds >> 15,
-            min(tail_placed, 0x7FFF), min(full_sweeps, 0x7FFF), int(capped)]
-    tail += [min(int(x), 0x7FFF) for x in placed_hist]
+    cap = 0x7FFF
+    tail = torch.cat([
+        torch.stack([torch.full((), n_total, dtype=torch.int32,
+                                device=assign.device),
+                     n_rounds & cap, n_rounds >> 15,
+                     torch.clamp(tail_placed, max=cap),
+                     torch.clamp(full_sweeps, max=cap), capped]),
+        torch.clamp(placed_hist, max=cap)])
     dt = torch.int16 if n_total <= 32766 else torch.int32
-    tail_t = torch.tensor(tail, dtype=torch.int32).to(assign.device)
-    return torch.cat([assign.to(dt), touched.to(dt), tail_t.to(dt)])
+    return torch.cat([assign.to(dt), touched.to(dt), tail.to(dt)])
 
 
 class _Dims:
@@ -389,7 +402,8 @@ class _Dims:
         self.task_job_l = enc["task_job"].long()
         self.task_queue = enc["job_queue"][self.task_job_l]
         self.task_queue_l = self.task_queue.long()
-        self.task_ns_l = enc["job_ns"][self.task_job_l].long()
+        self.task_ns = enc["job_ns"][self.task_job_l]
+        self.task_ns_l = self.task_ns.long()
         self.task_excl = enc["cls_excl"][self.task_cls_l]
         ar = torch.arange(self.t, dtype=torch.int32, device=self.dev)
         self.task_in_job = ar - enc["job_task_start"][self.task_job_l]
@@ -398,360 +412,397 @@ class _Dims:
             & enc["job_active0"][self.task_job_l]
 
 
-def _round(spec, enc, d, st, cons: bool, n_dirty: int, t_cap: int):
-    """One bulk-synchronous round (the reference's round_body). Returns
-    the new state and the host-side facts of the round: placed count,
-    still-active count, next round's dirty count, full-width flag."""
-    job_rank = _job_rank(spec, enc, st["job_placed"], st["job_alloc"])
-    task_rank = job_rank[d.task_job_l] * d.t + d.task_in_job  # int32, as ref
-    active = st["active"]
-    if spec.use_prop_overused:
-        over = ~_le_eps(st["queue_alloc"], enc["queue_deserved"],
-                             enc["eps"], enc["is_scalar"])
-        active = active & ~over[d.task_queue_l]
-    idle, used, cnt = st["idle"], st["used"], st["cnt"]
-    occ = st.get("excl_occ")
+# the gated bodies of a step, by name (graph hit counters index them)
+BODIES = ("step", "round", "full", "dirty", "cover", "rollback", "tail")
 
-    # carried scores: patch the dirty columns, or rebuild past the budget
-    scores = st["scores"]
-    if spec.dirty_k > 0 and n_dirty <= spec.dirty_k:
-        _rescore_dirty(spec, enc, idle, used, cnt, occ, scores, st["dirty"],
-                       n_dirty)
-    else:
-        # full-width refresh, every class row, live or not: a class
-        # revived by a rollback must find current scores
-        score_block(spec, enc, idle, used, cnt, occ, scores)
-    n_feas = torch.sum(scores > float("-inf"), dim=-1).to(torch.int32)
 
-    cls_live = _scatter_any(d.k, d.task_cls_l, active)
-    cls_frac = None
-    if spec.use_binpack:
-        cls_demand = torch.zeros(d.k, dtype=torch.int32, device=d.dev) \
-            .index_add_(0, d.task_cls_l, active.to(torch.int32))
-        cls_frac = cls_demand.to(d.dt) / torch.clamp(
-            torch.sum(cls_demand), min=1).to(d.dt)
-    grank = _excl_grank(enc, cls_live) if spec.use_exclusion else None
-    rank = _rank_in_class(d.task_cls, active)
-    excl_cls = enc["cls_excl"] if spec.use_exclusion else None
+class StepMachine:
+    """The flat step machine of one rounds solve (the reference's
+    lax.while_loop nest, volcano_tpu/ops/rounds.py:925-980,1101): the
+    solve state lives in fixed tensors, ``ctl`` (rounds_kernels.C_*) holds
+    the loop state and ``pred`` the predicates of the next step, which K7a
+    (``rounds_ctl``) decides after every step. One step is a round (plain,
+    conservative or straggler), the rollback or the tail pass.
 
-    if spec.window_k > 0:
-        k_eff = spec.window_k
-        top_s, top_i = window_topk(scores, k_eff)
-        nom_w = _cap_walk(spec, enc, top_i, top_s, enc["cls_req"], excl_cls,
-                          enc["cls_has_pod"], cls_frac, idle, cnt, t_cap)
-        choice_w, cons_choice, slot_w, final_w = _select(
-            spec, enc, d.task_cls, active, rank, n_feas, grank, top_i, *nom_w)
-        # coverage bit: is the windowed answer provably full-width?
-        g_start_w = nom_w[1]
-        all_in = n_feas <= k_eff
-        full_k = torch.full((d.k,), k_eff, dtype=torch.int32, device=d.dev)
-        if spec.use_binpack and not spec.use_exclusion:
-            safe_end = full_k
-        elif spec.use_binpack:
-            safe_end = torch.where(enc["cls_excl"] >= 0,
-                                   g_start_w[:, k_eff - 1], full_k)
+    ``mode`` says how a step's gates and the controller run:
+
+    - ``"cpu"``: tensors on the CPU; Python ifs on the predicates, the
+      plain controller and the plain tail (the tier-1 plain version);
+    - ``"host"``: the same Python-driven machine on the card (``loop=
+      "host"``), reading the controller's state back after every step and
+      a coverage bit in every windowed round (counted sync points);
+    - ``"warm"``: every gate taken, the controller and the tail as
+      kernels: one eager pass over every body before a capture;
+    - ``"capture"``: the gates become IF nodes and the step loop a WHILE
+      node of the graph being captured (ops/rounds_graph.py).
+
+    ``head()`` initialises the state from ``enc``; ``step()`` runs one
+    step; ``finish()`` returns (raw result, packed result) computed from the
+    state, without changing it."""
+
+    def __init__(self, spec: SolveSpec, enc: dict, mode: str):
+        self.spec, self.enc_in, self.mode = spec, enc, mode
+        dev = enc["cls_req"].device
+        dt = enc["cls_req"].dtype
+        t = enc["task_cls"].shape[0]
+        j = enc["job_tie_rank"].shape[0]
+        k, r = enc["cls_req"].shape
+        n = enc["node_idle"].shape[0]
+        self.params = RK.ctl_params(spec, t, j, n)
+
+        def z(*shape, dtype=dt):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        self.st = dict(
+            idle=z(n, r), used=z(n, r), cnt=z(n, dtype=torch.int32),
+            assign=z(t, dtype=torch.int32), active=z(t, dtype=torch.bool),
+            job_placed=z(j, dtype=torch.int32),
+            job_alloc=z(*enc["job_alloc0"].shape),
+            queue_alloc=z(*enc["queue_alloc0"].shape),
+            ns_alloc=z(*enc["ns_alloc0"].shape),
+            # carried masked score matrix + dirty-column set: all columns
+            # start dirty, so the first round always takes a full refresh
+            # (or an all-column gather when dirty_k covers the whole axis)
+            scores=z(k, n), dirty=z(n, dtype=torch.bool),
+            touched=z(n, dtype=torch.bool), tail_failed=z(t, dtype=torch.bool))
+        if spec.use_exclusion:
+            self.st["excl_occ"] = z(*enc["excl_occ0"].shape, dtype=torch.bool)
+        self.ctl = z(RK.CTL_LEN, dtype=torch.int32)
+        self.pred = z(RK.NPRED, dtype=torch.bool)
+        self.hits = z(len(BODIES), dtype=torch.int32)
+        self.choice_full = z(t, dtype=torch.int32)
+        self.hp = None          # the predicates on the host (cpu, host)
+        self.cond = None        # the graph's conditional-node hooks
+        self.while_handle = None
+
+    # -- gates and the controller ------------------------------------------
+
+    def _gate(self, pred, body: str, fn) -> None:
+        """Run ``fn`` when ``pred`` holds: an index into the controller's
+        predicates, or a 0-d bool tensor the step computed."""
+        if self.mode == "warm":
+            fn()
+        elif self.mode == "capture":
+            t = self.pred[pred] if isinstance(pred, int) else pred
+            with self.cond.if_node(t, body):
+                self.hits[BODIES.index(body)] += 1
+                fn()
+        elif isinstance(pred, int):
+            if self.hp[pred]:
+                fn()
+        elif bool(pred if self.mode == "cpu" else devprof.readback(pred)):
+            fn()
+
+    def control(self) -> None:
+        """K7a after a step (or the head): fold and decide."""
+        if self.mode == "cpu":
+            self.hp = RK.rounds_ctl_plain(self.ctl, self.pred, self.params)
+        elif self.mode == "host":
+            c = devprof.readback(self.ctl)
+            self.hp = RK._ctl_fold_decide(c, self.params)
+            self.ctl.copy_(torch.tensor(c, dtype=torch.int32))
+            self.pred.copy_(torch.tensor(self.hp, dtype=torch.bool))
+        elif self.while_handle is not None:
+            RK.rounds_ctl_while(self.ctl, self.pred, self.params,
+                                self.while_handle)
         else:
-            safe_end = g_start_w[:, k_eff - 1]
-        safe_end = torch.where(all_in, full_k, safe_end)[d.task_cls_l]
-        exact = all_in[d.task_cls_l] | ((slot_w < safe_end) & (final_w < safe_end))
-        uncovered = _scatter_any(d.k, d.task_cls_l, active & ~exact)
-        # stall rounds take cons_choice (exact by construction), so only a
-        # real windowed round asks whether any class lacks coverage
-        run_full = (not cons) and bool(devprof.readback(torch.any(uncovered)))
-        if run_full:
-            nom_f = _nominate_full(spec, enc, scores, idle, cnt, cls_frac, t_cap)
-            choice_full = _select(spec, enc, d.task_cls, active, rank,
-                                  n_feas, grank, *nom_f)[0]
-            choice = torch.where(uncovered[d.task_cls_l], choice_full, choice_w)
-            touched = torch.ones_like(st["touched"])
-        else:
-            choice = torch.where(uncovered[d.task_cls_l],
-                                 torch.full_like(choice_w, -1), choice_w)
-            touched = st["touched"].index_put(
-                (top_i.reshape(-1).long(),),
-                torch.ones((), dtype=torch.bool, device=d.dev))
-        did_full = run_full
-    else:
-        nom_f = _nominate_full(spec, enc, scores, idle, cnt, cls_frac, t_cap)
-        choice, cons_choice, _, _ = _select(
-            spec, enc, d.task_cls, active, rank, n_feas, grank, *nom_f)
-        did_full = True
-        touched = torch.ones_like(st["touched"])
-    if cons:
-        choice = cons_choice
-    task_excl = d.task_excl
-    if spec.use_exclusion:
-        # within-round mutual exclusion: one winner per (group, node), the
-        # best-ranked task, by a scatter-min of the (unique) task rank
-        isx = (task_excl >= 0) & (choice >= 0)
-        flat = (torch.clamp(task_excl, min=0).long() * d.n
-                + torch.clamp(choice, 0, d.n - 1).long())
-        big = torch.full_like(task_rank, 2**30)
-        n_groups = enc["excl_occ0"].shape[0]
-        winner = torch.full((n_groups * d.n,), 2**30, dtype=torch.int32,
-                            device=d.dev).scatter_reduce(
-            0, flat, torch.where(isx, task_rank, big), "amin")
-        keepm = ~isx | (task_rank == winner[flat])
-        choice = torch.where(keepm, choice, torch.full_like(choice, -1))
-    accept = _resolve(spec, enc, st["idle"], st["cnt"], choice, task_rank)
-    if spec.use_prop_overused:
-        accept = _queue_budget(enc, st["queue_alloc"], accept, task_rank,
-                               d.task_queue, d.task_job)
+            RK.rounds_ctl(self.ctl, self.pred, self.params)
 
-    node = torch.clamp(choice, 0, d.n - 1).long()
-    dreq = torch.where(accept[:, None], enc["task_req"],
-                       torch.zeros_like(enc["task_req"]))
-    acc_i = accept.to(torch.int32)
-    new_active = st["active"] & ~accept
-    dirty = _scatter_any(d.n, node, accept)
-    out = dict(
-        st,
-        idle=_scatter_add(st["idle"], node, -dreq),
-        used=_scatter_add(st["used"], node, dreq),
-        cnt=st["cnt"].index_add(0, node, acc_i),
-        assign=torch.where(accept, choice, st["assign"]),
-        active=new_active,
-        job_placed=st["job_placed"].index_add(0, d.task_job_l, acc_i),
-        job_alloc=_scatter_add(st["job_alloc"], d.task_job_l, dreq),
-        queue_alloc=_scatter_add(st["queue_alloc"], d.task_queue_l, dreq),
-        ns_alloc=_scatter_add(st["ns_alloc"], d.task_ns_l, dreq),
-        scores=scores, dirty=dirty, touched=touched)
-    if spec.use_exclusion:
-        g_flat = torch.clamp(task_excl, min=0).long() * d.n + node
-        occ_flat = st["excl_occ"].reshape(-1).to(torch.int8).scatter_reduce(
-            0, g_flat, (accept & (task_excl >= 0)).to(torch.int8), "amax")
-        out["excl_occ"] = occ_flat.bool().reshape(st["excl_occ"].shape)
-    placed_n, remaining, n_dirty_next = (int(x) for x in devprof.readback(
-        torch.stack([acc_i.sum(), new_active.sum(), dirty.sum()])))
-    return out, placed_n, remaining, n_dirty_next, did_full
+    def done(self) -> bool:
+        """The host's view (cpu, host): no step is pending."""
+        return not self.hp[RK.P_ACTIVE]
 
+    # -- head, step, finish -------------------------------------------------
 
-def _rollback(spec, enc, d, st):
-    """Retire the WORST-ranked gang still short of min_available
-    (Statement.Discard semantics), one job per fixpoint iteration.
-    Returns (state, any candidate, dirty count, still-active count)."""
-    short = (enc["job_ready_base"] + st["job_placed"]) < enc["job_ready_threshold"]
-    cand = short & (st["job_placed"] > 0)
-    job_rank = _job_rank(spec, enc, st["job_placed"], st["job_alloc"])
-    worst = torch.argmax(torch.where(cand, job_rank, torch.full_like(job_rank, -1)))
-    roll_job = cand & (torch.arange(d.j, device=d.dev) == worst)
-    dead_task = roll_job[d.task_job_l]
-    roll = dead_task & (st["assign"] >= 0)
-    node = torch.clamp(st["assign"], 0, d.n - 1).long()
-    dreq = torch.where(roll[:, None], enc["task_req"],
-                       torch.zeros_like(enc["task_req"]))
-    out = dict(
-        st,
-        idle=_scatter_add(st["idle"], node, dreq),
-        used=_scatter_add(st["used"], node, -dreq),
-        cnt=st["cnt"].index_add(0, node, -roll.to(torch.int32)),
-        assign=torch.where(roll, torch.full_like(st["assign"], -1), st["assign"]),
-        active=st["active"] & ~dead_task,
-        job_placed=torch.where(roll_job, torch.zeros_like(st["job_placed"]),
-                               st["job_placed"]),
-        job_alloc=_scatter_add(st["job_alloc"], d.task_job_l, -dreq),
-        queue_alloc=_scatter_add(st["queue_alloc"], d.task_queue_l, -dreq),
-        ns_alloc=_scatter_add(st["ns_alloc"], d.task_ns_l, -dreq),
-        dirty=st["dirty"] | _scatter_any(d.n, node, roll))
-    if spec.use_exclusion:
-        # free the rolled members' group slots
-        g_flat = torch.clamp(d.task_excl, min=0).long() * d.n + node
-        occ_flat = st["excl_occ"].reshape(-1).to(torch.int8).scatter_reduce(
-            0, g_flat, (~(roll & (d.task_excl >= 0))).to(torch.int8), "amin")
-        out["excl_occ"] = occ_flat.bool().reshape(st["excl_occ"].shape)
-    any_cand, n_dirty, remaining = (int(x) for x in devprof.readback(
-        torch.stack([cand.any().to(torch.int64), out["dirty"].sum(),
-                     out["active"].sum()])))
-    return out, bool(any_cand), n_dirty, remaining
+    def head(self) -> None:
+        spec = self.spec
+        enc = dict(
+            self.enc_in,
+            task_req=self.enc_in["cls_req"][self.enc_in["task_cls"].long()],
+            task_has_pod=self.enc_in["cls_has_pod"][self.enc_in["task_cls"].long()],
+        )
+        d = _Dims(enc)
+        self.enc, self.d = enc, d
+        # what the tail kernel reads beside the encode
+        self.tenc = dict(enc, task_queue=d.task_queue, task_ns=d.task_ns,
+                         task_in_job=d.task_in_job, task_excl=d.task_excl,
+                         score_weights=RK.score_weights(enc))
+        st = self.st
+        for name, src in (("idle", "node_idle"), ("used", "node_used"),
+                          ("cnt", "node_cnt"), ("job_alloc", "job_alloc0"),
+                          ("queue_alloc", "queue_alloc0"),
+                          ("ns_alloc", "ns_alloc0")):
+            st[name].copy_(enc[src])
+        if spec.use_exclusion:
+            st["excl_occ"].copy_(enc["excl_occ0"])
+        st["assign"].fill_(-1)
+        st["active"].copy_(d.task_valid)
+        for name in ("job_placed", "scores", "touched", "tail_failed"):
+            st[name].zero_()
+        st["dirty"].fill_(True)
+        self.ctl.zero_()
+        self.ctl[RK.C_REMAINING] = d.task_valid.sum()
+        self.hits.zero_()
+        self.control()
 
+    def step(self) -> None:
+        self._gate(RK.P_ROUND, "round", self._round)
+        self._gate(RK.P_ROLLBACK, "rollback", self._rollback)
+        self._gate(RK.P_TAIL, "tail", self._tail)
+        self.control()
 
-def _tail_pass(spec, enc, d, st, remaining: int):
-    """Sequential per-task placement of the diminishing-returns remainder,
-    in the serial visit order: one task per step (lowest live task rank),
-    its class row of K1 (feasibility mask + fused score), argmax node
-    (first max = lowest index, the serial tie-break), scatter-commit.
-    Returns (state, tail_placed, tail_failed)."""
-    tail_budget = 8 * max(spec.round_min_progress, 1) + 16
-    tail_failed = torch.zeros_like(st["active"])
-    tail_placed = 0
-    steps = 0
-    scratch = torch.empty((d.k, d.n), dtype=d.dt, device=d.dev)
-    stuck = False
-    while remaining > 0 and not stuck and steps < tail_budget:
-        eligible = st["active"]
+    def run(self) -> None:
+        """The whole solve, driven from the host (cpu, host)."""
+        self.head()
+        while not self.done():
+            self.step()
+
+    def finish(self):
+        """(raw, packed) of the state: the gang strip, the capped exit's
+        residue marking and the pack (the reference's epilogue)."""
+        spec, enc, d, st, ctl = self.spec, self.enc, self.d, self.st, self.ctl
+        # structural gang-atomicity net (a no-op on a normal exit)
+        short = (enc["job_ready_base"] + st["job_placed"]) \
+            < enc["job_ready_threshold"]
+        assign = torch.where(short[d.task_job_l],
+                             torch.full_like(st["assign"], -1), st["assign"])
+        # capped exit: still-wanting tasks go to the serial residue retry
+        strip_retry = short & (st["job_placed"] > 0)
+        want_retry = st["active"] | (strip_retry[d.task_job_l] & d.task_valid)
+        if spec.round_min_progress > 1:
+            want_retry = want_retry | (st["tail_failed"] & d.task_valid)
+        capped = ctl[RK.C_CAPPED] != 0
+        assign = torch.where(capped & want_retry & (assign < 0),
+                             torch.full_like(assign, -2), assign)
+        touched = st["touched"] | capped
+        raw = (assign, ctl[RK.C_ROUNDS].clone(), ctl[RK.C_TAIL_PLACED].clone(),
+               ctl[RK.C_FULL_SWEEPS].clone(), capped,
+               ctl[RK.C_HIST:].clone(), touched)
+        return raw, pack_result(enc, raw)
+
+    # -- the step bodies ----------------------------------------------------
+
+    def _round(self) -> None:
+        """One bulk-synchronous round (the reference's round_body): state
+        updated in place, counters into ctl[C_PLACED .. C_DID_FULL]."""
+        spec, enc, d, st = self.spec, self.enc, self.d, self.st
+        t_cap = d.t + 1  # capacity clamp: ranks never reach it
+        cons = self.pred[RK.P_CONS]
+        job_rank = _job_rank(spec, enc, st["job_placed"], st["job_alloc"])
+        task_rank = job_rank[d.task_job_l] * d.t + d.task_in_job  # int32, as ref
+        active = st["active"]
         if spec.use_prop_overused:
             over = ~_le_eps(st["queue_alloc"], enc["queue_deserved"],
-                                 enc["eps"], enc["is_scalar"])
-            eligible = eligible & ~over[d.task_queue_l]
-        # lexicographic argmin over the job-order keys, then task order
-        levels = []
-        for name in spec.job_order_keys:
-            if name == "priority":
-                levels.append((-enc["job_priority"])[d.task_job_l])
-            elif name == "gang":
-                ready = ((enc["job_ready_base"] + st["job_placed"])
-                         >= enc["job_min_available"])
-                levels.append(ready.to(torch.int32)[d.task_job_l])
-            elif name == "drf":
-                share = _share(st["job_alloc"], enc["drf_total"][None, :],
-                               enc["drf_present"][None, :])
-                levels.append(share[d.task_job_l])
-        levels.append(enc["job_tie_rank"][d.task_job_l])
-        levels.append(d.task_in_job)
-        cand = eligible
-        for lv in levels:
-            if lv.dtype.is_floating_point:
-                sentinel = torch.full_like(lv, float("inf"))
+                            enc["eps"], enc["is_scalar"])
+            active = active & ~over[d.task_queue_l]
+        idle, used, cnt = st["idle"], st["used"], st["cnt"]
+        occ = st.get("excl_occ")
+        scores = st["scores"]
+
+        # carried scores: patch the dirty columns, or rebuild past the
+        # budget (every class row, live or not: a class revived by a
+        # rollback must find current scores)
+        def full():
+            score_block(spec, enc, idle, used, cnt, occ, scores)
+
+        if spec.dirty_k > 0:
+            self._gate(RK.P_FULL, "full", full)
+            self._gate(RK.P_DIRTY, "dirty", lambda: _rescore_dirty(
+                spec, enc, idle, used, cnt, occ, scores, st["dirty"],
+                self.ctl[RK.C_NDIRTY]))
+        else:
+            full()
+        n_feas = torch.sum(scores > float("-inf"), dim=-1).to(torch.int32)
+
+        cls_live = _scatter_any(d.k, d.task_cls_l, active)
+        cls_frac = None
+        if spec.use_binpack:
+            cls_demand = torch.zeros(d.k, dtype=torch.int32, device=d.dev) \
+                .index_add_(0, d.task_cls_l, active.to(torch.int32))
+            cls_frac = cls_demand.to(d.dt) / torch.clamp(
+                torch.sum(cls_demand), min=1).to(d.dt)
+        grank = _excl_grank(enc, cls_live) if spec.use_exclusion else None
+        rank = _rank_in_class(d.task_cls, active)
+        excl_cls = enc["cls_excl"] if spec.use_exclusion else None
+
+        if spec.window_k > 0:
+            k_eff = spec.window_k
+            top_s, top_i = window_topk(scores, k_eff)
+            nom_w = _cap_walk(spec, enc, top_i, top_s, enc["cls_req"], excl_cls,
+                              enc["cls_has_pod"], cls_frac, idle, cnt, t_cap)
+            choice_w, cons_choice, slot_w, final_w = _select(
+                spec, enc, d.task_cls, active, rank, n_feas, grank, top_i, *nom_w)
+            # coverage bit: is the windowed answer provably full-width?
+            g_start_w = nom_w[1]
+            all_in = n_feas <= k_eff
+            full_k = torch.full((d.k,), k_eff, dtype=torch.int32, device=d.dev)
+            if spec.use_binpack and not spec.use_exclusion:
+                safe_end = full_k
+            elif spec.use_binpack:
+                safe_end = torch.where(enc["cls_excl"] >= 0,
+                                       g_start_w[:, k_eff - 1], full_k)
             else:
-                sentinel = torch.full_like(lv, torch.iinfo(lv.dtype).max)
-            m = torch.amin(torch.where(cand, lv, sentinel))
-            cand = cand & (lv == m)
-        t = torch.argmax(cand.to(torch.int8))
-        has = eligible.any()
-        c = d.task_cls_l[t]
-        score_block(spec, enc, st["idle"], st["used"], st["cnt"],
-                    st.get("excl_occ"), scratch)
-        row = scratch[c]
-        node = torch.argmax(row)
-        ok = has & (row[node] > float("-inf"))
-        req = enc["cls_req"][c]
-        dreq = torch.where(ok, req, torch.zeros_like(req))
-        ok_i = ok.to(torch.int32)
-        job = d.task_job_l[t]
-        out = dict(
-            st,
-            idle=st["idle"].index_put((node[None],), -dreq[None], accumulate=True),
-            used=st["used"].index_put((node[None],), dreq[None], accumulate=True),
-            cnt=st["cnt"].index_put((node[None],), ok_i[None], accumulate=True),
-            assign=st["assign"].index_put(
-                (t[None],), torch.where(ok, node.to(torch.int32),
-                                        st["assign"][t])[None]),
-            active=st["active"].index_put(
-                (t[None],), (st["active"][t] & ~has)[None]),
-            job_placed=st["job_placed"].index_put((job[None],), ok_i[None],
-                                                  accumulate=True),
-            job_alloc=st["job_alloc"].index_put((job[None],), dreq[None],
-                                                accumulate=True),
-            queue_alloc=st["queue_alloc"].index_put(
-                (d.task_queue_l[t][None],), dreq[None], accumulate=True),
-            ns_alloc=st["ns_alloc"].index_put(
-                (d.task_ns_l[t][None],), dreq[None], accumulate=True))
+                safe_end = g_start_w[:, k_eff - 1]
+            safe_end = torch.where(all_in, full_k, safe_end)[d.task_cls_l]
+            exact = all_in[d.task_cls_l] | ((slot_w < safe_end) & (final_w < safe_end))
+            uncovered = _scatter_any(d.k, d.task_cls_l, active & ~exact)
+            # stall rounds take cons_choice (exact by construction), so only
+            # a real windowed round falls back to the full width
+            run_full = torch.any(uncovered) & ~cons
+            self.choice_full.fill_(-1)
+
+            def cover():
+                nom_f = _nominate_full(spec, enc, scores, idle, cnt, cls_frac,
+                                       t_cap)
+                self.choice_full.copy_(_select(spec, enc, d.task_cls, active, rank,
+                                               n_feas, grank, *nom_f)[0])
+
+            self._gate(run_full, "cover", cover)
+            choice = torch.where(uncovered[d.task_cls_l], self.choice_full,
+                                 choice_w)
+            # a windowed round read its nominated columns; a fallback all
+            touched = st["touched"].index_put(
+                (top_i.reshape(-1).long(),),
+                torch.ones((), dtype=torch.bool, device=d.dev)) | run_full
+            did_full = run_full.to(torch.int64)
+        else:
+            nom_f = _nominate_full(spec, enc, scores, idle, cnt, cls_frac, t_cap)
+            choice, cons_choice, _, _ = _select(
+                spec, enc, d.task_cls, active, rank, n_feas, grank, *nom_f)
+            did_full = torch.ones((), dtype=torch.int64, device=d.dev)
+            touched = torch.ones_like(st["touched"])
+        choice = torch.where(cons, cons_choice, choice)
+        task_excl = d.task_excl
         if spec.use_exclusion:
-            g = d.task_excl[t]
-            gi = torch.clamp(g, min=0).long()
-            occ = st["excl_occ"].clone()
-            occ[gi, node] = occ[gi, node] | (ok & (g >= 0))
-            out["excl_occ"] = occ
-        tail_failed = tail_failed.index_put(
-            (t[None],), (tail_failed[t] | (has & ~ok))[None])
-        st = out
-        steps += 1
-        has_h, ok_h, remaining = (int(x) for x in devprof.readback(
-            torch.stack([has.to(torch.int64), ok.to(torch.int64),
-                         st["active"].sum()])))
-        stuck = not has_h
-        tail_placed += ok_h
-    return st, tail_placed, tail_failed
+            # within-round mutual exclusion: one winner per (group, node),
+            # the best-ranked task, by a scatter-min of the (unique) rank
+            isx = (task_excl >= 0) & (choice >= 0)
+            flat = (torch.clamp(task_excl, min=0).long() * d.n
+                    + torch.clamp(choice, 0, d.n - 1).long())
+            big = torch.full_like(task_rank, 2**30)
+            n_groups = enc["excl_occ0"].shape[0]
+            winner = torch.full((n_groups * d.n,), 2**30, dtype=torch.int32,
+                                device=d.dev).scatter_reduce(
+                0, flat, torch.where(isx, task_rank, big), "amin")
+            keepm = ~isx | (task_rank == winner[flat])
+            choice = torch.where(keepm, choice, torch.full_like(choice, -1))
+        accept = _resolve(spec, enc, idle, cnt, choice, task_rank)
+        if spec.use_prop_overused:
+            accept = _queue_budget(enc, st["queue_alloc"], accept, task_rank,
+                                   d.task_queue, d.task_job)
+
+        node = torch.clamp(choice, 0, d.n - 1).long()
+        dreq = torch.where(accept[:, None], enc["task_req"],
+                           torch.zeros_like(enc["task_req"]))
+        acc_i = accept.to(torch.int32)
+        dirty = _scatter_any(d.n, node, accept)
+        if spec.use_exclusion:
+            g_flat = torch.clamp(task_excl, min=0).long() * d.n + node
+            occ_flat = occ.reshape(-1).to(torch.int8).scatter_reduce(
+                0, g_flat, (accept & (task_excl >= 0)).to(torch.int8), "amax")
+            occ.copy_(occ_flat.bool().reshape(occ.shape))
+        # the commit, in place: the updates of one row land in index order
+        idle.index_put_((node,), -dreq, accumulate=True)
+        used.index_put_((node,), dreq, accumulate=True)
+        cnt.index_add_(0, node, acc_i)
+        st["assign"].copy_(torch.where(accept, choice, st["assign"]))
+        st["active"].logical_and_(~accept)
+        st["job_placed"].index_add_(0, d.task_job_l, acc_i)
+        st["job_alloc"].index_put_((d.task_job_l,), dreq, accumulate=True)
+        st["queue_alloc"].index_put_((d.task_queue_l,), dreq, accumulate=True)
+        st["ns_alloc"].index_put_((d.task_ns_l,), dreq, accumulate=True)
+        st["dirty"].copy_(dirty)
+        st["touched"].copy_(touched)
+        self.ctl[RK.C_PLACED:RK.C_DID_FULL + 1] = torch.stack([
+            acc_i.sum(), st["active"].sum(), dirty.sum(), did_full])
+
+    def _rollback(self) -> None:
+        """Retire the WORST-ranked gang still short of min_available
+        (Statement.Discard semantics), one job per fixpoint iteration:
+        state updated in place, counters into ctl[C_STILL .. C_ANY_CAND]."""
+        spec, enc, d, st = self.spec, self.enc, self.d, self.st
+        short = (enc["job_ready_base"] + st["job_placed"]) \
+            < enc["job_ready_threshold"]
+        cand = short & (st["job_placed"] > 0)
+        job_rank = _job_rank(spec, enc, st["job_placed"], st["job_alloc"])
+        worst = torch.argmax(torch.where(cand, job_rank,
+                                         torch.full_like(job_rank, -1)))
+        roll_job = cand & (torch.arange(d.j, device=d.dev) == worst)
+        dead_task = roll_job[d.task_job_l]
+        roll = dead_task & (st["assign"] >= 0)
+        node = torch.clamp(st["assign"], 0, d.n - 1).long()
+        dreq = torch.where(roll[:, None], enc["task_req"],
+                           torch.zeros_like(enc["task_req"]))
+        if spec.use_exclusion:
+            # free the rolled members' group slots
+            occ = st["excl_occ"]
+            g_flat = torch.clamp(d.task_excl, min=0).long() * d.n + node
+            occ_flat = occ.reshape(-1).to(torch.int8).scatter_reduce(
+                0, g_flat, (~(roll & (d.task_excl >= 0))).to(torch.int8), "amin")
+            occ.copy_(occ_flat.bool().reshape(occ.shape))
+        st["idle"].index_put_((node,), dreq, accumulate=True)
+        st["used"].index_put_((node,), -dreq, accumulate=True)
+        st["cnt"].index_add_(0, node, -roll.to(torch.int32))
+        st["assign"].masked_fill_(roll, -1)
+        st["active"].logical_and_(~dead_task)
+        st["job_placed"].masked_fill_(roll_job, 0)
+        st["job_alloc"].index_put_((d.task_job_l,), -dreq, accumulate=True)
+        st["queue_alloc"].index_put_((d.task_queue_l,), -dreq, accumulate=True)
+        st["ns_alloc"].index_put_((d.task_ns_l,), -dreq, accumulate=True)
+        st["dirty"].logical_or_(_scatter_any(d.n, node, roll))
+        zero = torch.zeros((), dtype=torch.int64, device=d.dev)
+        self.ctl[RK.C_STILL:RK.C_ANY_CAND + 1] = torch.stack([
+            st["active"].sum(), st["dirty"].sum(), zero,
+            cand.any().to(torch.int64)])
+
+    def _tail(self) -> None:
+        """The sequential tail pass (K7b; the plain version on the host
+        paths)."""
+        tail = RK.tail_pass_plain if self.mode in ("cpu", "host") else RK.tail_pass
+        tail(self.spec, self.tenc, self.st, self.ctl)
 
 
-def solve_rounds(spec: SolveSpec, enc: dict):
+def _loop(loop, enc) -> str:
+    if not devmod.on_cuda(enc["cls_req"], enc["node_idle"]):
+        if loop not in (None, "host"):
+            raise ValueError(f"loop={loop!r} needs CUDA tensors")
+        return "cpu"
+    if loop not in (None, "graph", "host"):
+        raise ValueError(f"unknown rounds loop {loop!r} (graph, host)")
+    return loop or "graph"
+
+
+def solve(spec: SolveSpec, enc: dict, loop: str = None):
+    """One rounds solve: (raw result tuple, packed result).
+
+    On CUDA tensors the solve is one replay of the bucket's CUDA graph
+    (ops/rounds_graph.py): nothing is read back; the packed result
+    carries the graph's status for the one fetch (utils/devprof.py).
+    ``loop="host"`` runs the same step machine driven from the host
+    instead, the plain side of K7's comparison. On CPU tensors the machine runs from the host with every
+    plain version."""
+    mode = _loop(loop, enc)
+    if mode == "graph":
+        from volcano_tpu_torch.ops import rounds_graph
+
+        return rounds_graph.solve(spec, enc)
+    m = StepMachine(spec, enc, mode)
+    m.run()
+    return m.finish()
+
+
+def solve_rounds(spec: SolveSpec, enc: dict, loop: str = None):
     """Batched allocate session. Returns (assign [T] int32 node or -1/-2,
     rounds used, tail_placed, full-sweep rounds, capped flag,
-    placed-per-round histogram [PROF_SLOTS] as a list, touched-node mask
-    [N] bool).
+    placed-per-round histogram [PROF_SLOTS], touched-node mask [N] bool),
+    every entry a tensor on the encode's device.
 
     ``enc`` holds the padded encoded arrays as tensors on one device
     (ops/solver.from_numpy_encoded). Per-task request/has-pod columns are
     derived from the class arrays (task_req = cls_req[task_cls])."""
-    enc = dict(
-        enc,
-        task_req=enc["cls_req"][enc["task_cls"].long()],
-        task_has_pod=enc["cls_has_pod"][enc["task_cls"].long()],
-    )
-    d = _Dims(enc)
-    t_cap = d.t + 1  # capacity clamp: ranks never reach it
-    st = dict(
-        idle=enc["node_idle"].clone(), used=enc["node_used"].clone(),
-        cnt=enc["node_cnt"].clone(),
-        assign=torch.full((d.t,), -1, dtype=torch.int32, device=d.dev),
-        active=d.task_valid,
-        job_placed=torch.zeros(d.j, dtype=torch.int32, device=d.dev),
-        job_alloc=enc["job_alloc0"], queue_alloc=enc["queue_alloc0"],
-        ns_alloc=enc["ns_alloc0"],
-        # carried masked score matrix + dirty-column set: all columns start
-        # dirty, so the first round always takes a full refresh (or an
-        # all-column gather when dirty_k covers the whole axis)
-        scores=torch.zeros((d.k, d.n), dtype=d.dt, device=d.dev),
-        dirty=torch.ones(d.n, dtype=torch.bool, device=d.dev),
-        touched=torch.zeros(d.n, dtype=torch.bool, device=d.dev),
-    )
-    if spec.use_exclusion:
-        st["excl_occ"] = enc["excl_occ0"].clone()
-    round_budget = 2 * (d.t + d.j) + 8
-    rounds = 0
-    progress, tried_cons, dead, capped = True, False, False, False
-    placed_hist = [0] * PROF_SLOTS
-    full_sweeps = 0
-    n_dirty = d.n
-    remaining = int(devprof.readback(d.task_valid.sum()))
-    rmp = spec.round_min_progress
+    return solve(spec, enc, loop)[0]
 
-    def one_round(st, cons):
-        nonlocal rounds, progress, tried_cons, capped, full_sweeps, n_dirty, remaining
-        st, placed_n, still, n_dirty, did_full = _round(
-            spec, enc, d, st, cons, n_dirty, t_cap)
-        if rmp > 1:
-            # diminishing-returns exit: a nonzero round below the progress
-            # floor with a small remainder hands it to the stragglers/tail
-            capped = capped or (0 < placed_n < rmp and 0 < still <= 8 * rmp)
-        placed_hist[min(rounds, PROF_SLOTS - 1)] += placed_n
-        rounds += 1
-        progress = placed_n > 0
-        tried_cons = cons and not progress
-        full_sweeps += int(did_full)
-        remaining = still
-        return st
 
-    while not dead and rounds < round_budget:
-        while (progress or not tried_cons) and remaining > 0 \
-                and rounds < round_budget and not capped:
-            st = one_round(st, cons=not progress)
-        if capped:
-            dead = True
-        else:
-            st, any_cand, n_dirty, remaining = _rollback(spec, enc, d, st)
-            progress = True
-            dead = not any_cand
-        tried_cons = False
-
-    if rmp > 1 and spec.straggler_rounds > 0:
-        # batched straggler rounds over the capped remainder before the
-        # sequential tail pass
-        extra = 0
-        progress = True
-        while capped and progress and remaining > 0 \
-                and extra < spec.straggler_rounds and rounds < round_budget:
-            st = one_round(st, cons=not progress)
-            extra += 1
-
-    tail_placed = 0
-    tail_failed = None
-    if rmp > 1:
-        tail_failed = torch.zeros_like(st["active"])
-        if capped:
-            st, tail_placed, tail_failed = _tail_pass(spec, enc, d, st, remaining)
-    # structural gang-atomicity net (a no-op on a normal exit)
-    short = (enc["job_ready_base"] + st["job_placed"]) < enc["job_ready_threshold"]
-    minus = torch.full_like(st["assign"], -1)
-    assign = torch.where(short[d.task_job_l], minus, st["assign"])
-    # capped exit: still-wanting tasks go to the serial residue retry (-2)
-    strip_retry = short & (st["job_placed"] > 0)
-    want_retry = st["active"] | (strip_retry[d.task_job_l] & d.task_valid)
-    if tail_failed is not None:
-        want_retry = want_retry | (tail_failed & d.task_valid)
-    if capped:
-        assign = torch.where(want_retry & (assign < 0),
-                             torch.full_like(assign, -2), assign)
-    touched = torch.ones_like(st["touched"]) if capped else st["touched"]
-    return (assign, rounds, tail_placed, full_sweeps, capped, placed_hist,
-            touched)
+def solve_rounds_packed(spec: SolveSpec, enc: dict, loop: str = None):
+    """The packed single-fetch result of one solve (pack_result)."""
+    return solve(spec, enc, loop)[1]

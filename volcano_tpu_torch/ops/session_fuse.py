@@ -25,10 +25,11 @@ Here the chain runs as one:
   runs the later stages: each fetch starts right after its stage's launch
   (one stream runs copies in launch order), and only the waits block.
 
-The port's allocate stage (the rounds solver, K7) is a loop driven from
-the host, so ``_fuse_alloc`` returns after its last readback; backfill,
-preempt and reclaim are then launched back to back, and the allocate
-apply and the backfill replay overlap K13, K9 and K10 on the card.
+The allocate stage (the rounds solve, K7) is one graph replay on the
+card (ops/rounds_graph.py) and its carry bridge reads the solve's assign
+there, so ``_fuse_alloc`` returns without a readback; backfill, preempt
+and reclaim are launched right behind it, and the allocate apply and the
+backfill replay overlap K13, K9 and K10 on the card.
 
 Fallback contract (the reference's): ``VOLCANO_TPU_FUSE=0`` forces the
 per-action path; out-of-envelope sessions (residue, releasing capacity,
@@ -77,8 +78,7 @@ def _fuse_alloc(spec, enc, maps, sizes):
     the per-evict-axis deltas of everything the allocate apply will change
     on the host. ``sizes`` is (nodes, jobs, queues, tasks) of the evict
     axes. Returns (packed result, carry)."""
-    raw = rounds_mod.solve_rounds(spec, enc)
-    packed = rounds_mod.pack_result(enc, raw)
+    raw, packed = rounds_mod.solve(spec, enc)
     return packed, ek.alloc_bridge(enc, maps, raw[0], sizes)
 
 

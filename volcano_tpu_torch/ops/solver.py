@@ -403,9 +403,9 @@ class BatchAllocator:
     @staticmethod
     def dispatch(prep: dict) -> torch.Tensor:
         """Launch a rounds prepare's solve; returns the packed result
-        (assign, touched mask, profile tail) on the device, unfetched."""
-        raw = rounds_mod.solve_rounds(prep["spec"], prep["staged"])
-        return rounds_mod.pack_result(prep["staged"], raw)
+        (assign, touched mask, profile tail) on the device, unfetched. On
+        the card this enqueues one graph replay and reads nothing back."""
+        return rounds_mod.solve_rounds_packed(prep["spec"], prep["staged"])
 
     def __call__(self, ssn) -> bool:
         from volcano_tpu_torch.utils import devprof

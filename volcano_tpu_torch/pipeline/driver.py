@@ -80,9 +80,9 @@ Trims from the reference, each deliberate:
   the port a build, launch or solve failure raises, the crashed cycle
   abandons its stage and feeds the ladder's pipeline breaker.
 
-In the port the rounds solve is a host-driven loop (K7 is still to move
-onto the card), so a speculative dispatch returns only once its solve
-has run; the decisions are the same, only the overlap is lost. A
+On the card the rounds solve is one graph replay (K7, ops/rounds_graph.py),
+so a speculative dispatch returns as soon as the solve is enqueued and
+the solve runs through the close and the inter-cycle window. A
 committed stage reports it: ``dispatch_ms`` (host time the dispatch
 held), ``stage_device_ms`` (device time from the dispatch's start to the
 result's copy, by CUDA events) and ``device_overlap_ms``, the part of the
@@ -492,6 +492,10 @@ class PipelineDriver:
         — an abandoned stage was never applied either."""
         st, self._inflight = self._inflight, None
         if st is not None:
+            # its solve may still run on the card (the dispatch returns
+            # before the solve ends): fetch it, unapplied, so that nothing
+            # of a stopped driver is left running on the device
+            st.fetch()
             self._discard(st, "abandoned")
 
     # -- the non-speculative (serial-order) cycle ---------------------------

@@ -11,7 +11,8 @@ port waits for the device routes through here so it can be counted:
   work between the two calls overlaps the device and is summed into
   ``overlap_s``, the time ``wait()`` blocks into ``fence_wait_s``;
 - ``readback(x)`` reads loop-control scalars (one sync point): the rounds
-  solver's host-driven loop makes one per loop test;
+  solver's host-driven step machine (``loop="host"``) makes one per step
+  and per windowed round; the graph-replayed solve makes none;
 - ``note_overlappable(rows)`` counts a launch nobody waits for (the
   device replica's row scatters);
 - ``register(x)`` tracks a launched result consumed on the device,
@@ -112,6 +113,8 @@ def counters() -> Optional[dict]:
 
 def fetch(x) -> np.ndarray:
     """Copy tensor ``x`` to the host: a counted fetch and sync point."""
+    if getattr(x, "devprof_status", None) is not None:
+        return start_fetch(x)()
     if _active is not None:
         _active["d2h_fetches"] += 1
         _active["sync_points"] += 1
@@ -130,11 +133,18 @@ def start_fetch(x: torch.Tensor) -> Callable[[], np.ndarray]:
     t0 = time.perf_counter()
     if _active is not None:
         _active["d2h_fetches"] += 1
+    # a graph-replayed solve (ops/rounds_graph.py) carries its status: it
+    # rides the same copy and is handed to its owner after the wait
+    status, on_status = getattr(x, "devprof_status", None) or (None, None)
     if x.device.type == "cuda":
         host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
         host.copy_(x, non_blocking=True)
+        if status is not None:
+            status_host = torch.empty(status.shape, dtype=status.dtype,
+                                      pin_memory=True)
+            status_host.copy_(status, non_blocking=True)
     else:
-        host = x
+        host, status_host = x, status
     done = _behind(x)
     _inflight.append((x, done))
 
@@ -143,6 +153,8 @@ def start_fetch(x: torch.Tensor) -> Callable[[], np.ndarray]:
         if done is not None:
             done.synchronize()
         out = host.numpy()
+        if status is not None:
+            on_status(status_host.numpy())
         if _active is not None:
             _active["sync_points"] += 1
             _active["overlap_s"] += t1 - t0
