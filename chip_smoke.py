@@ -7,7 +7,7 @@ Run from the repository root on a machine with an NVIDIA H100:
     python3 chip_smoke.py --only parity,pipeline  # some phase groups only
 
 Phase groups (``--only``; all by default): allocate (phases 2-5, 3b),
-express (6-10), parity (11), pipeline (12), loop (13).
+express (6-10), parity (11), pipeline (12), loop (13), bench (14).
 
 Every rounds solve on the card is one replay of its bucket's CUDA graph
 (K7, volcano_tpu_torch/ops/rounds_graph.py): the kernel wrappers launch
@@ -19,7 +19,8 @@ Phases, each failing the run on any error:
 
 1. the card's name and power limit (nvidia-smi), the torch, CUDA and
    driver versions, then the build of every CUDA kernel under
-   volcano_tpu_torch/csrc, one nvcc per source, in parallel;
+   volcano_tpu_torch/csrc, one nvcc per source, in parallel, and of the
+   native host engines (volcano_tpu_torch/_native, cc), which must load;
 2. kernel phase (allocate): one cfg5 allocate session on the card records
    the first input each kernel wrapper sees on that path (K1 score_block
    full and dirty-column, K2 window_topk, K4 resolve_prefix, K5
@@ -134,7 +135,26 @@ Phases, each failing the run on any error:
    cycles, a commit, automatic GC off while it ran and restored after, no
    "scheduling cycle failed" or "express run failed" record; the lane's
    p50/p99/max (beside phase 7's p99) and the collections the
-   interpreter ran are printed.
+   interpreter ran are printed;
+14. the bench (volcano_tpu_torch/bench): (a) K16 at cfg7 x 0.65 (65k
+   tasks x 32.5k nodes, the largest cfg7 the encoder takes: at full scale
+   its cluster capacity passes the int32 quantized-bound guard and the
+   solver falls back to the serial loop, in the JAX package too; one
+   rounds-mode encode through the solver's own prepare, no session run,
+   the cluster build outside every timed window): at d = 1 and d = 8
+   shards (N/d = 32,500 and 4,063 of the padded axis), K16a probe_refresh (16 launches of
+   K1) and K16b probe_evict_fold (one launch) torch.equal to their plain
+   versions on one shard's slice, each timed (5 calls after 1 warm-up);
+   (b) the bench's entry point ``main`` on the card (default --device
+   cuda): cfg5 with both arms (the serial arm extrapolated under
+   --serial-budget), the mesh curve at cfg7 0.2, the express lane (32
+   measured batches) and the pipeline (6 measured cycles, and its churn
+   arm), cfg5 at full scale: zero warm compiles (kernel builds and graph captures), both
+   native engines loaded, one sync point a warm cfg5 solve, binds > 0,
+   one curve entry with per_device_stage_ms > 0; each headline line and
+   the phase's wall time are printed. The launch counters are zeroed
+   before the mesh-curve run and read after it: K1's launches inside its
+   probes (16 a probe) and K16b's.
 
 The last two lines of standard output are a {"kernels": [...]} JSON object
 and {"ok": true, "device": {...}}. Without a usable GPU, or without the
@@ -2428,7 +2448,232 @@ def express_kernel_phase(captured):
     return records
 
 
-PHASE_GROUPS = ("allocate", "express", "parity", "pipeline", "loop")
+# ---------------------------------------------------------------------------
+# the bench: K16 at cfg7 and the bench's entry point on the card
+# ---------------------------------------------------------------------------
+
+K16_SHARDS = (1, 8)
+# the largest cfg7 the encoder takes (at 1.0 the node capacity exceeds
+# its int32 quantized-bound guard, ops/encoder.py, and prepare falls back)
+K16_CFG7_SCALE = 0.65
+K1_OPS = lambda r: 30 + 12 * r  # noqa: E731  (K1's operations a cell)
+
+
+def cfg7_prepare(scale=1.0, device="cuda", dtype="float32"):
+    """(spec, host arrays) of one rounds-mode cfg7 encode through the
+    solver's own prepare; no session runs."""
+    from volcano_tpu_torch.bench.clusters import CONFIGS, make_cache
+    from volcano_tpu_torch.bench.run import _tpu_tiers
+    from volcano_tpu_torch.scheduler.framework import close_session, open_session
+
+    bc = CONFIGS[7]
+    cache = make_cache()
+    t0 = time.perf_counter()
+    n_tasks = bc.populate(cache, scale)
+    t1 = time.perf_counter()
+    ssn = open_session(cache, _tpu_tiers(bc.tiers, device, dtype, mode="rounds"))
+    prep = ssn.batch_allocator._prepare(ssn)
+    close_session(ssn)
+    if prep is None:
+        raise AssertionError(f"cfg7 x {scale}: no rounds encode: "
+                             f"{ssn.batch_allocator.profile.get('fallback')}")
+    log(f"cfg7 x {scale}: {n_tasks} tasks, build {t1 - t0:.1f} s, "
+        f"open + encode {time.perf_counter() - t1:.1f} s")
+    return prep["spec"], prep["arrays"]
+
+
+def k16_phase(scale=K16_CFG7_SCALE, device="cuda", dtype="float32"):
+    """K16a and K16b at cfg7's largest encodable width, d = 1 and d = 8:
+    equal to their plain versions, launch counts, times. Returns the d = 1
+    records (the kernels line) after printing every record."""
+    from volcano_tpu_torch import device as devmod
+    from volcano_tpu_torch.ops import shard
+    from volcano_tpu_torch.ops.solver import _NODE_AXIS
+
+    spec, arrays = cfg7_prepare(scale, device, dtype)
+    on_card = device == "cuda"  # a host rehearsal launches nothing
+    records = []
+    for d in K16_SHARDS:
+        width, enc, fold = shard.stage_probe(arrays, _NODE_AXIS, d, device=device)
+        devmod.reset_launches()
+        got = shard.probe_refresh(spec, enc)
+        torch.cuda.synchronize()
+        k1 = devmod.launches()["score_block"]
+        want, plain_ms = timed_plain(lambda: shard.probe_refresh_plain(spec, enc))
+        same(got, want, f"probe_refresh d={d}")
+        if on_card and k1 != shard._PROBE_REPS:
+            raise AssertionError(f"probe_refresh d={d}: {k1} K1 launches, "
+                                 f"want {shard._PROBE_REPS}")
+        devmod.reset_launches()
+        count = shard.probe_evict_fold(*fold)
+        torch.cuda.synchronize()
+        if on_card and devmod.launches()["probe_evict_fold"] != 1:
+            raise AssertionError(f"probe_evict_fold d={d}: "
+                                 f"{devmod.launches()['probe_evict_fold']} launches")
+        stats = {}
+        want_n, fold_plain_ms = timed_plain(
+            lambda: shard.probe_evict_fold_plain(*fold, stats=stats))
+        same(count, want_n, f"probe_evict_fold d={d}")
+        k_rows, n, r = enc["cls_req"].shape[0], width, enc["node_idle"].shape[1]
+        dt = enc["node_idle"].dtype
+        esz = enc["node_idle"].element_size()
+        refresh_bytes = nbytes(*(enc[x] for x in (
+            "cls_req", "cls_initreq", "cls_sig", "cls_nz_cpu", "cls_nz_mem",
+            "cls_has_pod", "node_idle", "node_used", "node_alloc", "node_cnt",
+            "node_max_tasks", "sig_mask", "affinity_score"))) + esz
+        reps = shard._PROBE_REPS
+        refresh = dict(
+            name=f"probe_refresh (K1 x {reps})", kernel="probe_refresh",
+            route="cuda",
+            source="volcano_tpu_torch/csrc/score_block.cu (ops/shard.py probe_refresh)",
+            replaces="volcano_tpu/ops/shard.py:191", max_abs_err=0.0,
+            ms=time_ms(lambda: shard.probe_refresh(spec, enc), reps=5, warmup=1),
+            plain_ms=plain_ms, library_ms=None, bytes=refresh_bytes,
+            ops=reps * (k_rows * n * K1_OPS(r) + n * r), dtype=dt,
+            launch_path="bench",
+            shape=f"cfg7 d={d}: K={k_rows} N/d={n} R={r}, {reps} reps, "
+                  f"sum {got.item()}")
+        w_, v_, r_ = fold[0].shape
+        fold_rec = dict(
+            name="probe_evict_fold", kernel="probe_evict_fold", route="cuda",
+            source="volcano_tpu_torch/csrc/probe_evict_fold.cu",
+            replaces="volcano_tpu/ops/shard.py:215", max_abs_err=0.0,
+            ms=time_ms(lambda: shard.probe_evict_fold(*fold), reps=5, warmup=1),
+            plain_ms=fold_plain_ms, library_ms=None,
+            bytes=nbytes(*fold) + 4,
+            ops=reps * w_ * v_ * 6 * r_ + stats["updates"] * r_, dtype=dt,
+            launch_path="bench",
+            shape=f"cfg7 d={d}: W={w_} V={v_} R={r_}, {reps} reps, "
+                  f"count {int(count)}")
+        for rec in (refresh, fold_rec):
+            finish_record(rec)
+        if d == 1:
+            records += [refresh, fold_rec]
+    return records
+
+
+def bench_main(argv):
+    """The bench's main on the card (its default --device cuda); returns
+    the JSON lines it printed, after printing the headline."""
+    import contextlib
+    import io
+
+    from volcano_tpu_torch.bench import run
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = run.main(argv)
+    if rc != 0:
+        raise AssertionError(f"bench {argv}: exit {rc}")
+    lines = [json.loads(x) for x in buf.getvalue().splitlines() if x.startswith("{")]
+    if not lines or "summary" not in lines[-1]:
+        raise AssertionError(f"bench {argv}: no summary tail")
+    for line in lines[:-1]:
+        print(json.dumps({"bench": " ".join(argv), "headline": line}), flush=True)
+    log(f"bench {' '.join(argv)}: {time.perf_counter() - t0:.1f} s")
+    return lines
+
+
+def bench_phase(scale=1.0, device=None, dtype=None):
+    """The bench's entry point on the card: cfg5 (both arms), the mesh
+    curve, the express lane and the pipeline, through ``main`` with its
+    default device (``device``/``dtype`` and a smaller ``scale`` rehearse
+    it on the host). Returns the launches of K16 on the mesh-curve run
+    (K1's inside its probes, K16b's)."""
+    from volcano_tpu_torch import device as devmod
+    from volcano_tpu_torch.bench import run
+    from volcano_tpu_torch.ops import shard
+
+    t_phase = time.perf_counter()
+    place = [] if device is None else ["--device", device, "--dtype", dtype]
+    bench_main(["--config", "5", "--backend", "both", "--warm-iters", "3",
+                "--serial-budget", "15", "--scale", str(scale)] + place)
+    with open(run.RECORD) as fh:
+        rec = json.load(fh)["results"][0]
+    prof = rec["tpu_profile"]
+    checks = {
+        "warm compiles 0": rec["tpu_warm_compiles"] == [0, 0, 0],
+        "native engines": rec["native_engines"] == {"fastapply": True, "fasttrans": True},
+        "rounds solve": prof.get("mode") == "rounds",
+        "one sync point a warm solve": prof.get("tpu_sync_points") == 1,
+        "binds": rec["tpu_binds"] > 0,
+        "serial extrapolated": rec.get("serial_extrapolated") is True,
+    }
+    print(json.dumps({"bench_cfg5": {
+        "tpu_e2e_median_ms": rec["tpu_e2e_median_ms"],
+        "tpu_e2e_samples_ms": rec["tpu_e2e_samples_ms"],
+        "serial_e2e_ms": rec["serial_e2e_ms"],
+        "serial_measured_scale": rec.get("serial_measured_scale"),
+        "speedup": rec.get("speedup"), "tpu_binds": rec["tpu_binds"],
+        "solve_ms": round(prof.get("solve_s", 0.0) * 1e3, 3),
+        "tpu_floor_samples_ms": rec["tpu_floor_samples_ms"],
+        "tpu_steady_state": rec["tpu_steady_state"],
+        "card": rec["device"]}}), flush=True)
+
+    # K1 launches inside the probes, counted by wrapping the probe entry
+    in_probes = [0]
+    probe = shard.probe_refresh
+
+    def counted(*a, **k):
+        before = devmod.LAUNCHES["score_block"]
+        out = probe(*a, **k)
+        in_probes[0] += devmod.LAUNCHES["score_block"] - before
+        return out
+
+    shard.probe_refresh = counted
+    devmod.reset_launches()
+    try:
+        mesh = bench_main(["--mesh", "1", "--scale", str(0.2 * scale)]
+                          + place)[-1]["summary"]["tpu_mesh_curve"]
+    finally:
+        shard.probe_refresh = probe
+    counts = devmod.launches()
+    (entry,) = mesh["curve"]
+    checks.update({
+        "mesh: one entry at 1 device": mesh["devices"] == [1],
+        "mesh: per_device_stage_ms > 0": entry["per_device_stage_ms"] > 0,
+        "mesh: warm compiles 0": entry["warm_compiles"] == 0,
+        "mesh: K16b launched": counts["probe_evict_fold"] > 0 or device == "cpu",
+        "mesh: 16 K1 a probe": in_probes[0] == 16 * counts["probe_evict_fold"],
+    })
+    print(json.dumps({"bench_mesh": entry}), flush=True)
+
+    xp = bench_main(["--express", "--express-arrivals", "32", "--scale", str(scale)]
+                    + place)[-1]["summary"]["express"]
+    checks["express: warm compiles 0"] = xp["express_warm_compiles"] == 0
+    checks["express: one sync point a batch"] = xp["express_sync_points_per_batch"] == 1.0
+    pl = bench_main(["--pipeline", "--pipeline-cycles", "6", "--scale",
+                     str(scale)] + place)
+    pl = pl[-1]["summary"]["cfg5_pipeline"]
+    # the churn arms' bind match is printed, not checked: it depends on the
+    # process's string-hash order in the JAX package too (ROADMAP.md Queue 3)
+    checks.update({
+        "pipeline: warm compiles 0": pl["pipeline_warm_compiles"] == 0,
+        "pipeline churn: warm compiles 0": pl["churn"]["warm_compiles_readset"] == 0,
+    })
+    checks["native engines after"] = run.native_engines() == {
+        "fastapply": True, "fasttrans": True}
+    print(json.dumps({"bench_express": {k: xp[k] for k in (
+        "tpu_express_p50_ms", "tpu_express_p99_ms", "tpu_express_max_ms",
+        "batches", "express_placed", "express_warm_compiles")},
+        "bench_pipeline": {k: pl[k] for k in (
+            "pipeline_sessions_per_sec", "serial_sessions_per_sec",
+            "speedup_sessions_per_sec", "p99_submit_bind_ms",
+            "pipeline_spec_commit_rate", "pipeline_warm_compiles")},
+        "churn": {k: pl["churn"][k] for k in (
+            "commit_rate_whole_fingerprint", "binds_match_serial",
+            "whole_fp_binds_match_serial", "spec_commits", "spec_discards")},
+        "card": CARD}), flush=True)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"bench phase: {failed}")
+    log(f"bench phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"probe_refresh": in_probes[0],
+            "probe_evict_fold": counts["probe_evict_fold"]}
+
+
+PHASE_GROUPS = ("allocate", "express", "parity", "pipeline", "loop", "bench")
 
 
 def main() -> int:
@@ -2464,6 +2709,14 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
+    # the native host engines (cc, not nvcc) build before any phase, so
+    # every session's host loops run in them
+    from volcano_tpu_torch.bench.run import native_engines
+
+    engines = native_engines()
+    log(f"native host engines: {engines}")
+    if not all(engines.values()):
+        raise AssertionError(f"native engines did not load: {engines}")
     probe_versions()
     records, launches, express_p99 = [], {}, None
     if "allocate" in groups:
@@ -2497,6 +2750,9 @@ def main() -> int:
         launches["pipeline"] = pipeline_phase(args.scale)
     if "loop" in groups:
         launches["loop"] = scheduler_loop_phase(express_p99_ms=express_p99)
+    if "bench" in groups:
+        records += k16_phase()
+        launches["bench"] = bench_phase()
     # each kernel's launches on the path that runs it: K1-K5 on cfg5; the
     # per-action K9 on cfg4's and K10 on the reclaim path's per-action run;
     # K11, K13 and the fused K9 on cfg4's fused run, the fused K10 on the

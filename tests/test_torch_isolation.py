@@ -267,6 +267,46 @@ def test_rounds_loop_modules_load_no_jax_module():
     assert "LOADED []" in out.stdout, out.stdout
 
 
+_BENCH = r"""
+import io, os, sys
+from contextlib import redirect_stdout
+import torch
+torch.set_num_threads(1)
+from volcano_tpu_torch.bench import run
+from volcano_tpu_torch import _native
+from volcano_tpu_torch.ops import shard
+buf = io.StringIO()
+with redirect_stdout(buf):
+    assert run.main(["--device", "cpu", "--dtype", "float64", "--config", "5",
+                     "--scale", "0.05", "--backend", "tpu", "--warm-iters", "1"]) == 0
+    assert run.main(["--device", "cpu", "--dtype", "float64", "--mesh", "1",
+                     "--scale", "0.005"]) == 0
+assert '"summary"' in buf.getvalue().splitlines()[-1]
+mods = [_native.get_fastapply(), _native.get_fasttrans()]
+assert all(m is not None for m in mods), mods
+here = os.path.dirname(os.path.abspath(_native.__file__))
+assert all(os.path.dirname(m.__file__) == here for m in mods), mods
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0].startswith("jax") or m.split(".")[0] == "volcano_tpu")
+print("LOADED", bad)
+"""
+
+
+def test_bench_entry_loads_no_jax_module():
+    """The bench entry (a rounds-mode cfg5 run and the cfg7 mesh curve with
+    its K16 probes), the compile watcher, the shard probes and the native
+    engines run without loading jax or the JAX package; the engines load
+    from the port's own _native directory."""
+    for f in ("bench/run.py", "bench/__main__.py", "ops/shard.py",
+              "ops/fasttrans.py", "utils/compilewatch.py", "_native/__init__.py"):
+        assert os.path.join(PORT, f) in set(_port_files()), f
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", _BENCH], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "LOADED []" in out.stdout, out.stdout
+
+
 def test_every_kernel_source_is_built():
     """Every csrc/*.cu (K13's fuse_heaps.cu among them) is a kernel the
     builder compiles, and a CUDA source includes only the toolkit's
@@ -276,7 +316,7 @@ def test_every_kernel_source_is_built():
     csrc = os.path.join(PORT, "csrc")
     sources = sorted(f[:-3] for f in os.listdir(csrc) if f.endswith(".cu"))
     assert {"fuse_heaps", "express_place", "scatter_rows", "parity_scan",
-            "rounds_ctl", "tail_pass"} <= set(sources)
+            "rounds_ctl", "tail_pass", "probe_evict_fold"} <= set(sources)
     assert sources == sorted(_build.KERNELS)
     for f in os.listdir(csrc):
         if not f.endswith((".cu", ".cuh")):

@@ -12,6 +12,10 @@ decide placements through ties, so a kernel must round exactly as its
 plain PyTorch version does; where the JAX reference fuses a multiply-add
 the kernel asks for ``fma()`` by name. Never ``--use_fast_math``.
 
+``BUILDS`` counts the libraries built in this process and the seconds
+their nvcc runs took (utils/compilewatch.py reads it: a warm session
+builds nothing).
+
 Nothing here runs at import time; on a host without ``nvcc`` only a
 build attempt fails.
 """
@@ -24,6 +28,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from typing import Dict, List
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
@@ -31,13 +36,14 @@ BUILD = os.path.join(CSRC, "build")
 KERNELS = ("score_block", "window_topk", "resolve_prefix", "queue_budget",
            "evict_preempt", "evict_reclaim", "evict_backfill", "fuse_heaps",
            "scatter_rows", "express_place", "parity_scan", "rounds_ctl",
-           "tail_pass")
+           "tail_pass", "probe_evict_fold")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+BUILDS = {"count": 0, "seconds": 0.0}
 
 
 def nvcc_path() -> str:
@@ -77,14 +83,16 @@ def _start(name: str):
     proc = subprocess.Popen(
         [nvcc_path(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, name + ".cu")],
         stdout=log, stderr=subprocess.STDOUT)
-    return proc, tmp, out, log
+    return proc, tmp, out, log, time.perf_counter()
 
 
 def _finish(name: str, job) -> None:
     if job is None:
         return
-    proc, tmp, out, log = job
+    proc, tmp, out, log, t0 = job
     rc = proc.wait()
+    BUILDS["count"] += 1
+    BUILDS["seconds"] += time.perf_counter() - t0
     log.close()
     with open(log.name) as fh:
         text = fh.read()

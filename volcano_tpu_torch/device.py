@@ -45,6 +45,7 @@ LAUNCHES: Dict[str, int] = {
     "parity_scan": 0,
     "rounds_ctl": 0,
     "tail_pass": 0,
+    "probe_evict_fold": 0,
 }
 
 _SINKS: List[Dict[str, int]] = []

@@ -255,9 +255,13 @@ class DensePreemptView:
         # to ssn._placement_gen — equality proves every placement-shaped
         # mutation since build was routed through the hooks
         self._synced_gen = getattr(ssn, "_placement_gen", 0)
-        # native candidate-head pick: the port carries no native module, so
-        # None keeps the pure-Python window selection
-        self._pick_first = None
+        # native candidate-head pick (fasttrans.c pick_first); None keeps
+        # the pure-Python window selection
+        from volcano_tpu_torch import _native
+
+        _mod = _native.get_fasttrans_nowait()
+        self._pick_first = getattr(_mod, "pick_first", None) \
+            if _mod is not None else None
         self._sig_mask: Dict[str, np.ndarray] = {}
         self._sig_aff: Dict[str, Optional[np.ndarray]] = {}
         self._node_idx = {name: i for i, name in enumerate(self.node_names)}

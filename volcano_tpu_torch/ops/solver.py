@@ -21,9 +21,15 @@ fetched back as ONE array, and applied:
   probe, which never hits: only rounds prepares are stored, and the token
   carries the mode.
 
-Left out here: the mesh, the native fast-apply loop, and the serial
-fallback on a solve error — in the port a build, launch or solve failure
-raises.
+The bulk writeback's per-task loop, its node deltas and the drf share
+updates run in the native engine ``_native/fastapply.c`` when it has
+loaded (the Python body is the fallback and the oracle; the same end
+state either way). A rounds prepare also keeps its padded host arrays
+(``prep["arrays"]``), which the bench's per-device stage probes read
+(ops/shard.py).
+
+Left out here: the mesh (its per-shard staging), and the serial fallback
+on a solve error — in the port a build, launch or solve failure raises.
 """
 
 from __future__ import annotations
@@ -96,6 +102,14 @@ ROUNDS_SAFE_PLUGINS = frozenset({
     "tpuscore", "priority", "gang", "drf", "proportion",
     "predicates", "nodeorder", "binpack", "conformance",
 })
+
+# the node axis of each node-indexed encoded array (the mesh's shard axis;
+# ops/shard.py slices one shard's width along it)
+_NODE_AXIS = {
+    "sig_mask": 1, "affinity_score": 1, "excl_occ0": 1,
+    "node_idle": 0, "node_used": 0, "node_alloc": 0,
+    "node_cnt": 0, "node_max_tasks": 0, "node_real": 0,
+}
 
 # arrays the rounds solve never reads: per-task columns it re-derives from
 # the class arrays, plus the parity scan's sampling-window inputs
@@ -345,8 +359,9 @@ class BatchAllocator:
         if rep_part:
             staged.update(rep.serve(rep_part, ssn, enc, place, self.profile))
         t2 = time.perf_counter()
-        prep = dict(mode="rounds", enc=enc, spec=spec, staged=staged, t0=t0,
-                    t1=t1, h2d_s=t2 - t1, readset=readset)
+        prep = dict(mode="rounds", enc=enc, spec=spec, staged=staged,
+                    arrays=rounds_arrays, t0=t0, t1=t1, h2d_s=t2 - t1,
+                    readset=readset)
         if rep is not None:
             # token recomputed AFTER the serve: the serve bumps the
             # replica epoch (a fingerprint component), and the stored
@@ -602,6 +617,16 @@ class BatchAllocator:
         bind_pods: list = []
         bind_hosts: list = []
         bind_keys: list = []
+        # native batched loop (volcano_tpu_torch/_native/fastapply.c):
+        # identical semantics to the Python body below, which remains the
+        # fallback and oracle; volumes force the Python path (effector
+        # calls). Non-blocking: a cold process compiles on a background
+        # thread and THIS session runs the Python loop; never wait on cc here
+        from volcano_tpu_torch._native import get_fastapply_nowait
+
+        mod = get_fastapply_nowait()
+        fast_all = getattr(mod, "apply_all_jobs", None) \
+            if (mod is not None and vols_noop) else None
         # a keyed binder that declares it does not consume pod objects
         # (KEYED_NEEDS_PODS = False — the k8s Bind subresource needs only
         # name + target) lets the writeback skip the .pod extractions;
@@ -625,10 +650,25 @@ class BatchAllocator:
         defer_mirror = getattr(cache, "defer_mirror", None)
         do_cache_inline = defer_mirror is None
         try:
-            loop_jobs = job_nz
-            assign_l = assign.tolist()
-            placed_l = placed_arr.tolist()
-            job_sums_l = job_sums.tolist()
+            if fast_all is not None:
+                fast_all(
+                    job_nz_arr, seg_ends_arr, placed_arr,
+                    assign.astype(np.int64),
+                    task_infos, node_names, ssn_nodes,
+                    cache_nodes if do_cache_inline else None,
+                    job_infos,
+                    cache.jobs if do_cache_inline else None,
+                    PENDING, BINDING,
+                    np.ascontiguousarray(job_sums),
+                    tuple(scalar_names),
+                    bind_tasks, bind_pods, bind_hosts, bind_keys,
+                    int(want_pods))
+                loop_jobs = ()  # the batched call covered every job
+            else:
+                loop_jobs = job_nz
+                assign_l = assign.tolist()
+                placed_l = placed_arr.tolist()
+                job_sums_l = job_sums.tolist()
             lo = 0
             for ji, hi in zip(loop_jobs, seg_ends_arr.tolist()):
                 tis = placed_l[lo:hi]
@@ -739,18 +779,26 @@ class BatchAllocator:
         # runs BEFORE the mirror defer so the payload can capture the final
         # session-side node generations (the keeper's sync point)
         node_nz = np.nonzero(counts)[0]
-        sums_l = sums.tolist()
-        for ni in node_nz.tolist():
-            vec = sums_l[ni]
-            name = node_names[ni]
-            nodes_pair = (ssn_nodes.get(name), cache_nodes.get(name)) \
-                if do_cache_inline else (ssn_nodes.get(name),)
-            for node in nodes_pair:
-                if node is None:
-                    continue
-                node._acct_gen += 1  # invalidate snapshot node-axis
-                apply_delta(node.idle, vec, -1.0)
-                apply_delta(node.used, vec, +1.0)
+        fast_nodes = getattr(mod, "apply_node_deltas", None) \
+            if mod is not None else None
+        if fast_nodes is not None:
+            fast_nodes(node_nz, np.ascontiguousarray(sums),
+                       node_names, ssn_nodes,
+                       cache_nodes if do_cache_inline else None,
+                       tuple(scalar_names))
+        else:
+            sums_l = sums.tolist()
+            for ni in node_nz.tolist():
+                vec = sums_l[ni]
+                name = node_names[ni]
+                nodes_pair = (ssn_nodes.get(name), cache_nodes.get(name)) \
+                    if do_cache_inline else (ssn_nodes.get(name),)
+                for node in nodes_pair:
+                    if node is None:
+                        continue
+                    node._acct_gen += 1  # invalidate snapshot node-axis
+                    apply_delta(node.idle, vec, -1.0)
+                    apply_delta(node.used, vec, +1.0)
 
         if not do_cache_inline:
             # queued only after the session-side loop SUCCEEDED (a loop
@@ -842,12 +890,25 @@ class BatchAllocator:
         drf = ssn.plugins.get("drf")
         prop = ssn.plugins.get("proportion")
         if drf is not None:
-            for ji in job_nz:
-                job = job_infos[ji]
-                attr = drf.job_attrs.get(job.uid)
-                if attr is not None:
-                    apply_delta(attr.allocated, job_sums_l[ji], +1.0)
-                    drf._update_share(attr)
+            fast_drf = getattr(mod, "update_drf_shares", None) \
+                if mod is not None else None
+            if fast_drf is not None:
+                attrs = [drf.job_attrs.get(job_infos[ji].uid)
+                         for ji in job_nz]
+                tnames = tuple(drf.total_resource.resource_names())
+                tvals = np.array([drf.total_resource.get(n) for n in tnames])
+                fast_drf(np.asarray(job_nz, np.int64),
+                         np.ascontiguousarray(job_sums),
+                         attrs, tnames, tvals, tuple(scalar_names))
+            else:
+                job_sums_rows = job_sums_l if fast_all is None else \
+                    job_sums.tolist()
+                for ji in job_nz:
+                    job = job_infos[ji]
+                    attr = drf.job_attrs.get(job.uid)
+                    if attr is not None:
+                        apply_delta(attr.allocated, job_sums_rows[ji], +1.0)
+                        drf._update_share(attr)
         if (drf is not None and drf.namespace_opts) or prop is not None:
             ns_count_enc = int(a["ns_active0"].shape[0])
             q_count_enc = int(a["queue_deserved"].shape[0])

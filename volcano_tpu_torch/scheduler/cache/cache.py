@@ -118,6 +118,11 @@ class SchedulerCache:
         self._pvc_pod_count = 0
         self._err_tasks: List[TaskInfo] = []
         self._deleted_jobs: List[JobInfo] = []
+        # native mirror-transition ctx for the effector path (built lazily;
+        # False = not attempted, None = unavailable). jobs/nodes dict
+        # objects are created once above and never reassigned, so the ctx
+        # stays valid for the cache's lifetime.
+        self._fast_mirror = False
         # deferred bulk-writeback payloads (ops/solver.py _apply_bulk): the
         # cache-side half of a session's placements, applied at session
         # close / before the next snapshot — the reference's Bind is async
@@ -505,9 +510,18 @@ class SchedulerCache:
         return job, task
 
     def _mirror(self):
-        """Effector-side transition ctx: the port has no native mirror, so
-        bind/evict always take the Python path."""
-        return None
+        """Native effector-side transition ctx, or None (Python path). A
+        None while the background native compile is still in flight is NOT
+        latched — the cache outlives sessions, so giving up on the first
+        cold-start call would disable the native path for its lifetime."""
+        if self._fast_mirror is False:
+            from volcano_tpu_torch.ops import fasttrans
+
+            m = fasttrans.build_mirror(self.jobs, self.nodes)
+            if m is None and not fasttrans.native_settled():
+                return None  # retry on a later effector call
+            self._fast_mirror = m
+        return self._fast_mirror
 
     def bind(self, task_info: TaskInfo, hostname: str) -> None:
         """Update cache state to Binding and invoke the binder; on binder
@@ -680,8 +694,11 @@ class SchedulerCache:
             # below, which remains the fallback and oracle. Non-blocking —
             # a cold process flushes through the Python loop rather than
             # waiting on the background cc.
-            mod = None  # no native flush in the port: Python path
-            mirror_all = None
+            from volcano_tpu_torch._native import get_fastapply_nowait
+
+            mod = get_fastapply_nowait()
+            mirror_all = getattr(mod, "mirror_all_jobs", None) \
+                if mod is not None else None
             alloc_mask = (int(TaskStatus.BOUND) | int(TaskStatus.BINDING)
                           | int(TaskStatus.RUNNING)
                           | int(TaskStatus.ALLOCATED))

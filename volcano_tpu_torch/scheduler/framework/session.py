@@ -451,9 +451,14 @@ class Session:
         return Statement(self)
 
     def fast_trans(self):
-        """The session's native transition engine: the port has none, so
-        statements always take the Python path."""
-        return None
+        """The session's native transition engine (ops/fasttrans.py), or
+        None when the handler set is not the recognized stock set. Built
+        once, after plugins have registered (actions run later)."""
+        if self._fast_trans is False:
+            from volcano_tpu_torch.ops import fasttrans
+
+            self._fast_trans = fasttrans.build(self)
+        return self._fast_trans
 
     def _fire_allocate(self, task: TaskInfo) -> None:
         for eh in self.event_handlers:
