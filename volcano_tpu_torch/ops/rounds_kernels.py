@@ -32,11 +32,26 @@ def _same_device(ref, **tensors):
 
 # -- K2: per-row stable top-k window ----------------------------------------
 
+def order_key(x: torch.Tensor) -> torch.Tensor:
+    """The bits of a float32/float64 tensor as integers that order like
+    the floats under IEEE 754's total order: -inf lowest, -0.0 below +0.0
+    (the order lax.top_k sorts by). NaN lies outside the domain."""
+    if x.dtype == torch.float64:
+        bits, low = x.view(torch.int64), (1 << 63) - 1
+    elif x.dtype == torch.float32:
+        bits, low = x.view(torch.int32), (1 << 31) - 1
+    else:
+        raise TypeError(f"order_key: dtype {x.dtype}")
+    return bits ^ ((bits >> (bits.element_size() * 8 - 1)) & low)
+
+
 def window_topk_plain(scores: torch.Tensor, k: int):
-    """The first k entries of each row's stable descending order (ties to
-    the lower index, -inf an ordinary key): the exact prefix that
-    volcano_tpu/ops/rounds.py:754 lax.top_k returns. (values, int32 idx)."""
-    order = torch.argsort(-scores, dim=1, stable=True)[:, :k]
+    """The first k entries of each row's stable descending order under the
+    total order (+0.0 ahead of -0.0, ties to the lower index, -inf an
+    ordinary key): the exact prefix that volcano_tpu/ops/rounds.py:754
+    lax.top_k returns. (values, int32 idx)."""
+    order = torch.argsort(order_key(scores), dim=1, descending=True,
+                          stable=True)[:, :k]
     return torch.gather(scores, 1, order), order.to(torch.int32)
 
 
