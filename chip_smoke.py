@@ -29,7 +29,11 @@ Phases, each failing the run on any error:
    with CUDA events; the same session times the rounds solver's torch-op
    parts (K2b, K3, K6) with CUDA events around each call. These sessions
    run the step machine from the host (loop="host"), so each call is an
-   eager launch;
+   eager launch. K2 is also held against its plain version (bits equal)
+   on crafted rows (signed zeros either way round, all tied, all -inf,
+   -inf ties ahead of a feasible tail, last-bit neighbours), N odd,
+   k = N/2, k = N and cfg6's shape, in float32 and float64, and timed
+   beside torch.topk at the cfg5 capture and at cfg6's shape;
 3. reference check: small sessions in float64 on the card give the same
    binds (and, for the eviction sessions, the same evictions in order) as
    the same sessions on the CPU (plain versions): cfg5, and cfg4 and the
@@ -81,7 +85,9 @@ Phases, each failing the run on any error:
    run, the fused K9 on the first fused cfg4 run's and the fused K10 on
    the first fused reclaim-path run's; each held against its plain
    version with torch.equal (the packed int32 result, K13's every output,
-   the fused K9's every carry tensor; float32 state), and timed.
+   the fused K9's every carry tensor; float32 state), and timed; K9's
+   shape line gives its cluster's CTAs, a CTA's shared memory (static
+   from ptxas -v, dynamic from the launcher) and microseconds a walk.
 
 6. express parity: a small float64 express lane on the card against the
    same lane on the CPU, on one event sequence (12 and 300 nodes, waves
@@ -108,10 +114,12 @@ Phases, each failing the run on any error:
    equal in order, standing tensors equal to the mirror;
 10. kernel phase (express and replica): K14 express_place on the lane's
    captured 1-task and 64-task batches, a full-width 100-node case, a
-   tie-heavy case (fulls > 0) and a gang strip, and K8 scatter_rows on
-   the cfg5 replica's node family (1, 16, 100, 256 rows) and the lane's
-   columns, each held against its plain version with torch.equal and
-   timed;
+   tie-heavy case (fulls > 0), a gang strip and a zero-weight case (a
+   window of +0.0 ties), and K8 scatter_rows on the cfg5 replica's node
+   family (1, 16, 100, 256 rows) and the lane's columns, each held
+   against its plain version with torch.equal and timed, K8 beside
+   index_copy_ from sources on the card (library_ms) and from one pinned
+   staging copy a call (library_staged_ms, the wrapper's own work);
 11. parity mode (K15): (a) cfg2 at full scale in float32, one parity
    session through the tpuscore plugin launches K15 exactly once, binds
    feasible and gangs whole; on the captured inputs K15 is torch.equal to
@@ -256,7 +264,11 @@ def run_session(cfg, scale, device, dtype, fuse=True):
     profile, launches, n_tasks, wall_s, action_ms, before) where
     ``before`` is what the checks need of the cluster as the session
     opened. The profile's "session_devprof" holds the device counters of
-    the whole run_actions call."""
+    the whole run_actions call, its "gc2_ms" the host's full (generation 2)
+    collections inside the wall: each walks every tracked object of the
+    process, so one that lands inside a session adds its length to the
+    wall."""
+    import gc
     import os
 
     from volcano_tpu_torch import device as devmod
@@ -281,6 +293,16 @@ def run_session(cfg, scale, device, dtype, fuse=True):
     prev = os.environ.get("VOLCANO_TPU_FUSE")
     os.environ["VOLCANO_TPU_FUSE"] = "1" if fuse else "0"
     devmod.reset_launches()
+    full_gc = {"ms": 0.0, "t": 0.0}
+
+    def on_gc(phase, info):
+        if info["generation"] == 2:
+            if phase == "start":
+                full_gc["t"] = time.perf_counter()
+            else:
+                full_gc["ms"] += (time.perf_counter() - full_gc["t"]) * 1e3
+
+    gc.callbacks.append(on_gc)
     t0 = time.perf_counter()
     try:
         ssn = open_session(cache, tiers)
@@ -294,9 +316,11 @@ def run_session(cfg, scale, device, dtype, fuse=True):
             del os.environ["VOLCANO_TPU_FUSE"]
         else:
             os.environ["VOLCANO_TPU_FUSE"] = prev
-    if device == "cuda":
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        gc.callbacks.remove(on_gc)
+    prof["gc2_ms"] = full_gc["ms"]
     return cache, prof, devmod.launches(), n_tasks, wall, action_ms, before
 
 
@@ -565,23 +589,32 @@ def kernel_phase(scale):
             bytes=byts, ops=ops, dtype=dt, library_ms=None,
             shape=f"K={k_rows} cols={m} N={n} R={r} ({src.get(key, 'cfg2')})"))
 
-    # K2
+    # K2, on the cfg5 capture, then on crafted rows and shapes
     (scores, k), _ = seen["window_topk"]
-    s1, i1 = RK.window_topk(scores, k)
-    s2, i2 = RK.window_topk_plain(scores, k)
-    torch.cuda.synchronize()
-    if not (torch.equal(i1, i2) and torch.equal(s1, s2)):
-        raise AssertionError("window_topk: kernel != plain")
+    same_window(scores, k, "cfg5 capture")
+    window_crafted_cases()
+    ms, lib_ms, wrapper_ms = window_times(scores, k)
     records.append(dict(
         name="window_topk", kernel="window_topk", route="cuda",
         source="volcano_tpu_torch/csrc/window_topk.cu",
         replaces="volcano_tpu/ops/rounds.py:754", max_abs_err=0.0,
-        ms=time_ms(lambda: RK.window_topk(scores, k)),
-        plain_ms=time_ms(lambda: RK.window_topk_plain(scores, k)),
-        library_ms=time_ms(lambda: torch.topk(scores, k, dim=1)),
+        ms=ms, plain_ms=time_ms(lambda: RK.window_topk_plain(scores, k)),
+        library_ms=lib_ms,
         bytes=nbytes(scores) + scores.shape[0] * k * (scores.element_size() + 4),
         ops=scores.numel(), dtype=scores.dtype,
-        shape=f"K={scores.shape[0]} N={scores.shape[1]} k={k}"))
+        shape=f"K={scores.shape[0]} N={scores.shape[1]} k={k}, "
+              f"{window_cluster(*scores.shape)} CTAs a row; wrapper "
+              f"{wrapper_ms:.4f} ms a call"))
+    # cfg6's shape (one CTA a row), timed beside torch.topk
+    k6 = window_cfg6_k()
+    s6 = window_scores(512, 1000, scores.dtype, seed=6)
+    same_window(s6, k6, "cfg6 shape")
+    ms6, lib6, wrap6 = window_times(s6, k6)
+    print(json.dumps({"kernel": "window_topk", "shape": f"K=512 N=1000 k={k6} (cfg6), "
+                      f"{window_cluster(512, 1000)} CTA a row",
+                      "ms": ms6, "library_ms": lib6, "wrapper_ms": wrap6,
+                      "plain_ms": time_ms(lambda: RK.window_topk_plain(s6, k6))}),
+          flush=True)
 
     # K4
     args, _ = seen["resolve_prefix"]
@@ -625,6 +658,108 @@ def kernel_phase(scale):
     for rec in records:
         finish_record(rec)
     return records
+
+
+def window_times(scores, k):
+    """K2's launch into outputs and scratch allocated once (the kernel as
+    the rounds graph replays it), torch.topk into preallocated outputs
+    (``out=``, the same work), and K2's wrapper a call (allocation and the
+    launch), each over 20 calls after 3 warm-ups."""
+    from volcano_tpu_torch.ops import rounds_kernels as RK
+
+    rows = scores.shape[0]
+    top_s = torch.empty((rows, k), dtype=scores.dtype, device=scores.device)
+    top_i = torch.empty((rows, k), dtype=torch.int32, device=scores.device)
+    scratch = torch.empty(3 * rows * k, dtype=torch.int32, device=scores.device)
+    vals = torch.empty((rows, k), dtype=scores.dtype, device=scores.device)
+    idx = torch.empty((rows, k), dtype=torch.int64, device=scores.device)
+    ms = time_ms(lambda: RK.window_topk_launch(scores, k, top_s, top_i, scratch))
+    lib_ms = time_ms(lambda: torch.topk(scores, k, dim=1, out=(vals, idx)))
+    wrapper_ms = time_ms(lambda: RK.window_topk(scores, k))
+    return ms, lib_ms, wrapper_ms
+
+
+def window_cluster(rows, n):
+    """The CTAs K2's launcher gives a row at this shape."""
+    import ctypes
+
+    from volcano_tpu_torch import _build
+
+    fn = _build.library("window_topk").window_topk_cluster
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn(rows, n)
+
+
+def window_scores(rows, n, dtype, seed, levels=40, p_inf=0.3):
+    """Scores as a solve has them: a few dozen distinct values (most nodes
+    tie with many others), a share of -inf, and signed zeros."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    vals = np.floor(rng.random((rows, n)) * levels) * 2.5
+    vals[rng.random((rows, n)) < p_inf] = -np.inf
+    zero = rng.random((rows, n)) < 0.05
+    vals[zero] = np.where(rng.random(int(zero.sum())) < 0.5, -0.0, 0.0)
+    f = np.float64 if dtype == torch.float64 else np.float32
+    return torch.tensor(vals.astype(f), device="cuda")
+
+
+def window_cfg6_k():
+    """cfg6's window width as its solve sizes it, or 256 where cfg6 sweeps
+    the full width (window 0)."""
+    return solve_inputs(6, 1.0)[0].window_k or 256
+
+
+def _bits(t):
+    return t.view(torch.int64 if t.dtype == torch.float64 else torch.int32)
+
+
+def same_window(scores, k, what):
+    """K2 == its plain version, values compared by their bits."""
+    from volcano_tpu_torch.ops import rounds_kernels as RK
+
+    s1, i1 = RK.window_topk(scores, k)
+    s2, i2 = RK.window_topk_plain(scores, k)
+    torch.cuda.synchronize()
+    if not (torch.equal(i1, i2) and torch.equal(_bits(s1), _bits(s2))):
+        bad = (i1 != i2).nonzero()[:8].tolist()
+        raise AssertionError(f"window_topk ({what}): kernel != plain at {bad}")
+
+
+def window_crafted_cases():
+    """K2 == plain on crafted rows (signed zeros either way round, all
+    tied, all -inf, -inf ties ahead of a feasible tail, last-bit
+    neighbours), N not a power of two, k = N/2 and k = N, cfg6's shape,
+    in float32 and float64."""
+    import numpy as np
+    from volcano_tpu_torch.ops import rounds_kernels as RK
+
+    inf = np.inf
+    for dt, f in ((torch.float32, np.float32), (torch.float64, np.float64)):
+        one, zero, tiny = f(1.0), f(0.0), np.finfo(f).tiny
+        up, down = np.nextafter(one, f(2.0)), np.nextafter(one, zero)
+        rows = [[-0.0, 0.0, -0.0, 0.0, 1.0, -inf] + [-inf] * 10,
+                [0.0, -0.0, 0.0, -0.0, -inf, 1.0] + [-0.0, 0.0] * 5,
+                [-0.0] * 8 + [0.0] * 8, [-0.0, 0.0] * 8, [3.0] * 16, [-inf] * 16,
+                [-inf] * 12 + [1.0, -0.0, 0.0, 1.0],
+                [one, up, down, one, tiny, -tiny, -zero, zero, up,
+                 np.nextafter(tiny, one), -zero, -inf, zero, down, -tiny, one]]
+        crafted = torch.tensor(np.asarray(rows, dtype=f), device="cuda")
+        for k in (1, 3, 8, 16):
+            same_window(crafted, k, f"crafted rows {dt} k={k}")
+        _, idx = RK.window_topk(crafted, 16)
+        if idx[0, :6].tolist() != [4, 1, 3, 0, 2, 5]:
+            raise AssertionError(f"window_topk: signed-zero order {idx[0, :6].tolist()}")
+        for rows_n, n, k in ((16, 10000, 1024), (16, 10007, 1024), (16, 10000, 5000),
+                             (4, 3001, 3001), (512, 1000, 256)):
+            sc = window_scores(rows_n, n, dt, seed=n + k)
+            sc[0] = 2.5                     # every entry tied
+            sc[-1, : n // 2] = -inf         # -inf ties ahead of a feasible tail
+            same_window(sc, k, f"{rows_n}x{n} k={k} {dt}")
+    print(json.dumps({"window_topk_crafted": "signed zeros, ties, -inf, last-bit "
+                      "neighbours, N odd, k=N/2, k=N, cfg6 shape: float32 and "
+                      "float64 == plain"}), flush=True)
 
 
 def finish_record(rec):
@@ -749,6 +884,8 @@ def evict_kernel_phase(captured):
                      f"walks={stats['walks']} windows={stats['windows']} "
                      f"scored={stats['scored']} "
                      f"ops={tail[0]} victims={tail[2]} attempts={tail[3]} ({src})")
+            if kind == "preempt":
+                shape += k9_layout(enc, ms, stats["walks"])
         rec = dict(
             name=name, kernel=name, route="cuda",
             source=f"volcano_tpu_torch/csrc/{name}.cu", replaces=replaces,
@@ -759,6 +896,31 @@ def evict_kernel_phase(captured):
         finish_record(rec)
         records.append(rec)
     return records
+
+
+def k9_layout(enc, ms, walks):
+    """K9's launch at these inputs: the CTAs of its cluster, a CTA's static
+    shared memory (ptxas -v, from the build's log) and dynamic shared
+    memory (the launcher's plan; or the global buffer its node slices
+    take where they do not fit), and microseconds a walk."""
+    import re
+
+    from volcano_tpu_torch import _build
+    from volcano_tpu_torch.ops import evict_kernels as EK
+
+    n, v = enc["vic_job"].shape
+    dt = enc["node_used"].dtype
+    cluster, dyn, spill = EK.preempt_layout(n, v, dt)
+    tag = ("IdLi" if dt == torch.float64 else "IfLi") + f"{v if v in EK.K9_V else 0}E"
+    static, entry = None, ""
+    for line in _build.build_log("evict_preempt").splitlines():
+        if "Compiling entry function" in line:
+            entry = line
+        elif "bytes smem" in line and tag in entry:
+            static = int(re.search(r"(\d+) bytes smem", line).group(1))
+    where = f"{dyn} dynamic bytes" if not spill else f"node slices in {spill} global bytes"
+    return (f" cluster={cluster} CTAs, smem a CTA {static} static + {where}, "
+            f"{ms * 1000 / max(walks, 1):.2f} us a walk")
 
 
 def machine_ops(spec, enc, stats):
@@ -878,7 +1040,8 @@ def fused_kernel_phase(captured):
             shape=(f"N={n} V={v} T={enc['p_req'].shape[0]} J={enc['job_prio'].shape[0]} "
                    f"L={enc['log0'].shape[0]} folds={stats['folds']} "
                    f"fold_nodes={stats['fold_nodes']} walks={stats['walks']} "
-                   f"ops={tail[0]} victims={tail[2]} attempts={tail[3]} ({src}, fused)"))
+                   f"ops={tail[0]} victims={tail[2]} attempts={tail[3]} ({src}, fused)"
+                   + (k9_layout(enc, ms, stats["walks"]) if kind == "preempt" else "")))
         finish_record(rec)
         records.append(rec)
     return records
@@ -1046,7 +1209,7 @@ def split(prof, wall, action_ms):
     points; for a fused run its per-stage fetch waits; each eviction
     plan's encode/solve/apply."""
     dp = prof["session_devprof"]
-    out = {"session_ms": wall * 1e3, "action_ms": action_ms,
+    out = {"session_ms": wall * 1e3, "gc2_ms": prof["gc2_ms"], "action_ms": action_ms,
            "sync_points": dp["tpu_sync_points"], "d2h_fetches": dp["tpu_d2h_fetches"],
            "overlap_ms": dp["tpu_overlap_ms"], "fetch_wait_ms": dp["tpu_fence_wait_ms"]}
     if prof.get("fuse"):
@@ -1127,7 +1290,7 @@ def session_phase(scale):
             "encode_ms": prof["encode_s"] * 1e3,
             "solve_ms": prof["solve_s"] * 1e3,
             "apply_ms": prof["apply_s"] * 1e3,
-            "session_ms": wall * 1e3,
+            "session_ms": wall * 1e3, "gc2_ms": prof["gc2_ms"],
             "launches": counts, "deterministic": True}
         if evicting:
             launches[(cfg, "per_action")] = runs[2][3]
@@ -2323,7 +2486,10 @@ def scatter_kernel_phase(node_dev, lane_dev):
     clones of the cfg5 replica's node family (N = 10000) with 1, 16, 100
     and 256 dirty rows, and of the express lane's columns with 1 row;
     timed over 20 calls after 3 warm-ups, beside the index_copy_ calls
-    with sources already on the card (library_ms)."""
+    with sources already on the card (library_ms) and the like-for-like
+    yardstick of the wrapper (library_staged_ms): per call, the rows packed
+    into one pinned staging buffer, one non_blocking copy to the card and
+    index_copy_ a buffer."""
     import numpy as np
     from volcano_tpu_torch.ops import replica as R
 
@@ -2362,6 +2528,7 @@ def scatter_kernel_phase(node_dev, lane_dev):
                     for k, v in vals.items()}
             didx = torch.from_numpy(idx.astype(np.int64)).to(got[next(iter(got))].device)
             lib_ms = time_ms(lambda: [want[k].index_copy_(0, didx, dsrc[k]) for k in base])
+            staged_ms = time_ms(staged_index_copy(want, idx, vals))
             row_bytes = sum(t[0].numel() * t.element_size() for t in base.values())
             rec = dict(
                 name="scatter_rows" if what == "node" else "scatter_rows_express",
@@ -2373,11 +2540,47 @@ def scatter_kernel_phase(node_dev, lane_dev):
                 max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                 bytes=d * 4 + 2 * d * row_bytes, ops=0, dtype=torch.float32,
                 shape=f"{what} family, {len(base)} buffers, N={n}, {d} rows "
-                      f"(padded {len(idx)}); wrapper {wrapper_ms:.4f} ms a call")
+                      f"(padded {len(idx)}); wrapper {wrapper_ms:.4f} ms a call, "
+                      f"library_staged_ms {staged_ms:.4f}")
             finish_record(rec)
+            print(json.dumps({"kernel": rec["name"], "rows": d, "wrapper_ms": wrapper_ms,
+                              "library_staged_ms": staged_ms, "library_ms": lib_ms}),
+                  flush=True)
             if (what, d) in (("node", 16), ("express", 1)):
                 records.append(rec)
     return records
+
+
+def staged_index_copy(dst, idx, vals):
+    """One call of the yardstick K8's wrapper is held against: the rows of
+    every buffer and the row indices packed into one pinned staging buffer
+    on the host, one non_blocking copy to the card, index_copy_ a buffer
+    from views of the copy. Returns the call."""
+    import numpy as np
+
+    dev = next(iter(dst.values())).device
+    parts = [("idx", np.ascontiguousarray(np.asarray(idx, np.int64)))] + [
+        (k, np.ascontiguousarray(v)) for k, v in vals.items()]
+    offs, total = {}, 0
+    for k, a in parts:
+        offs[k] = total
+        total += -(-a.nbytes // 16) * 16
+    pinned = torch.empty(total, dtype=torch.uint8, pin_memory=True)
+    host = pinned.numpy()
+    card = torch.empty(total, dtype=torch.uint8, device=dev)
+
+    def view(k, a):
+        t = card[offs[k]:offs[k] + a.nbytes].view(torch.from_numpy(a[:0]).dtype)
+        return t.view(a.shape)
+
+    def call():
+        for k, a in parts:
+            host[offs[k]:offs[k] + a.nbytes] = a.view(np.uint8).reshape(-1)
+        card.copy_(pinned, non_blocking=True)
+        didx = view("idx", parts[0][1])
+        for k, a in parts[1:]:
+            dst[k].index_copy_(0, didx, view(k, a))
+    return call
 
 
 def express_kernel_phase(captured):
@@ -2386,7 +2589,11 @@ def express_kernel_phase(captured):
     64-task batch (tb = 64, W = 256); a full-width case (window 0 on the
     first 100 nodes); a tie-heavy case (every node the same shape, so the
     window cannot prove coverage: fulls > 0); a gang-strip case (jobs of 4
-    on 20 nodes of 300m idle). Each timed with CUDA events."""
+    on 20 nodes of 300m idle); a zero-weight case (every feasible score
+    +0.0: the window, sorted on the total-order key of order_key.cuh, is a
+    block of zero ties; K14 sums its scores from +0.0, so -0.0 cannot enter
+    its window, and K2's crafted rows hold the signed-zero order). Each
+    timed with CUDA events."""
     import numpy as np
     from volcano_tpu_torch.express import place as P
 
@@ -2414,6 +2621,9 @@ def express_kernel_phase(captured):
     need[:spec64.tb // 4] = 4
     gang[12] = need
     cases.append(("express_place_strip", "jobs of 4 on 20 nodes of 300m", spec64, gang))
+    zero = list(args64)
+    zero[13] = torch.zeros_like(args64[13])
+    cases.append(("express_place_zero", "zero weights: every score +0.0", spec64, zero))
     records = []
     for name, what, spec, args in cases:
         got = P.solve_express(spec, *args)
@@ -2421,7 +2631,7 @@ def express_kernel_phase(captured):
         same(got, want, name)
         tail = got[-2:].tolist()
         valid = int(args[9].sum())
-        if name == "express_place_ties" and tail[0] == 0:
+        if name in ("express_place_ties", "express_place_zero") and tail[0] == 0:
             raise AssertionError(f"{name}: no full-width fallback: {tail}")
         if name == "express_place_strip":
             loose_args = list(args)

@@ -336,3 +336,41 @@ def test_wrappers_run_plain_versions_on_cpu_tensors():
     assert devmod.launches() == {k: 0 for k in devmod.LAUNCHES}
     with pytest.raises(KeyError):
         tk.solve_packed(spec._replace(kind="express"), enc)
+
+
+def test_k9_profile_marks_match_its_phases():
+    """The K9 profile's phases are the kernel's PROF(k) marks: every phase
+    has a mark and every mark a phase, and the kernel's counter array has
+    one slot a phase (K9_PROFILE builds only; the marks are empty else)."""
+    import os
+    import re
+
+    from volcano_tpu_torch import _build
+    from volcano_tpu_torch.bench import k9_profile
+
+    with open(os.path.join(_build.CSRC, "evict_preempt.cu")) as fh:
+        src = fh.read()
+    code = "\n".join(line for line in src.splitlines()
+                     if not line.lstrip().startswith(("//", "#define")))
+    marks = {int(k) for k in re.findall(r"\bPROF\((\d+)\);", code)}
+    assert marks == set(range(len(k9_profile.PHASES)))
+    assert f"constexpr int kProfPhases = {len(k9_profile.PHASES)};" in src
+    guarded = src[src.index("#ifdef K9_PROFILE"):]
+    assert "#else\n#define PROF(k) do {} while (0)" in guarded
+    assert 'extern "C" int k9_profile_read' in src[src.rindex("#ifdef K9_PROFILE"):]
+
+
+def test_k9_profile_builds_the_kernel_source_with_the_flag(monkeypatch):
+    """The profiling build is nvcc on the kernel's own source with the
+    kernels' flags and K9_PROFILE defined: no copy of the source."""
+    import os
+
+    from volcano_tpu_torch import _build
+    from volcano_tpu_torch.bench import k9_profile
+
+    monkeypatch.setattr(_build, "nvcc_path", lambda: "nvcc")
+    cmd = k9_profile.build_command("out.so")
+    src = os.path.join(_build.CSRC, "evict_preempt.cu")
+    assert cmd[0] == "nvcc" and cmd[-1] == src and os.path.exists(src)
+    assert "-DK9_PROFILE" in cmd and cmd[cmd.index("-o") + 1] == "out.so"
+    assert cmd[1:1 + len(_build.NVCC_FLAGS)] == _build.NVCC_FLAGS

@@ -1,0 +1,464 @@
+"""K2 window_topk, K14 express_place and K9 evict_preempt on a CUDA card,
+each against its plain version on the same inputs.
+
+K2 on crafted rows: signed zeros either way round, all tied, all -inf,
+-inf ties ahead of a feasible tail, last-bit neighbours; N not a power of
+two; k = N/2, k = 1 and k = N; cfg5's shape (K=16, N=10000, k=1024: a row
+spread over a cluster of CTAs) and cfg6's (K=512, N=1000: one CTA a row);
+float32 and float64. K14 on a batch whose window holds only zero scores.
+K9 on the preempt machines of small cfg4 and reclaim-path sessions,
+per-action and fused (the packed result and every carry tensor); on real
+slots laid out other than as a prefix; on nodes of more than 256 victims;
+on node axes whose slices do not fit shared memory.
+
+This file imports nothing of JAX, so it runs where the card is:
+
+    python -m pytest -m gpu --noconftest tests/test_torch_kernels_gpu.py
+
+Without a card its tests skip. Tolerance: exact equality (torch.equal;
+values compared by their bits, so -0.0 and +0.0 differ).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from volcano_tpu_torch.ops import rounds_kernels as RK
+
+pytestmark = pytest.mark.gpu
+
+DTYPES = [torch.float32, torch.float64]
+INF = float("inf")
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels build and run only there)")
+
+
+def _bits(t):
+    return t.view(torch.int64 if t.dtype == torch.float64 else torch.int32)
+
+
+def _same_window(scores, k):
+    got_s, got_i = RK.window_topk(scores, k)
+    want_s, want_i = RK.window_topk_plain(scores, k)
+    torch.cuda.synchronize()
+    assert torch.equal(got_i, want_i), (got_i != want_i).nonzero()[:8].tolist()
+    assert torch.equal(_bits(got_s), _bits(want_s))
+    return got_s, got_i
+
+
+def crafted_rows(dt):
+    """[16, 16] rows of signed zeros, ties, -inf and last-bit neighbours."""
+    f = np.float64 if dt == torch.float64 else np.float32
+    one, zero, tiny = f(1.0), f(0.0), np.finfo(f).tiny
+    up, down = np.nextafter(one, f(2.0)), np.nextafter(one, zero)
+    rows = [
+        [-0.0, 0.0, -0.0, 0.0, 1.0, -INF] + [-INF] * 10,
+        [0.0, -0.0, 0.0, -0.0, -INF, 1.0] + [-0.0, 0.0] * 5,
+        [-0.0] * 8 + [0.0] * 8,
+        [0.0] * 8 + [-0.0] * 8,
+        [-0.0, 0.0] * 8,
+        [3.0] * 16,
+        [-INF] * 16,
+        [-INF] * 12 + [1.0, -0.0, 0.0, 1.0],
+        [-INF] * 4 + [-0.0] * 6 + [0.0] * 6,
+        [one, up, down, one, tiny, -tiny, -zero, zero, up,
+         np.nextafter(tiny, one), -zero, -INF, zero, down, -tiny, one],
+        [2.5, -0.0, 2.5, 0.0, -1.0, -0.0, 0.0, 2.5, -1.0, 0.0, -0.0, 7.0,
+         -INF, 0.0, -0.0, 2.5],
+    ]
+    rng = np.random.default_rng(7)
+    for _ in range(5):
+        rows.append(rng.choice([-0.0, 0.0, 1.0, -INF], 16))
+    return torch.tensor(np.asarray(rows, dtype=f), device="cuda")
+
+
+@pytest.mark.parametrize("k", [1, 3, 8, 16])
+@pytest.mark.parametrize("dt", DTYPES, ids=["float32", "float64"])
+def test_window_topk_crafted_rows(dt, k):
+    _cuda()
+    _, idx = _same_window(crafted_rows(dt), k)
+    if k == 16:
+        assert idx[0, :6].tolist() == [4, 1, 3, 0, 2, 5]
+
+
+def scheduler_like(rows, n, dt, seed, levels=40, p_inf=0.3):
+    """Scores as a solve has them: a few dozen distinct values (most nodes
+    tie with many others) and a share of -inf (infeasible)."""
+    rng = np.random.default_rng(seed)
+    f = np.float64 if dt == torch.float64 else np.float32
+    vals = np.floor(rng.random((rows, n)) * levels) * 2.5
+    vals[rng.random((rows, n)) < p_inf] = -np.inf
+    zero = rng.random((rows, n)) < 0.05
+    vals[zero] = np.where(rng.random(zero.sum()) < 0.5, -0.0, 0.0)
+    return torch.tensor(vals.astype(f), device="cuda")
+
+
+# (K, N, k): cfg5, cfg6, N odd, k = N/2, k = N, a wide row of one tied value
+SHAPES = [(16, 10000, 1024), (512, 1000, 256), (16, 10007, 1024),
+          (16, 10000, 5000), (4, 3001, 3001), (3, 20000, 16), (2, 777, 1)]
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=[f"{k}x{n}k{w}" for k, n, w in SHAPES])
+@pytest.mark.parametrize("dt", DTYPES, ids=["float32", "float64"])
+def test_window_topk_shapes(dt, shape):
+    _cuda()
+    rows, n, k = shape
+    scores = scheduler_like(rows, n, dt, seed=rows + n + k)
+    scores[0] = 2.5                        # every entry tied
+    scores[-1, : n // 2] = -INF            # -inf ties ahead of a feasible tail
+    _same_window(scores.contiguous(), k)
+
+
+@pytest.mark.parametrize("dt", DTYPES, ids=["float32", "float64"])
+def test_window_topk_distinct_and_random(dt):
+    _cuda()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    scores = torch.randn((16, 10000), generator=gen, device="cuda", dtype=dt)
+    _same_window(scores, 1024)
+    _same_window(-scores.abs(), 64)
+
+
+def test_window_topk_counts_one_launch():
+    _cuda()
+    from volcano_tpu_torch import device as devmod
+
+    scores = scheduler_like(16, 10000, torch.float32, seed=1)
+    before = devmod.LAUNCHES["window_topk"]
+    RK.window_topk(scores, 1024)
+    assert devmod.LAUNCHES["window_topk"] == before + 1
+
+
+def test_window_topk_graph_capture():
+    """K2 inside a CUDA graph replays to the plain version's answer on new
+    inputs copied into the captured buffer."""
+    _cuda()
+    scores = scheduler_like(16, 10000, torch.float32, seed=5)
+    RK.window_topk(scores, 1024)           # build and load outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out_s, out_i = RK.window_topk(scores, 1024)
+    fresh = scheduler_like(16, 10000, torch.float32, seed=6)
+    scores.copy_(fresh)
+    graph.replay()
+    torch.cuda.synchronize()
+    want_s, want_i = RK.window_topk_plain(fresh, 1024)
+    assert torch.equal(out_i, want_i) and torch.equal(_bits(out_s), _bits(want_s))
+
+
+def express_zero_batch(dt, n=600, tb=16, tasks=12, window_k=64, seed=0):
+    """An express batch whose weights are zero, so every feasible score is
+    +0.0 and the window is a block of zero ties."""
+    from volcano_tpu_torch.express import place as tplace
+
+    rng = np.random.default_rng(seed)
+    gi, mi = float(2 ** 30), float(2 ** 20)
+    alloc = np.stack([rng.choice([4000.0, 8000.0], n),
+                      rng.choice([8 * gi, 16 * gi], n)], 1)
+    idle = alloc - np.stack([rng.integers(0, 8, n) * 250.0,
+                             rng.integers(0, 16, n) * 256 * mi], 1)
+    jb = tplace.task_bucket(tasks)
+    req = np.zeros((tb, 2))
+    req[:tasks] = [[500.0, 512 * mi]] * tasks
+    valid = np.zeros(tb, bool)
+    valid[:tasks] = True
+    task_job = np.zeros(tb, np.int32)
+    task_job[:tasks] = np.arange(tasks)
+    job_need = np.full(jb, 2 ** 31 - 1, np.int32)
+    job_need[:tasks] = 1
+    arrays = (idle, alloc, rng.integers(0, 4, n).astype(np.int32),
+              rng.random(n) > 0.15, np.full(n, 110, np.int32), req.copy(), req,
+              np.full(tb, 500.0), np.full(tb, 512 * mi), valid, task_job,
+              np.ones(tb, bool), job_need, np.zeros(2))
+    ft = dt
+    out = []
+    for a in arrays:
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        out.append((t.to(ft) if t.dtype == torch.float64 else t).cuda())
+    return tplace.ExpressSpec(tb=tb, jb=jb, window_k=window_k), out
+
+
+@pytest.mark.parametrize("dt", DTYPES, ids=["float32", "float64"])
+def test_express_place_zero_window(dt):
+    _cuda()
+    from volcano_tpu_torch.express import place as tplace
+
+    spec, args = express_zero_batch(dt)
+    got = tplace.solve_express(spec, *args)
+    want = tplace.solve_express_plain(spec, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert int(got[spec.tb]) > 0       # zero ties never prove coverage
+
+
+# -- K9: the preempt machine on a thread-block cluster --------------------------
+
+# cfg4's conf (gang decides), a tier where gang and proportion decide, and
+# one where gang, drf and conformance decide
+TIER_SETS = [
+    (["priority", "gang"], ["drf", "predicates", "proportion", "nodeorder"]),
+    (["priority"], ["gang", "proportion", "predicates", "nodeorder"]),
+    (["gang", "drf", "conformance", "proportion", "predicates"],),
+]
+
+
+def overcommit_cluster(seed, nodes=6, running_jobs=12, tasks_per_job=4, queues=2,
+                       hi_jobs=4, pods=128):
+    """A dense running fill bound round-robin (PDB overrides, a share of
+    critical pods), pending high-priority gangs that preempt, and mixed
+    jobs whose heap keys move in the heap (tests/test_torch_evict.py's
+    cluster, with the port's objects)."""
+    import random
+
+    from volcano_tpu_torch.api import objects
+    from volcano_tpu_torch.bench.clusters import make_cache
+    from volcano_tpu_torch.scheduler.util import test_utils as tu
+
+    rng = random.Random(seed)
+    c = make_cache()
+    for q in range(queues):
+        c.add_queue(tu.build_queue(f"q{q}", weight=1 + q))
+    cpu = running_jobs * tasks_per_job // nodes + 1
+    for n in range(nodes):
+        c.add_node(tu.build_node(
+            f"node-{n:03d}",
+            tu.build_resource_list_with_pods(str(cpu), f"{cpu * 2}Gi", pods=pods)))
+    slot = 0
+    for g in range(running_jobs):
+        pg = f"run-{g:03d}"
+        c.add_pod_group(tu.build_pod_group(
+            pg, namespace="ev", min_member=rng.choice([1, 1, 2, tasks_per_job]),
+            queue=f"q{g % queues}"))
+        if rng.random() < 0.25:
+            c.add_pdb(objects.PodDisruptionBudget(
+                metadata=objects.ObjectMeta(name=pg, namespace="ev"),
+                min_available=rng.choice([1, 2, tasks_per_job])))
+        for i in range(tasks_per_job):
+            pod = tu.build_pod(
+                "ev", f"{pg}-t{i}", f"node-{slot % nodes:03d}",
+                objects.POD_PHASE_RUNNING,
+                {"cpu": "1000m", "memory": rng.choice(["1Gi", "2Gi"])},
+                pg, priority=rng.choice([0, 1, 5]))
+            if rng.random() < 0.1:
+                pod.spec.priority_class_name = objects.SYSTEM_CLUSTER_CRITICAL
+            c.add_pod(pod)
+            slot += 1
+    for g in range(hi_jobs):
+        pg = f"hi-{g:02d}"
+        c.add_pod_group(tu.build_pod_group(
+            pg, namespace="ev", min_member=rng.choice([1, 1, 2]),
+            queue=f"q{g % queues}"))
+        for i in range(2):
+            c.add_pod(tu.build_pod(
+                "ev", f"{pg}-t{i}", "", objects.POD_PHASE_PENDING,
+                {"cpu": f"{rng.choice([3000, 4000])}m",
+                 "memory": rng.choice(["4Gi", "8Gi"])}, pg, priority=100))
+    return c
+
+
+def preempt_plan(cache, tiers, dtype):
+    """The port's preempt plan of a session on ``cache`` after allocate and
+    backfill, and its arrays staged on the card."""
+    from volcano_tpu_torch.bench.clusters import make_tiers
+    from volcano_tpu_torch.ops import evict as tevict
+    from volcano_tpu_torch.ops.solver import from_numpy_encoded
+    from volcano_tpu_torch.scheduler import framework
+    import volcano_tpu_torch.scheduler.actions  # noqa: F401
+    import volcano_tpu_torch.scheduler.plugins  # noqa: F401
+
+    ssn = framework.open_session(cache, make_tiers(
+        ["tpuscore"], *tiers, arguments={"tpuscore": {
+            "tpuscore.device": "cuda", "tpuscore.dtype": dtype}}))
+    try:
+        for action in ("allocate", "backfill"):
+            framework.get_action(action).execute(ssn)
+        plan = tevict.build(ssn, "preempt")
+    finally:
+        framework.close_session(ssn)
+    assert plan is not None and not plan.trivial
+    return plan.spec, from_numpy_encoded(plan.arrays, device="cuda", dtype=dtype)
+
+
+def _same_machine(spec, enc):
+    from volcano_tpu_torch.ops import evict_kernels as EK
+
+    got = EK.solve_packed(spec, enc)
+    want = EK.solve_plain(spec, enc)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), ((got != want).nonzero()[:8].tolist(),
+                                    got[-6:].tolist(), want[-6:].tolist())
+    return got
+
+
+# (nodes, running jobs): 6 nodes of 16 victims (most of the cluster's CTAs
+# own no node), 3 nodes of 24 (V=32), 40 nodes of 3
+SHAPES_K9 = [(6, 24), (3, 18), (40, 30)]
+
+
+@pytest.mark.parametrize("shape", SHAPES_K9, ids=["n6", "n3-v32", "n40"])
+@pytest.mark.parametrize("tiers", TIER_SETS, ids=["cfg4", "prop", "drf"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_evict_preempt_cluster_matches_plain(dtype, tiers, shape):
+    _cuda()
+    nodes, jobs = shape
+    attempts = 0
+    for seed in (0, 1, 2):
+        spec, enc = preempt_plan(overcommit_cluster(seed, nodes, jobs), tiers, dtype)
+        attempts += int(_same_machine(spec, enc)[-3])
+    assert attempts > 0                            # some walk took a cut
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_evict_preempt_cfg4_per_action_and_fused(dtype):
+    """A cfg4 session at 0.1 scale (800 nodes, a 352-node window): the
+    per-action K9 and the fused K9 (the packed result and every carry
+    tensor) against their plain versions on the inputs the session gave."""
+    _cuda()
+    import os
+
+    from volcano_tpu_torch.bench.clusters import CONFIGS, build_config, make_tiers
+    from volcano_tpu_torch.ops import evict_kernels as EK
+    from volcano_tpu_torch.scheduler.framework import (
+        close_session, open_session, run_actions)
+
+    seen = {}
+    real = {n: getattr(EK, n) for n in ("solve_packed", "preempt_fused")}
+
+    def keep(name):
+        def fn(spec, enc):
+            seen.setdefault((name, spec.kind), (spec, {k: v.clone() for k, v in enc.items()}))
+            return real[name](spec, enc)
+        return fn
+
+    prev = os.environ.get("VOLCANO_TPU_FUSE")
+    EK.solve_packed, EK.preempt_fused = keep("solve_packed"), keep("preempt_fused")
+    try:
+        for fuse in ("0", "1"):
+            os.environ["VOLCANO_TPU_FUSE"] = fuse
+            cache, _, _, actions, _ = build_config(4, 0.1)
+            ssn = open_session(cache, make_tiers(["tpuscore"], *CONFIGS[4].tiers, arguments={
+                "tpuscore": {"tpuscore.mode": "rounds", "tpuscore.device": "cuda",
+                             "tpuscore.dtype": dtype}}))
+            try:
+                run_actions(ssn, list(actions))
+            finally:
+                close_session(ssn)
+    finally:
+        EK.solve_packed, EK.preempt_fused = real["solve_packed"], real["preempt_fused"]
+        if prev is None:
+            os.environ.pop("VOLCANO_TPU_FUSE", None)
+        else:
+            os.environ["VOLCANO_TPU_FUSE"] = prev
+    spec, enc = seen[("solve_packed", "preempt")]
+    _same_machine(spec, enc)
+    spec, enc = seen[("preempt_fused", "preempt")]
+    got, carry = EK.preempt_fused(spec, enc)
+    want, carry_p = EK.preempt_fused_plain(spec, enc)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert sorted(carry) == sorted(carry_p)
+    for k in carry_p:
+        assert torch.equal(carry[k], carry_p[k]), k
+
+
+def _layout(enc, kind):
+    """node_real and real_n laid out other than as the prefix [0, real_n)
+    (real_n stays within the node axis: the reference's candidate argmin
+    takes N as its sentinel position)."""
+    enc = dict(enc)
+    real = enc["node_real"].clone()
+    n = real.shape[0]
+    real_n = n
+    if kind == "first-pad":                        # the pad ahead of the real slots
+        real[0] = False
+    elif kind == "scattered":                      # every third slot a pad
+        real = torch.arange(n, device=real.device) % 3 != 1
+        real_n = int(real.sum())
+    elif kind == "real-n-short":                   # real_n below the real count
+        real_n = n - 3
+    enc["node_real"] = real
+    enc["real_n"] = torch.tensor(real_n, dtype=torch.int32, device=real.device)
+    return enc
+
+
+@pytest.mark.parametrize("kind", ["first-pad", "scattered", "real-n-short"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_evict_preempt_any_real_layout_matches_plain(dtype, kind):
+    """Real slots other than the prefix [0, real_n) take the reference's
+    own window arithmetic on the card (nodes that share a circular
+    position included), equal to the plain version."""
+    _cuda()
+    attempts = 0
+    for seed in (0, 1):
+        spec, enc = preempt_plan(overcommit_cluster(seed, nodes=12, running_jobs=30),
+                                 TIER_SETS[0], dtype)
+        got = _same_machine(spec, _layout(enc, kind))
+        assert int(got[-2]) == 0                   # no fail: the kernel took it
+        attempts += int(got[-3])
+    assert attempts > 0
+
+
+@pytest.mark.parametrize("tiers", TIER_SETS, ids=["cfg4", "prop", "drf"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_evict_preempt_wide_rows_match_plain(dtype, tiers):
+    """Nodes of more than 256 victims (V = 512) fold from global scratch
+    rows, equal to the plain version."""
+    _cuda()
+    spec, enc = preempt_plan(overcommit_cluster(0, nodes=2, running_jobs=130, pods=1024),
+                             tiers, dtype)
+    assert enc["vic_job"].shape[1] == 512
+    got = _same_machine(spec, enc)
+    assert int(got[-3]) > 0
+
+
+def _tiled(enc, n):
+    """The plan's node axis repeated to n nodes (every copy real, its
+    victims those of the node it copies), a window of 4096 nodes and an
+    op log long enough for every walk."""
+    n0 = enc["node_real"].shape[0]
+    reps = -(-n // n0)
+    out = dict(enc)
+    for k, t in enc.items():
+        if t.dim() >= 1 and k.startswith(("node_", "vic_")) and t.shape[0] == n0:
+            out[k] = t.repeat((reps,) + (1,) * (t.dim() - 1))[:n].contiguous()
+        elif k in ("affinity_score", "sig_mask"):
+            out[k] = t.repeat(1, reps)[:, :n].contiguous()
+    dev = enc["node_real"].device
+    out["real_n"] = torch.tensor(n, dtype=torch.int32, device=dev)
+    out["num_to_find"] = torch.tensor(4096, dtype=torch.int32, device=dev)
+    out["log0"] = torch.zeros((1 << 16, 3), dtype=torch.int32, device=dev)
+    return out
+
+
+@pytest.mark.parametrize("n", [105_000, 140_000], ids=["spill", "spill-long-runs"])
+def test_evict_preempt_large_node_axis_matches_plain(n):
+    """Node slices too large for a CTA's shared memory (V = 16, float32:
+    about 103k nodes) live in a global buffer; past 131,072 nodes a
+    thread's window run is longer than one bit mask. Equal to the plain
+    version, with the layout the launcher reports."""
+    _cuda()
+    from volcano_tpu_torch.ops import evict_kernels as EK
+
+    spec, enc = preempt_plan(overcommit_cluster(0, nodes=12, running_jobs=30),
+                             TIER_SETS[0], "float32")
+    enc = _tiled(enc, n)
+    cluster, smem, spill = EK.preempt_layout(n, enc["vic_job"].shape[1], torch.float32)
+    assert (cluster, smem) == (16, 0) and spill > 0
+    got = _same_machine(spec, enc)
+    assert int(got[-2]) == 0 and int(got[-3]) > 0
+
+
+def test_evict_preempt_layout_is_one_cluster_of_16():
+    """Every shape launches one cluster of 16 CTAs: cfg4's (8000 nodes,
+    V = 16) from shared memory, in float32 and float64."""
+    _cuda()
+    from volcano_tpu_torch.ops import evict_kernels as EK
+
+    for dt in DTYPES:
+        cluster, smem, spill = EK.preempt_layout(8000, 16, dt)
+        assert cluster == 16 and smem > 0 and spill == 0

@@ -13,9 +13,10 @@
 //   1. window_kernel, one block per valid task row (only when window_k > 0):
 //      the row's masked initial scores (fused_score, -inf off the ok
 //      column) into shared memory — or into a global scratch row when the
-//      padded row does not fit — a bitonic sort under the strict order
-//      (score desc, index asc) of window_topk.cu, and the first W entries
-//      out: an exact prefix of the stable argsort, as lax.top_k gives it.
+//      padded row does not fit — a bitonic sort under the strict order of
+//      window_topk.cu (order_key.cuh: score desc under IEEE 754's total
+//      order, +0.0 ahead of -0.0, then index asc), and the first W entries
+//      out: an exact prefix of that order, as lax.top_k gives it.
 //   2. walk_kernel, one block: copies idle/cnt into scratch (the lane's
 //      standing tensors are the next batch's input and are never written),
 //      then walks the tasks in order. A step rescores the task's window
@@ -42,6 +43,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "order_key.cuh"
 #include "score_common.cuh"
 
 namespace {
@@ -51,6 +53,8 @@ constexpr int kMaxTb = 1024;
 constexpr double kMinMilliCpu = 10.0;                 // resource.MIN_MILLI_CPU
 constexpr double kMinMemory = 10.0 * 1024 * 1024;     // resource.MIN_MEMORY
 
+// the walk's argmax order (value desc, index asc): +0.0 and -0.0 tie, as
+// the reference's argmax compares them
 template <typename T>
 __device__ __forceinline__ bool before(T ka, int ia, T kb, int ib) {
   return ka > kb || (ka == kb && ia < ib);
@@ -144,7 +148,8 @@ window_kernel(int N, int P, int W, const T* __restrict__ idle,
           bool up = (i & size) == 0;
           T ki = key[i], kj = key[j];
           int ii = idx[i], ij = idx[j];
-          bool swap = up ? before(kj, ij, ki, ii) : before(ki, ii, kj, ij);
+          bool swap = up ? okey::sort_before(kj, ij, ki, ii)
+                         : okey::sort_before(ki, ii, kj, ij);
           if (swap) {
             key[i] = kj; key[j] = ki;
             idx[i] = ij; idx[j] = ii;

@@ -42,6 +42,7 @@ discard): the fused chain carries it from preempt to reclaim.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, List
 
 import torch
@@ -980,6 +981,27 @@ def _check_order(lib) -> None:
             raise RuntimeError(f"evict kernel argument order mismatch: {got}")
 
 
+# K9's victim widths folded in registers (the encoder's buckets up to 256);
+# a wider row folds from global scratch rows
+K9_V = (16, 32, 64, 128, 256)
+
+
+@functools.lru_cache(maxsize=None)
+def preempt_layout(n: int, v: int, dtype) -> tuple:
+    """K9's launch at N nodes and V victim slots: (CTAs in its cluster, 16;
+    0 where the card does not run it), each CTA's dynamic shared-memory
+    bytes, and the bytes of the global buffer that holds the node slices
+    where they do not fit shared memory (else 0). Needs the card."""
+    from volcano_tpu_torch import _build
+
+    fn = _build.library("evict_preempt").evict_preempt_plan
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_longlong * 3)()
+    fn(n, v, int(dtype == torch.float64), out)
+    return out[0], out[1], out[2]
+
+
 def _machine_cuda(kind: str, spec: EvictSpec, enc,
                   fused: bool = False) -> Dict[str, torch.Tensor]:
     """Launch K9 (kind "preempt") or K10 ("reclaim") on the encoded arrays
@@ -1058,12 +1080,25 @@ def _machine_cuda(kind: str, spec: EvictSpec, enc,
         ready=empty(j_total, i32), wait=empty(j_total, i32),
         job_alloc=empty((j_total, 2), dt), queue_alloc=empty((q_total, 2), dt),
         ptr=empty(j_total, i32), heap=empty((qp, jcap), i32), hsize=empty(qp, i32),
-        qheap=empty(max(qh, 1), i32), score=empty(n, dt), circ=empty(n, i32),
-        flags=empty(n, torch.uint8), vcnt=empty(n, i32),
-        under=empty(n, torch.uint8), vm=empty((n, v), torch.uint8),
-        iwork=empty((n, v), i32), fwork=empty((n, v, 2), dt),
-        cpos=empty(n, i32), out=empty(log_rows * 3 + TAIL, i32),
+        qheap=empty(max(qh, 1), i32), out=empty(log_rows * 3 + TAIL, i32),
         p_done=empty(t_total, torch.bool))
+    if not preempt:
+        # K10's node-axis scratch; K9 keeps its window and folds in shared
+        # memory and registers
+        scratch.update(
+            score=empty(n, dt), circ=empty(n, i32), flags=empty(n, torch.uint8),
+            vcnt=empty(n, i32), under=empty(n, torch.uint8),
+            vm=empty((n, v), torch.uint8), iwork=empty((n, v), i32),
+            fwork=empty((n, v, 2), dt), cpos=empty(n, i32))
+    else:
+        if v not in K9_V:
+            # a row wider than the register fold's: its fold rows
+            scratch.update(vm=empty((n, v), torch.uint8), iwork=empty((n, v), i32),
+                           fwork=empty((n, v, 2), dt))
+        spill = preempt_layout(n, v, dt)[2]
+        if spill:
+            # the node slices, where they do not fit shared memory
+            scratch["cpos"] = empty(spill, torch.uint8)
     dims = dict(
         N=n, V=v, T=t_total, J=j_total, Q=q_total, QP=qp, JCAP=jcap,
         L=log_rows, JU=ju, QH=qh, check_pod=int(spec.check_pod_count),
@@ -1081,9 +1116,13 @@ def _machine_cuda(kind: str, spec: EvictSpec, enc,
     name = f"evict_{kind}"
     lib = _build.library(name)
     _check_order(lib)
+    if preempt and "vic_samejob" in args and args["vic_samejob"].data_ptr() % 8:
+        # the gang fold reads a same-job row as 8-byte words; a staged view
+        # inside a packed buffer may start off that alignment
+        args["vic_samejob"] = args["vic_samejob"].clone()
     ptrs = (ctypes.c_void_p * (len(_INPUTS) + len(_SCRATCH)))(*[
         (args[k].data_ptr() if k in args else 0) for k in _INPUTS] + [
-        scratch[k].data_ptr() for k in _SCRATCH])
+        (scratch[k].data_ptr() if k in scratch else 0) for k in _SCRATCH])
     dvals = (ctypes.c_int * len(_DIMS))(*[dims[k] for k in _DIMS])
     fn = getattr(lib, f"{name}_f64" if dt == torch.float64 else f"{name}_f32")
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]

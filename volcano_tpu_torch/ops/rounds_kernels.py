@@ -59,8 +59,6 @@ def window_topk(scores: torch.Tensor, k: int):
     """K2 (csrc/window_topk.cu) on CUDA, the plain version on the CPU."""
     if not devmod.on_cuda(scores):
         return window_topk_plain(scores, k)
-    from volcano_tpu_torch import _build
-
     if scores.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"scores: dtype {scores.dtype}")
     if scores.dim() != 2 or not scores.is_contiguous():
@@ -70,15 +68,36 @@ def window_topk(scores: torch.Tensor, k: int):
         raise ValueError(f"window_topk: k={k} outside (0, {n}]")
     top_s = torch.empty((rows, k), dtype=scores.dtype, device=scores.device)
     top_i = torch.empty((rows, k), dtype=torch.int32, device=scores.device)
-    lib = _build.library("window_topk")
-    fn = lib.window_topk_f64 if scores.dtype == torch.float64 else lib.window_topk_f32
-    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
-    fn.restype = ctypes.c_int
-    rc = fn(rows, n, k, _ptr(scores), _ptr(top_s), _ptr(top_i), _stream(scores))
+    # the k survivors of each row's radix select, in any order: their keys
+    # (int64) then their inverted indices (int32); inside a graph capture
+    # the graph's pool serves it
+    scratch = torch.empty(3 * rows * k, dtype=torch.int32, device=scores.device)
+    window_topk_launch(scores, k, top_s, top_i, scratch)
+    return top_s, top_i
+
+
+_TOPK_FNS = {}
+
+
+def window_topk_launch(scores, k, top_s, top_i, scratch) -> None:
+    """One launch of K2 into the caller's outputs and scratch (int32,
+    3 x rows x k), all on the card and checked by ``window_topk``."""
+    fn = _TOPK_FNS.get(scores.dtype)
+    if fn is None:
+        from volcano_tpu_torch import _build
+
+        lib = _build.library("window_topk")
+        fn = lib.window_topk_f64 if scores.dtype == torch.float64 else lib.window_topk_f32
+        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 6
+        fn.restype = ctypes.c_int
+        _TOPK_FNS[scores.dtype] = fn
+    rows, n = scores.shape
+    base = scratch.data_ptr()
+    rc = fn(rows, n, k, scores.data_ptr(), top_s.data_ptr(), top_i.data_ptr(),
+            base, base + 8 * rows * k, _stream(scores))
     if rc != 0:
         raise RuntimeError(f"window_topk kernel launch failed: CUDA error {rc}")
     devmod.count_launch("window_topk")
-    return top_s, top_i
 
 
 # -- segment helpers of the plain scans --------------------------------------
