@@ -85,9 +85,10 @@ Phases, each failing the run on any error:
    run, the fused K9 on the first fused cfg4 run's and the fused K10 on
    the first fused reclaim-path run's; each held against its plain
    version with torch.equal (the packed int32 result, K13's every output,
-   the fused K9's every carry tensor; float32 state), and timed; K9's
-   shape line gives its cluster's CTAs, a CTA's shared memory (static
-   from ptxas -v, dynamic from the launcher) and microseconds a walk.
+   the fused K9's every carry tensor; float32 state), and timed; K9's and
+   K10's shape lines give their cluster's CTAs, a CTA's shared memory
+   (static from ptxas -v, dynamic from the launcher) and microseconds a
+   walk (K9) or a fold (K10).
 
 6. express parity: a small float64 express lane on the card against the
    same lane on the CPU, on one event sequence (12 and 300 nodes, waves
@@ -124,9 +125,16 @@ Phases, each failing the run on any error:
    session through the tpuscore plugin launches K15 exactly once, binds
    feasible and gangs whole; on the captured inputs K15 is torch.equal to
    its plain version (assign and the cursor) and timed (5 calls after 1
-   warm-up); (b) float64 parity sessions on the card give the host serial
+   warm-up), and torch.equal on crafted inputs (bench/parity_cases.py:
+   the cursor at real_n - 1, num_to_find <= 0, 1 and above the feasible
+   count, pad nodes inside the rotation, 1024 and 256 threads, the node
+   state in global memory, a gang visit that rolls back, more than 32
+   namespaces and queues), and timed at each block size and node-state
+   place; (b) float64 parity sessions on the card give the host serial
    loop's binds and cursor at cfg2 1.0 and cfg3 0.4; (c) one cfg5 parity
-   session at full width in float32, feasible, K15 timed;
+   session at full width in float32, feasible; on its capture K15 is
+   torch.equal to its plain version, timed (microseconds a task step),
+   and timed at each block size and node-state place;
 12. the pipeline at cfg5 (plus an oversized backlog, so every cycle
    solves): Scheduler(pipeline=True).run_once_pipelined() against
    Scheduler.run_once() on twins with their own cursors over 8 cycles
@@ -212,51 +220,6 @@ def nbytes(*ts) -> int:
     return int(sum(t.numel() * t.element_size() for t in ts if t is not None))
 
 
-RECLAIM_TIERS = (["priority"], ["gang", "proportion", "predicates", "nodeorder"])
-EVICT_ACTIONS = ("allocate", "backfill", "preempt", "reclaim")
-
-
-def reclaim_path_cluster(scale):
-    """The reclaim path: cfg4's node shape (8k nodes of 4 cpu / 8Gi) packed
-    on both dimensions by a running fill of queue-a (weight 1, gangs of 4
-    with minMember 2), and 1.2k pending gangs of two 2-cpu/4Gi tasks in
-    queue-b (weight 3), whose deserved share is unmet while queue-a runs
-    above its own: preempt finds no victims inside queue-b, and reclaim
-    evicts from queue-a."""
-    from volcano_tpu_torch.api import objects
-    from volcano_tpu_torch.bench.clusters import make_cache
-    from volcano_tpu_torch.scheduler.util.test_utils import (
-        build_node, build_pod, build_pod_group, build_queue,
-        build_resource_list_with_pods)
-
-    nodes = max(int(8000 * scale), 8)
-    n_jobs = max(int(1200 * scale), 4)
-    c = make_cache()
-    for n in range(nodes):
-        c.add_node(build_node(
-            f"node-{n:05d}", build_resource_list_with_pods("4", "8Gi", pods=64)))
-    c.add_queue(build_queue("queue-a", weight=1))
-    c.add_queue(build_queue("queue-b", weight=3))
-    for g in range(nodes):
-        pg = f"run-{g:05d}"
-        c.add_pod_group(build_pod_group(pg, namespace="bench", min_member=2,
-                                        queue="queue-a"))
-        for i in range(4):
-            c.add_pod(build_pod(
-                "bench", f"{pg}-t{i}", f"node-{(g * 4 + i) % nodes:05d}",
-                objects.POD_PHASE_RUNNING, {"cpu": "1000m", "memory": "2Gi"},
-                pg, priority=1))
-    for g in range(n_jobs):
-        pg = f"rb-{g:05d}"
-        c.add_pod_group(build_pod_group(pg, namespace="bench", min_member=1,
-                                        queue="queue-b"))
-        for i in range(2):
-            c.add_pod(build_pod(
-                "bench", f"{pg}-t{i}", "", objects.POD_PHASE_PENDING,
-                {"cpu": "2000m", "memory": "4Gi"}, pg, priority=10))
-    return c, nodes * 4 + n_jobs * 2
-
-
 def run_session(cfg, scale, device, dtype, fuse=True):
     """One session of a bench config (or "reclaim", the reclaim path)
     through the port's normal entry, on the fused session chain or (``fuse``
@@ -273,6 +236,8 @@ def run_session(cfg, scale, device, dtype, fuse=True):
 
     from volcano_tpu_torch import device as devmod
     from volcano_tpu_torch.bench.clusters import CONFIGS, build_config, make_tiers
+    from volcano_tpu_torch.bench.reclaim_path import (
+        EVICT_ACTIONS, RECLAIM_TIERS, reclaim_path_cluster)
     from volcano_tpu_torch.scheduler.framework import (
         close_session, open_session, run_actions)
     from volcano_tpu_torch.utils import devprof
@@ -885,7 +850,9 @@ def evict_kernel_phase(captured):
                      f"scored={stats['scored']} "
                      f"ops={tail[0]} victims={tail[2]} attempts={tail[3]} ({src})")
             if kind == "preempt":
-                shape += k9_layout(enc, ms, stats["walks"])
+                shape += cluster_layout(kind, enc, ms, stats["walks"], "walk")
+            else:
+                shape += cluster_layout(kind, enc, ms, stats["folds"], "fold")
         rec = dict(
             name=name, kernel=name, route="cuda",
             source=f"volcano_tpu_torch/csrc/{name}.cu", replaces=replaces,
@@ -898,11 +865,12 @@ def evict_kernel_phase(captured):
     return records
 
 
-def k9_layout(enc, ms, walks):
-    """K9's launch at these inputs: the CTAs of its cluster, a CTA's static
-    shared memory (ptxas -v, from the build's log) and dynamic shared
-    memory (the launcher's plan; or the global buffer its node slices
-    take where they do not fit), and microseconds a walk."""
+def cluster_layout(kind, enc, ms, units, unit):
+    """K9's or K10's launch at these inputs: the CTAs of its cluster, a
+    CTA's static shared memory (ptxas -v, from the build's log) and dynamic
+    shared memory (the launcher's plan; or the global buffer its node
+    slices take where they do not fit), and microseconds a unit of work (a
+    preempt walk, a reclaim fold)."""
     import re
 
     from volcano_tpu_torch import _build
@@ -910,17 +878,18 @@ def k9_layout(enc, ms, walks):
 
     n, v = enc["vic_job"].shape
     dt = enc["node_used"].dtype
-    cluster, dyn, spill = EK.preempt_layout(n, v, dt)
+    layout = EK.preempt_layout if kind == "preempt" else EK.reclaim_layout
+    cluster, dyn, spill = layout(n, v, dt)
     tag = ("IdLi" if dt == torch.float64 else "IfLi") + f"{v if v in EK.K9_V else 0}E"
     static, entry = None, ""
-    for line in _build.build_log("evict_preempt").splitlines():
+    for line in _build.build_log(f"evict_{kind}").splitlines():
         if "Compiling entry function" in line:
             entry = line
         elif "bytes smem" in line and tag in entry:
             static = int(re.search(r"(\d+) bytes smem", line).group(1))
     where = f"{dyn} dynamic bytes" if not spill else f"node slices in {spill} global bytes"
     return (f" cluster={cluster} CTAs, smem a CTA {static} static + {where}, "
-            f"{ms * 1000 / max(walks, 1):.2f} us a walk")
+            f"{ms * 1000 / max(units, 1):.2f} us a {unit}")
 
 
 def machine_ops(spec, enc, stats):
@@ -1041,7 +1010,8 @@ def fused_kernel_phase(captured):
                    f"L={enc['log0'].shape[0]} folds={stats['folds']} "
                    f"fold_nodes={stats['fold_nodes']} walks={stats['walks']} "
                    f"ops={tail[0]} victims={tail[2]} attempts={tail[3]} ({src}, fused)"
-                   + (k9_layout(enc, ms, stats["walks"]) if kind == "preempt" else "")))
+                   + (cluster_layout(kind, enc, ms, stats["walks"], "walk") if kind == "preempt"
+                      else cluster_layout(kind, enc, ms, stats["folds"], "fold"))))
         finish_record(rec)
         records.append(rec)
     return records
@@ -1093,6 +1063,8 @@ def tripped_budget_session(cfg, scale, fuse):
 
 
 def check_fused(cfg, prof):
+    from volcano_tpu_torch.bench.reclaim_path import EVICT_ACTIONS
+
     if prof.get("fuse") != 1 or "fuse_fallback" in prof:
         raise AssertionError(f"cfg{cfg}: the chain did not fuse: "
                              f"{prof.get('fuse_fallback', prof.get('fallback'))}")
@@ -2033,7 +2005,10 @@ def parity_session(cfg, scale, dtype, tpu=True, device="cuda"):
     """One allocate session of a bench config in parity mode on the card
     (or, with ``tpu`` False, the serial loop on the host, tpuscore off);
     the cursor starts at 0 (build_config's fresh cache). Returns (cache,
-    profile, launches, wall ms, K15's captured inputs, final cursor)."""
+    profile with the host's full collections inside the wall as "gc2_ms",
+    launches, wall ms, K15's captured inputs, final cursor)."""
+    import gc
+
     from volcano_tpu_torch import device as devmod
     from volcano_tpu_torch.bench.clusters import CONFIGS, build_config, make_tiers
     from volcano_tpu_torch.ops import parity_kernels as PK
@@ -2056,6 +2031,16 @@ def parity_session(cfg, scale, dtype, tpu=True, device="cuda"):
     PK.solve_allocate = capture
     torch.cuda.synchronize()
     devmod.reset_launches()
+    full_gc = {"ms": 0.0, "t": 0.0}
+
+    def on_gc(phase, info):
+        if info["generation"] == 2:
+            if phase == "start":
+                full_gc["t"] = time.perf_counter()
+            else:
+                full_gc["ms"] += (time.perf_counter() - full_gc["t"]) * 1e3
+
+    gc.callbacks.append(on_gc)
     t0 = time.perf_counter()
     try:
         ssn = open_session(cache, tiers)
@@ -2065,7 +2050,9 @@ def parity_session(cfg, scale, dtype, tpu=True, device="cuda"):
         torch.cuda.synchronize()
     finally:
         PK.solve_allocate = real
+        gc.callbacks.remove(on_gc)
     wall = (time.perf_counter() - t0) * 1e3
+    prof["gc2_ms"] = full_gc["ms"]
     if tpu and (prof.get("mode") != "parity" or "fallback" in prof):
         raise AssertionError(f"cfg{cfg} parity session did not run the scan: {prof}")
     return (cache, prof, devmod.launches(), wall, captured.get("args"),
@@ -2098,6 +2085,8 @@ def parity_phase(scale=1.0, device="cuda", dtype="float32"):
     stats = dict(PK.STATS)
     same(got, want, "parity_scan")
     ms = time_ms(lambda: PK.solve_allocate(spec, enc, rr0, ntf), reps=5, warmup=1)
+    if device == "cuda":
+        parity_crafted(spec, enc, rr0, ntf)
     T, R = enc["task_req"].shape
     Q, S = enc["queue_deserved"].shape[0], enc["ns_active0"].shape[0]
     ops = (stats["examined"] * (3 * R + PARITY_NODE_OPS) + stats["scored"] * SCORE_OPS
@@ -2116,7 +2105,9 @@ def parity_phase(scale=1.0, device="cuda", dtype="float32"):
                f"placed={int((got[:-1] >= 0).sum())} rr={int(got[-1])}"))
     finish_record(rec)
     print(json.dumps({"parity": f"cfg2@{scale} {dtype}", "card": CARD, "session_ms": wall,
-                      "binds": n_binds, "k15_ms": ms, "plain_ms": plain_ms,
+                      "gc2_ms": prof["gc2_ms"], "binds": n_binds, "k15_ms": ms,
+                      "plain_ms": plain_ms, "steps": stats["steps"],
+                      "us_a_step": ms * 1e3 / max(stats["steps"], 1),
                       "split_ms": {k: round(prof[k] * 1e3, 3) for k in
                                    ("encode_s", "solve_s", "apply_s")}}), flush=True)
 
@@ -2141,15 +2132,51 @@ def parity_phase(scale=1.0, device="cuda", dtype="float32"):
         raise AssertionError(f"cfg5 parity: {counts['parity_scan']} K15 launches")
     check_binds(cache, 5)
     spec, enc, rr0, ntf = args
+    got5 = PK.solve_allocate(spec, enc, rr0, ntf)
+    want5, plain5 = timed_plain(lambda: PK.solve_allocate_plain(spec, enc, rr0, ntf))
+    steps5 = PK.STATS["steps"]
+    same(got5, want5, "parity_scan (cfg5)")
     ms5 = time_ms(lambda: PK.solve_allocate(spec, enc, rr0, ntf), reps=2, warmup=1)
     print(json.dumps({"parity": f"cfg5@{scale} {dtype}", "card": CARD, "session_ms": wall,
-                      "binds": len(cache.binder.binds), "k15_ms": ms5,
+                      "binds": len(cache.binder.binds), "k15_ms": ms5, "plain_ms": plain5,
+                      "steps": steps5, "us_a_step": ms5 * 1e3 / max(steps5, 1),
+                      "gc2_ms": prof["gc2_ms"],
                       "T": enc["task_req"].shape[0], "N": enc["node_idle"].shape[0],
                       "J": enc["job_task_start"].shape[0], "ntf": ntf,
                       "split_ms": {k: round(prof[k] * 1e3, 3) for k in
                                    ("encode_s", "solve_s", "apply_s")}}), flush=True)
-    log(f"kernel parity_scan [cfg5]: {ms5:.4f} ms")
+    log(f"kernel parity_scan [cfg5]: {ms5:.4f} ms, {ms5 * 1e3 / max(steps5, 1):.3f} us a step")
     return rec, counts_a
+
+
+def parity_crafted(spec, enc, rr0, ntf):
+    """K15 torch.equal to its plain version on crafted inputs: on the cfg2
+    capture the cursor at real_n - 1, num_to_find <= 0, 1 and above the
+    feasible count, pad nodes inside the rotation; a gang visit that rolls
+    back after several placements; more than 32 namespaces and queues."""
+    from volcano_tpu_torch.bench import parity_cases as PC
+    from volcano_tpu_torch.ops import parity_kernels as PK
+
+    def check(sp, e, r0, k, what):
+        got = PK._solve_cuda(sp, e, r0, k)
+        same(got, PK.solve_allocate_plain(sp, e, r0, k), f"parity_scan ({what})")
+        return got
+
+    n = 0
+    for e, what in ((enc, "cfg2"), (PC.pads_inside(enc), "cfg2, pads inside")):
+        for r0, k in PC.windows(enc, rr0, ntf):
+            check(spec, e, r0, k, f"{what}, rr0={r0}, ntf={k}")
+            n += 1
+    sp, e, r0, k = PC.parity_inputs(PC.gang_rollback_cluster(), PC.TIERS)
+    got = check(sp, e, r0, k, "gang roll back")
+    placed = int((got[:-1] >= 0).sum())
+    if not 0 < placed < 30:
+        raise AssertionError(f"parity roll-back case placed {placed} of 30")
+    sp, e, r0, k = PC.parity_inputs(PC.wide_visit_cluster(), PC.TIERS)
+    if e["ns_active0"].shape[0] <= 32 or e["queue_deserved"].shape[0] <= 32:
+        raise AssertionError("the wide-visit case has no more than 32 namespaces or queues")
+    check(sp, e, r0, k, "S, Q > 32")
+    print(json.dumps({"parity_crafted": n + 2, "equal": True}), flush=True)
 
 
 def signature(cache):

@@ -150,7 +150,7 @@ def overcommit_cluster(clusters, seed: int, nodes: int = 6,
 
 def reclaim_cluster(clusters, seed: int, nodes: int = 6,
                     running_jobs: int = 12, tasks_per_job: int = 4,
-                    reclaim_jobs: int = 6):
+                    reclaim_jobs: int = 6, pods: int = 64):
     """A cluster where reclaim evicts under every tier set: queue q0
     (weight 1) runs a fill that packs every node on both dimensions, and
     queue q1 (weight 3) asks for about half the cluster, so q0 stays above
@@ -164,7 +164,7 @@ def reclaim_cluster(clusters, seed: int, nodes: int = 6,
     for n in range(nodes):
         c.add_node(tu.build_node(
             f"node-{n:03d}",
-            tu.build_resource_list_with_pods(str(cpu), f"{cpu * 2}Gi", pods=64)))
+            tu.build_resource_list_with_pods(str(cpu), f"{cpu * 2}Gi", pods=pods)))
     slot = 0
     for g in range(running_jobs):
         pg = f"run-{g:03d}"
@@ -272,6 +272,19 @@ def test_reclaim_that_evicts_matches_reference(tiers, seed):
     assert not tail["fail"]
 
 
+@pytest.mark.parametrize("tiers", TIER_SETS, ids=["cfg4", "prop", "drf"])
+def test_reclaim_wide_rows_match_reference(tiers):
+    """Nodes of more than 256 victims (V = 512: the rows K10 folds from
+    global scratch on the card) evict as the reference does."""
+    jplan, tplan = plans(lambda c: reclaim_cluster(
+        c, 3, nodes=2, running_jobs=130, pods=1024), tiers, "reclaim")
+    assert jplan.arrays["vic_job"].shape[1] == 512
+    result = check_pair(jplan, tplan)
+    tail = _tail(jplan, result)
+    log = result[:tail["log_len"] * 3].reshape(-1, 3)
+    assert (log[:, 0] == tevict.OP_EVICT).sum() > 0 and not tail["fail"]
+
+
 def test_three_queue_reclaim_evicts():
     """The copied overcommit cluster with three queues: cfg4's conf makes
     reclaim evict across queues there."""
@@ -338,39 +351,48 @@ def test_wrappers_run_plain_versions_on_cpu_tensors():
         tk.solve_packed(spec._replace(kind="express"), enc)
 
 
-def test_k9_profile_marks_match_its_phases():
-    """The K9 profile's phases are the kernel's PROF(k) marks: every phase
-    has a mark and every mark a phase, and the kernel's counter array has
-    one slot a phase (K9_PROFILE builds only; the marks are empty else)."""
+@pytest.mark.parametrize("kernel", ["k9", "k10", "k15"])
+def test_kernel_profile_marks_match_its_phases(kernel):
+    """A kernel profile's phases are the kernel's PROF(k) marks: every
+    phase has a mark and every mark a phase, and the kernel's counter array
+    has one slot a phase (and one for the units where it counts them; the
+    profile builds only: the marks are empty else)."""
     import os
     import re
 
     from volcano_tpu_torch import _build
-    from volcano_tpu_torch.bench import k9_profile
+    from volcano_tpu_torch.bench import kernel_profile
 
-    with open(os.path.join(_build.CSRC, "evict_preempt.cu")) as fh:
+    k = kernel_profile.KERNELS[kernel]
+    with open(os.path.join(_build.CSRC, k.source + ".cu")) as fh:
         src = fh.read()
     code = "\n".join(line for line in src.splitlines()
                      if not line.lstrip().startswith(("//", "#define")))
-    marks = {int(k) for k in re.findall(r"\bPROF\((\d+)\);", code)}
-    assert marks == set(range(len(k9_profile.PHASES)))
-    assert f"constexpr int kProfPhases = {len(k9_profile.PHASES)};" in src
-    guarded = src[src.index("#ifdef K9_PROFILE"):]
+    marks = {int(n) for n in re.findall(r"\bPROF\((\d+)\);", code)}
+    assert marks == set(range(len(k.phases)))
+    assert f"constexpr int kProfPhases = {len(k.phases)};" in src
+    slots = "kProfPhases + 1" if k.counts_units else "kProfPhases"
+    assert f"{kernel}_prof_t[{slots}];" in src
+    assert ("PROF_UNIT();" in code) == k.counts_units
+    guarded = src[src.index(f"#ifdef {k.flag}"):]
     assert "#else\n#define PROF(k) do {} while (0)" in guarded
-    assert 'extern "C" int k9_profile_read' in src[src.rindex("#ifdef K9_PROFILE"):]
+    assert f'extern "C" int {k.read}' in src[src.rindex(f"#ifdef {k.flag}"):]
 
 
-def test_k9_profile_builds_the_kernel_source_with_the_flag(monkeypatch):
+@pytest.mark.parametrize("kernel", ["k9", "k10", "k15"])
+def test_kernel_profile_builds_the_kernel_source_with_the_flag(monkeypatch, kernel):
     """The profiling build is nvcc on the kernel's own source with the
-    kernels' flags and K9_PROFILE defined: no copy of the source."""
+    kernels' flags and the kernel's profile flag defined: no copy of the
+    source."""
     import os
 
     from volcano_tpu_torch import _build
-    from volcano_tpu_torch.bench import k9_profile
+    from volcano_tpu_torch.bench import kernel_profile
 
     monkeypatch.setattr(_build, "nvcc_path", lambda: "nvcc")
-    cmd = k9_profile.build_command("out.so")
-    src = os.path.join(_build.CSRC, "evict_preempt.cu")
+    k = kernel_profile.KERNELS[kernel]
+    cmd = kernel_profile.build_command(kernel, "out.so")
+    src = os.path.join(_build.CSRC, k.source + ".cu")
     assert cmd[0] == "nvcc" and cmd[-1] == src and os.path.exists(src)
-    assert "-DK9_PROFILE" in cmd and cmd[cmd.index("-o") + 1] == "out.so"
+    assert f"-D{kernel.upper()}_PROFILE" in cmd and cmd[cmd.index("-o") + 1] == "out.so"
     assert cmd[1:1 + len(_build.NVCC_FLAGS)] == _build.NVCC_FLAGS

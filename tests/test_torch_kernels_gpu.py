@@ -462,3 +462,221 @@ def test_evict_preempt_layout_is_one_cluster_of_16():
     for dt in DTYPES:
         cluster, smem, spill = EK.preempt_layout(8000, 16, dt)
         assert cluster == 16 and smem > 0 and spill == 0
+
+
+# -- K10: the reclaim machine on K9's cluster -------------------------------------
+
+
+def reclaim_inputs(cache, dtype, device="cuda", tiers=None):
+    """K10's inputs of a session on ``cache`` (the reclaim path's tiers and
+    actions): per-action (VOLCANO_TPU_FUSE=0, from solve_packed) and fused
+    (from reclaim_fused), each {"per_action" | "fused": (spec, enc)}."""
+    import os
+
+    from volcano_tpu_torch.bench.clusters import make_tiers
+    from volcano_tpu_torch.bench.reclaim_path import EVICT_ACTIONS, RECLAIM_TIERS
+    from volcano_tpu_torch.ops import evict_kernels as EK
+    from volcano_tpu_torch.scheduler.framework import (
+        close_session, open_session, run_actions)
+    import volcano_tpu_torch.scheduler.actions  # noqa: F401
+    import volcano_tpu_torch.scheduler.plugins  # noqa: F401
+
+    seen = {}
+    real = {n: getattr(EK, n) for n in ("solve_packed", "reclaim_fused")}
+
+    def keep(name, key):
+        def fn(spec, enc):
+            if spec.kind == "reclaim":
+                seen.setdefault(key, (spec, {k: v.clone() for k, v in enc.items()}))
+            return real[name](spec, enc)
+        return fn
+
+    prev = os.environ.get("VOLCANO_TPU_FUSE")
+    EK.solve_packed = keep("solve_packed", "per_action")
+    EK.reclaim_fused = keep("reclaim_fused", "fused")
+    try:
+        for fuse in ("0", "1"):
+            os.environ["VOLCANO_TPU_FUSE"] = fuse
+            c = cache() if callable(cache) else cache
+            ssn = open_session(c, make_tiers(["tpuscore"], *(tiers or RECLAIM_TIERS), arguments={
+                "tpuscore": {"tpuscore.mode": "rounds", "tpuscore.device": device,
+                             "tpuscore.dtype": dtype}}))
+            try:
+                run_actions(ssn, list(EVICT_ACTIONS))
+            finally:
+                close_session(ssn)
+    finally:
+        EK.solve_packed, EK.reclaim_fused = real["solve_packed"], real["reclaim_fused"]
+        if prev is None:
+            os.environ.pop("VOLCANO_TPU_FUSE", None)
+        else:
+            os.environ["VOLCANO_TPU_FUSE"] = prev
+    return seen
+
+
+def _same_reclaim(spec, enc, fused=False):
+    from volcano_tpu_torch.ops import evict_kernels as EK
+
+    got = EK.reclaim_fused(spec, enc) if fused else EK.solve_packed(spec, enc)
+    want = EK.reclaim_plain(spec, enc)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), ((got != want).nonzero()[:8].tolist(),
+                                    got[-6:].tolist(), want[-6:].tolist())
+    return got
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_evict_reclaim_path_per_action_and_fused(dtype):
+    """Small reclaim-path sessions (160 nodes, 24 pending gangs): the
+    per-action and the fused K10 against reclaim_plain on the inputs the
+    sessions gave; reclaim evicts."""
+    _cuda()
+    from volcano_tpu_torch.bench.reclaim_path import reclaim_path_cluster
+
+    seen = reclaim_inputs(lambda: reclaim_path_cluster(0.02)[0], dtype)
+    for key in ("per_action", "fused"):
+        spec, enc = seen[key]
+        got = _same_reclaim(spec, enc, fused=key == "fused")
+        assert int(got[-6]) > 0 and int(got[-2]) == 0, key   # ops logged, no fail
+
+
+@pytest.mark.parametrize("kind", ["first-pad", "scattered", "real-n-short"])
+def test_evict_reclaim_any_real_layout_matches_plain(kind):
+    """Real slots other than the prefix [0, real_n): K10 walks nodes by
+    the signature mask alone, equal to the plain version."""
+    _cuda()
+    from volcano_tpu_torch.bench.reclaim_path import reclaim_path_cluster
+
+    spec, enc = reclaim_inputs(lambda: reclaim_path_cluster(0.02)[0], "float32")["per_action"]
+    got = _same_reclaim(spec, _layout(enc, kind))
+    assert int(got[-6]) > 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_evict_reclaim_wide_rows_match_plain(dtype):
+    """Nodes of more than 256 victims (V = 512) fold from global scratch
+    rows, per-action and fused, equal to the plain version."""
+    _cuda()
+    from volcano_tpu_torch.bench.reclaim_path import dense_reclaim_cluster
+
+    seen = reclaim_inputs(dense_reclaim_cluster, dtype)
+    for key in ("per_action", "fused"):
+        spec, enc = seen[key]
+        assert enc["vic_job"].shape[1] == 512
+        got = _same_reclaim(spec, enc, fused=key == "fused")
+        assert int(got[-6]) > 0, key
+
+
+def test_evict_reclaim_large_node_axis_matches_plain():
+    """Node slices too large for a CTA's shared memory (float64: about
+    177k nodes) live in a global buffer; equal to the plain version, with
+    the layout the launcher reports."""
+    _cuda()
+    from volcano_tpu_torch.bench.reclaim_path import reclaim_path_cluster
+    from volcano_tpu_torch.ops import evict_kernels as EK
+
+    spec, enc = reclaim_inputs(lambda: reclaim_path_cluster(0.02)[0], "float64")["per_action"]
+    n = 180_000
+    enc = _tiled(enc, n)
+    cluster, smem, spill = EK.reclaim_layout(n, enc["vic_job"].shape[1], torch.float64)
+    assert (cluster, smem) == (16, 0) and spill > 0
+    got = _same_reclaim(spec, enc)
+    assert int(got[-2]) == 0 and int(got[-6]) > 0
+
+
+def test_evict_reclaim_budget_trip_matches_plain():
+    """An op log of two rows trips the fail bit at its third entry, as
+    the reference's log budget does; the kernel stops where the plain
+    version stops."""
+    _cuda()
+    from volcano_tpu_torch.bench.reclaim_path import reclaim_path_cluster
+
+    spec, enc = reclaim_inputs(lambda: reclaim_path_cluster(0.02)[0], "float32")["per_action"]
+    enc = dict(enc, log0=torch.zeros((2, 3), dtype=torch.int32, device=enc["log0"].device))
+    got = _same_reclaim(spec, enc)
+    assert int(got[-2]) == 1
+
+
+def test_evict_reclaim_layout_is_one_cluster_of_16():
+    """The reclaim path's shape (8000 nodes, V = 16) launches one cluster of
+    16 CTAs from shared memory, in float32 and float64."""
+    _cuda()
+    from volcano_tpu_torch.ops import evict_kernels as EK
+
+    for dt in DTYPES:
+        cluster, smem, spill = EK.reclaim_layout(8000, 16, dt)
+        assert cluster == 16 and smem > 0 and spill == 0
+
+
+# -- K15: the parity scan ----------------------------------------------------------
+
+
+def cfg_parity(cfg, scale, dtype="float32"):
+    from volcano_tpu_torch.bench.clusters import CONFIGS, build_config
+    from volcano_tpu_torch.bench.parity_cases import parity_inputs
+
+    cache, _, _, _, _ = build_config(cfg, scale)
+    return parity_inputs(cache, CONFIGS[cfg].tiers, dtype)
+
+
+def _same_parity(spec, enc, rr0, ntf):
+    from volcano_tpu_torch.ops import parity_kernels as PK
+
+    got = PK._solve_cuda(spec, enc, rr0, ntf)
+    want = PK.solve_allocate_plain(spec, enc, rr0, ntf)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), ((got != want).nonzero()[:8].tolist(),
+                                    got[-1].item(), want[-1].item())
+    return got
+
+
+def test_parity_scan_crafted_windows():
+    """cfg2 at 0.05 (50 nodes: N is no multiple of the block): the cursor
+    at real_n - 1 and at 0; num_to_find <= 0, 1, and above the feasible
+    count; pad nodes inside the rotation."""
+    _cuda()
+    from volcano_tpu_torch.bench.parity_cases import pads_inside, windows
+
+    spec, enc, rr0, ntf = cfg_parity(2, 0.05)
+    for e in (enc, pads_inside(enc)):
+        for r0, k in windows(enc, rr0, ntf):
+            _same_parity(spec, e, r0, k)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_parity_scan_cfg2_full_scale(dtype):
+    """cfg2 at full scale (1000 nodes) gives the plain version's assign and
+    cursor."""
+    _cuda()
+    spec, enc, rr0, ntf = cfg_parity(2, 1.0, dtype)
+    got = _same_parity(spec, enc, rr0, ntf)
+    assert int((got[:-1] >= 0).sum()) > 0
+
+
+def test_parity_scan_cfg5_shape():
+    """cfg5's node axis at 0.2 (2000 nodes, 10k tasks)."""
+    _cuda()
+    spec, enc, rr0, ntf = cfg_parity(5, 0.2)
+    _same_parity(spec, enc, rr0, ntf)
+
+
+def test_parity_scan_gang_rolls_back():
+    """Gangs whose visit places several tasks, then rolls them back: the
+    restored rows give the plain version's later placements."""
+    _cuda()
+    from volcano_tpu_torch.bench.parity_cases import TIERS, gang_rollback_cluster, parity_inputs
+
+    spec, enc, rr0, ntf = parity_inputs(gang_rollback_cluster(), TIERS)
+    got = _same_parity(spec, enc, rr0, ntf)
+    placed = int((got[:-1] >= 0).sum())
+    assert 0 < placed < 30
+
+
+def test_parity_scan_many_namespaces_and_queues():
+    """S and Q above 32 take the block argmins."""
+    _cuda()
+    from volcano_tpu_torch.bench.parity_cases import TIERS, parity_inputs, wide_visit_cluster
+
+    spec, enc, rr0, ntf = parity_inputs(wide_visit_cluster(), TIERS)
+    assert enc["ns_active0"].shape[0] > 32 and enc["queue_deserved"].shape[0] > 32
+    _same_parity(spec, enc, rr0, ntf)

@@ -336,6 +336,29 @@ def test_plain_matches_jitted_jax(case):
         np.testing.assert_array_equal(got.numpy(), want, err_msg=f"{case} {rr0} {ntf}")
 
 
+@pytest.mark.parametrize("case", ["cfg2", "sampling_window", "gang_discard"])
+def test_plain_matches_jitted_jax_on_crafted_windows(case):
+    """The windows the card holds K15 to (volcano_tpu_torch/bench/
+    parity_cases.py): the cursor at real_n - 1 and near 0, num_to_find at
+    0, below 0, 1 and above any feasible count, each also with every fifth
+    node a pad inside the rotation; the plain version equals the jitted
+    JAX kernel on each."""
+    from volcano_tpu_torch.bench.parity_cases import pads_inside, windows
+
+    populate, tiers = KERNEL_CASES[case]
+    enc, arrays = _jax_arrays(populate, tiers)
+    t_enc = _to_port(arrays)
+    padded = pads_inside(t_enc)
+    p_arrays = dict(arrays, node_real=padded["node_real"].numpy(),
+                    real_n=padded["real_n"].numpy().astype(arrays["real_n"].dtype))
+    assert int(padded["real_n"]) < int(t_enc["real_n"])
+    for a, e in ((arrays, t_enc), (p_arrays, padded)):
+        for rr0, ntf in windows(e, enc.rr0, enc.num_to_find):
+            want = _jax_solve(enc.spec, a, rr0, ntf)
+            got = pk.solve_allocate(enc.spec, e, rr0, ntf)
+            np.testing.assert_array_equal(got.numpy(), want, err_msg=f"{case} {rr0} {ntf}")
+
+
 def test_cases_reach_the_paths_they_name():
     """The kernel cases are not vacuous: the window case rotates over
     more than num_to_find feasible nodes, the partial-capacity and

@@ -1,0 +1,252 @@
+"""Where a state-machine kernel's time goes: K9, K10 or K15, phase by phase,
+on the card.
+
+Builds the kernel's source with its profile flag (``-DK9_PROFILE``,
+``-DK10_PROFILE`` or ``-DK15_PROFILE``), which turns the kernel's PROF(k)
+marks into clock64() reads at the thread that runs its control machine
+(CTA 0 thread 0; K15's block thread 0), takes the kernel's inputs from a
+session on the card (float32), runs them through that build and prints
+each phase's share of the kernel's time and microseconds a unit of work:
+
+- k9: the preempt machine of a per-action cfg4 session; a walk;
+- k10: the reclaim machine of a per-action reclaim-path session
+  (``bench/reclaim_path.py``); a candidate fold (one walk iteration);
+- k15: the parity scan of a cfg5 (or ``--config 2``) parity session; a
+  task step.
+
+A phase ends at its mark, so a barrier's wait is the time the marking
+thread spent in it. K10's and K15's builds also count their units.
+
+On a machine with an NVIDIA GPU:
+
+    python -m volcano_tpu_torch.bench.kernel_profile --kernel k10 [--scale 1.0]
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import subprocess
+import sys
+from typing import NamedTuple, Tuple
+
+import torch
+
+
+class Kernel(NamedTuple):
+    source: str        # csrc/<source>.cu
+    flag: str          # the profile build's define
+    read: str          # the C function that copies the counters out
+    unit: str          # what a unit of the kernel's work is
+    counts_units: bool  # the counters end with the units' count
+    phases: Tuple[Tuple[str, str], ...]  # PROF(k)'s phase k, in order of k
+
+
+KERNELS = {
+    "k9": Kernel("evict_preempt", "K9_PROFILE", "k9_profile_read", "walk", False, (
+        ("loop", "the machine loop's own work"),
+        ("window_scan", "window: eligibility and the block scan"),
+        ("window_barrier1", "window: cluster barrier after the scan"),
+        ("window_select", "window: offsets, counts, scores, list entries"),
+        ("window_barrier2", "window: cluster barrier after the list"),
+        ("fold", "iteration: CTA 0 thread 0's folds"),
+        ("block_best", "iteration: CTA 0's best (waits for its slowest warp)"),
+        ("barrier_best", "iteration: cluster barrier after the bests"),
+        ("visited", "iteration: the cluster's best, visited sums"),
+        ("barrier_visited", "iteration: cluster barrier after the sums"),
+        ("control", "decide: control steps after the last heap operation"),
+        ("barrier_cmd", "cluster barrier after CTA 0's order"),
+        ("pipeline", "decide: the pipeline of a covered cut"),
+        ("post_walk", "decide: the walk's end (commit mark, mode)"),
+        ("control_heap_prep", "decide: control steps before a heap operation"),
+        ("heap_pop", "decide: job heap pops"),
+        ("heap_push", "decide: job heap pushes"),
+        ("cut", "decide: the eviction cut"),
+    )),
+    "k10": Kernel("evict_reclaim", "K10_PROFILE", "k10_profile_read", "fold", True, (
+        ("loop", "the machine loop's own work and its barriers"),
+        ("heap", "the queue and job heap pops and the queue re-push"),
+        ("elig", "a walk's eligibility pass"),
+        ("fold", "the marking thread's own victim folds"),
+        ("reduce", "the first qualifying node: reductions and their barriers"),
+        ("visited", "the visited nodes' underflow"),
+        ("cut", "the eviction cut and the pipeline"),
+        ("barrier", "the iteration's closing barriers"),
+    )),
+    "k15": Kernel("parity_scan", "K15_PROFILE", "k15_profile_read", "step", True, (
+        ("loop", "the visit loop's head (any namespace left)"),
+        ("ns_argmin", "visit: the namespace argmin"),
+        ("queue_argmin", "visit: the overused purge and the queue argmin"),
+        ("job_argmin", "visit: the job argmin"),
+        ("sweep", "step: the node sweep (feasibility, counts, scores)"),
+        ("best", "step: the arg-max over the block"),
+        ("place", "step: the placement and its barrier"),
+        ("commit", "visit: the gang commit or the roll back"),
+    )),
+}
+
+
+def build_command(kernel: str, out: str) -> list:
+    """nvcc's command for the profiling build of ``kernel`` into ``out``:
+    the kernels' own flags and source, with the kernel's flag defined."""
+    from volcano_tpu_torch import _build
+
+    k = KERNELS[kernel]
+    return [_build.nvcc_path(), *_build.NVCC_FLAGS, f"-D{k.flag}", "-o", out,
+            os.path.join(_build.CSRC, k.source + ".cu")]
+
+
+def smi_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip()
+    return out.splitlines()[0]
+
+
+def _capture_evict(kind: str, build):
+    """The ``kind`` machine's (spec, inputs) of a per-action session on the
+    card, float32: ``build()`` gives (cache, tier names, actions)."""
+    from volcano_tpu_torch.bench.clusters import make_tiers
+    from volcano_tpu_torch.ops import evict_kernels as EK
+    from volcano_tpu_torch.scheduler.framework import (
+        close_session, open_session, run_actions)
+    import volcano_tpu_torch.scheduler.actions  # noqa: F401
+    import volcano_tpu_torch.scheduler.plugins  # noqa: F401
+
+    seen = {}
+    real = EK.solve_packed
+
+    def keep(spec, enc):
+        if spec.kind == kind and kind not in seen:
+            seen[kind] = (spec, {k: v.clone() for k, v in enc.items()})
+        return real(spec, enc)
+
+    prev = os.environ.get("VOLCANO_TPU_FUSE")
+    os.environ["VOLCANO_TPU_FUSE"] = "0"
+    EK.solve_packed = keep
+    try:
+        cache, tiers, actions = build()
+        ssn = open_session(cache, make_tiers(["tpuscore"], *tiers, arguments={
+            "tpuscore": {"tpuscore.mode": "rounds", "tpuscore.device": "cuda",
+                         "tpuscore.dtype": "float32"}}))
+        try:
+            run_actions(ssn, list(actions))
+        finally:
+            close_session(ssn)
+    finally:
+        EK.solve_packed = real
+        if prev is None:
+            os.environ.pop("VOLCANO_TPU_FUSE", None)
+        else:
+            os.environ["VOLCANO_TPU_FUSE"] = prev
+    if kind not in seen:
+        raise RuntimeError(f"kernel_profile: the session never ran the {kind} machine")
+    return seen[kind]
+
+
+def evict_inputs(kernel: str, scale: float):
+    if kernel == "k9":
+        from volcano_tpu_torch.bench.clusters import CONFIGS, build_config
+
+        def build():
+            cache, _, _, actions, _ = build_config(4, scale)
+            return cache, CONFIGS[4].tiers, actions
+
+        return _capture_evict("preempt", build)
+    from volcano_tpu_torch.bench.reclaim_path import (
+        EVICT_ACTIONS, RECLAIM_TIERS, reclaim_path_cluster)
+
+    return _capture_evict("reclaim", lambda: (
+        reclaim_path_cluster(scale)[0], RECLAIM_TIERS, EVICT_ACTIONS))
+
+
+def parity_inputs(cfg: int, scale: float):
+    """K15's (spec, inputs, rr0, num_to_find) of a parity session of bench
+    config ``cfg`` on the card, float32."""
+    from volcano_tpu_torch.bench import parity_cases
+    from volcano_tpu_torch.bench.clusters import CONFIGS, build_config
+
+    cache, _, _, _, _ = build_config(cfg, scale)
+    return parity_cases.parity_inputs(cache, CONFIGS[cfg].tiers)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--kernel", choices=sorted(KERNELS), default="k9")
+    ap.add_argument("--scale", type=float, default=1.0, help="the cluster's scale")
+    ap.add_argument("--config", type=int, default=5, help="k15: the parity session's bench config")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("kernel_profile: no CUDA device is available", file=sys.stderr)
+        return 2
+    from volcano_tpu_torch import _build
+
+    k = KERNELS[args.kernel]
+    if args.kernel == "k15":
+        from volcano_tpu_torch.ops import parity_kernels as PK
+
+        spec, enc, rr0, ntf = parity_inputs(args.config, args.scale)
+
+        def run():
+            return PK._solve_cuda(spec, enc, rr0, ntf)
+        shape = {"config": args.config, "T": enc["task_req"].shape[0],
+                 "N": enc["node_idle"].shape[0], "J": enc["job_task_start"].shape[0],
+                 "ntf": ntf}
+    else:
+        from volcano_tpu_torch.ops import evict_kernels as EK
+
+        spec, enc = evict_inputs(args.kernel, args.scale)
+
+        def run():
+            return EK.solve_packed(spec, enc)
+        n, v = enc["vic_job"].shape
+        shape = {"N": n, "V": v}
+        if args.kernel == "k9":
+            cluster, smem, spill = EK.preempt_layout(n, v, enc["node_used"].dtype)
+        else:
+            cluster, smem, spill = EK.reclaim_layout(n, v, enc["node_used"].dtype)
+        shape.update(cluster=cluster, smem=smem, spill=spill)
+    os.makedirs(_build.BUILD, exist_ok=True)
+    so = os.path.join(_build.BUILD, f"lib{args.kernel}_profile.so")
+    subprocess.run(build_command(args.kernel, so), check=True, capture_output=True)
+    lib = ctypes.CDLL(so)
+    real = _build.library
+    _build.library = lambda name: lib if name == k.source else real(name)
+    try:
+        run()                                        # warm-up
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = run()
+        end.record()
+        torch.cuda.synchronize()
+    finally:
+        _build.library = real
+    ms = start.elapsed_time(end)
+    slots = len(k.phases) + (1 if k.counts_units else 0)
+    cycles = (ctypes.c_longlong * slots)()
+    fn = getattr(lib, k.read)
+    fn.argtypes = [ctypes.c_void_p]
+    if fn(cycles) != 0:
+        raise RuntimeError("kernel_profile: reading the counters failed")
+    phase_cycles = list(cycles)[:len(k.phases)]
+    # K9: its walks are the tail's attempts (one a walk at cfg4)
+    units = max(int(cycles[-1]) if k.counts_units else int(out[-3]), 1)
+    total = max(sum(phase_cycles), 1)
+    per = f"us_a_{k.unit}"
+    rows = {name: {"share": c / total, per: ms * 1e3 * c / total / units}
+            for (name, _), c in zip(k.phases, phase_cycles)}
+    print(json.dumps({"kernel_profile": args.kernel, "card": smi_line(),
+                      "scale": args.scale, **shape, "ms": ms, f"{k.unit}s": units,
+                      per: ms * 1e3 / units, "phases": rows}), flush=True)
+    for name, what in k.phases:
+        print(f"{name:18s} {rows[name][per]:8.3f} us a {k.unit}  {what}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

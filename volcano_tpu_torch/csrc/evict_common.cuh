@@ -12,17 +12,16 @@
 // a heap rebuilt for the fused chain compares keys exactly as K9's and
 // K10's pops compare them.
 //
-// Design: one thread block runs a whole action. Its threads share the
-// per-step folds over the node axis: node i belongs to thread i % kThreads
-// for the whole run, which walks that node's V victim slots in slot order
-// (so every float fold keeps the reference's order), and the block reduces
-// across nodes (arg-extrema with lowest-index ties, counts, flags, and the
-// window's exact int32 circular scan). Thread 0 alone runs the control
-// flow that is sequential by nature: the heaps, the eviction cut, the op
-// log and the discard replay; the other threads wait at the barrier.
-// Mutable state lives in device scratch the wrapper allocates (the kernel
-// copies the initial state in at its start); scalars live in shared
-// memory. The kernel allocates nothing and does not synchronise the host.
+// Design: Machine holds an action's argument tables, its control scalars
+// (Ctl, in shared memory) and the mutators and key compares the control
+// thread runs: the heaps, the eviction cut, the op log and the pipeline
+// over global scratch, and fold_node, the victim fold over global scratch
+// rows that K9 and K10 take for rows wider than their register fold
+// (evict_cluster.cuh, where the cluster machinery they share lives). A node
+// fold walks its V victim slots in slot order, so every float fold keeps
+// the reference's order. Mutable state lives in device scratch the wrapper
+// allocates (the kernel copies the initial state in at its start). A
+// kernel allocates nothing and does not synchronise the host.
 //
 // Arguments arrive as one table of pointers and one of sizes and flags
 // (Args), whose order the X-macros below fix; the Python wrapper checks its
@@ -41,8 +40,6 @@
 
 namespace ev {
 
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
 
 constexpr int OP_EVICT = 0;
@@ -98,17 +95,6 @@ struct Ctl {
   T cs;
 };
 
-// block-reduction scratch, in shared memory
-template <typename T>
-struct Red {
-  T s[kWarps];
-  int c[kWarps];
-  int i[kWarps];
-  T bs;
-  int bc, bi;
-  int scan_carry;
-};
-
 template <typename T>
 __device__ __forceinline__ bool le2(T l0, T l1, T r0, T r1, T e0, T e1) {
   return ((l0 < r0) || (fabs(l0 - r0) < e0)) && ((l1 < r1) || (fabs(l1 - r1) < e1));
@@ -131,20 +117,10 @@ __device__ __forceinline__ T share2(T a0, T a1, T t0, T t1) {
   return m < T(0) ? T(0) : m;
 }
 
-// (score desc, circular position asc) candidate order; i < 0 is "none"
-template <typename T>
-__device__ __forceinline__ bool better(T s1, int c1, int i1, T s2, int c2, int i2) {
-  if (i1 < 0) return false;
-  if (i2 < 0) return true;
-  if (s1 != s2) return s1 > s2;
-  return c1 < c2;
-}
-
 template <typename T>
 struct Machine {
   const Args<T>& a;
   Ctl<T>& c;
-  Red<T>& r;
   int tid;
 
   // -- argument access -------------------------------------------------------
@@ -153,155 +129,6 @@ struct Machine {
   template <typename U>
   __device__ __forceinline__ U* sc(int k) const { return (U*)a.p[k]; }
   __device__ __forceinline__ int d(int k) const { return a.d[k]; }
-
-  // -- block reductions (every thread calls; every thread gets the result) --
-  __device__ void reduce_best(T& s, int& cc, int& i) {
-    int lane = tid & 31, warp = tid >> 5;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      T s2 = __shfl_down_sync(kFull, s, off);
-      int c2 = __shfl_down_sync(kFull, cc, off);
-      int i2 = __shfl_down_sync(kFull, i, off);
-      if (better(s2, c2, i2, s, cc, i)) { s = s2; cc = c2; i = i2; }
-    }
-    if (lane == 0) { r.s[warp] = s; r.c[warp] = cc; r.i[warp] = i; }
-    __syncthreads();
-    if (warp == 0) {
-      s = lane < kWarps ? r.s[lane] : T(0);
-      cc = lane < kWarps ? r.c[lane] : 0;
-      i = lane < kWarps ? r.i[lane] : -1;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        T s2 = __shfl_down_sync(kFull, s, off);
-        int c2 = __shfl_down_sync(kFull, cc, off);
-        int i2 = __shfl_down_sync(kFull, i, off);
-        if (better(s2, c2, i2, s, cc, i)) { s = s2; cc = c2; i = i2; }
-      }
-      if (lane == 0) { r.bs = s; r.bc = cc; r.bi = i; }
-    }
-    __syncthreads();
-    s = r.bs; cc = r.bc; i = r.bi;
-    __syncthreads();
-  }
-
-  // (sum of v, or of f) over the block
-  __device__ void reduce_sum_or(int& v, int& f) {
-    int lane = tid & 31, warp = tid >> 5;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      v += __shfl_down_sync(kFull, v, off);
-      f |= __shfl_down_sync(kFull, f, off);
-    }
-    if (lane == 0) { r.c[warp] = v; r.i[warp] = f; }
-    __syncthreads();
-    if (warp == 0) {
-      v = lane < kWarps ? r.c[lane] : 0;
-      f = lane < kWarps ? r.i[lane] : 0;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        v += __shfl_down_sync(kFull, v, off);
-        f |= __shfl_down_sync(kFull, f, off);
-      }
-      if (lane == 0) { r.bc = v; r.bi = f; }
-    }
-    __syncthreads();
-    v = r.bc; f = r.bi;
-    __syncthreads();
-  }
-
-  __device__ int reduce_min(int v) {
-    int lane = tid & 31, warp = tid >> 5;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) v = min(v, __shfl_down_sync(kFull, v, off));
-    if (lane == 0) r.c[warp] = v;
-    __syncthreads();
-    if (warp == 0) {
-      v = lane < kWarps ? r.c[lane] : 0x7fffffff;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) v = min(v, __shfl_down_sync(kFull, v, off));
-      if (lane == 0) r.bc = v;
-    }
-    __syncthreads();
-    v = r.bc;
-    __syncthreads();
-    return v;
-  }
-
-  // inclusive prefix sum of x[0, n) in place (exact int32), in chunks of
-  // kThreads rows carried across chunks
-  __device__ void scan_inplace(int* x, int n) {
-    int lane = tid & 31, warp = tid >> 5;
-    if (tid == 0) r.scan_carry = 0;
-    __syncthreads();
-    for (int base = 0; base < n; base += kThreads) {
-      int i = base + tid;
-      int v = i < n ? x[i] : 0;
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        int u = __shfl_up_sync(kFull, v, off);
-        if (lane >= off) v += u;
-      }
-      if (lane == 31) r.c[warp] = v;
-      __syncthreads();
-      if (warp == 0) {
-        int w = lane < kWarps ? r.c[lane] : 0;
-#pragma unroll
-        for (int off = 1; off < 32; off <<= 1) {
-          int u = __shfl_up_sync(kFull, w, off);
-          if (lane >= off) w += u;
-        }
-        if (lane < kWarps) r.c[lane] = w;
-      }
-      __syncthreads();
-      int carry = r.scan_carry;
-      if (warp > 0) v += r.c[warp - 1];
-      v += carry;
-      if (i < n) x[i] = v;
-      __syncthreads();
-      if (tid == kThreads - 1) r.scan_carry = v;
-      __syncthreads();
-    }
-  }
-
-  // -- initial state -----------------------------------------------------------
-  // copy the encoded initial state into scratch and zero the op log; the
-  // control scalars start as preempt_state0/reclaim_state0 set them
-  __device__ void load_state(bool reclaim) {
-    const int N = d(D_N), V = d(D_V), J = d(D_J), Q = d(D_Q), L = d(D_L);
-    for (int i = tid; i < 2 * N; i += kThreads) sc<T>(P_used)[i] = in<T>(P_node_used)[i];
-    for (int i = tid; i < N; i += kThreads) sc<int>(P_cnt)[i] = in<int>(P_node_cnt)[i];
-    for (int i = tid; i < N * V; i += kThreads)
-      sc<uint8_t>(P_alive)[i] = in<uint8_t>(P_vic_alive0)[i];
-    for (int i = tid; i < J; i += kThreads) {
-      sc<int>(P_ready)[i] = in<int>(P_job_ready0)[i];
-      sc<int>(P_wait)[i] = in<int>(P_job_wait0)[i];
-      sc<int>(P_ptr)[i] = in<int>(P_job_task_start)[i];
-      sc<T>(P_job_alloc)[2 * i] = in<T>(P_job_alloc0)[2 * i];
-      sc<T>(P_job_alloc)[2 * i + 1] = in<T>(P_job_alloc0)[2 * i + 1];
-    }
-    for (int i = tid; i < 2 * Q; i += kThreads)
-      sc<T>(P_queue_alloc)[i] = in<T>(P_queue_alloc0)[i];
-    for (int i = tid; i < d(D_QP) * d(D_JCAP); i += kThreads)
-      sc<int>(P_heap)[i] = in<int>(P_heap0)[i];
-    for (int i = tid; i < d(D_QP); i += kThreads) sc<int>(P_hsize)[i] = in<int>(P_hsize0)[i];
-    if (reclaim)
-      for (int i = tid; i < d(D_QH); i += kThreads) sc<int>(P_qheap)[i] = in<int>(P_qheap0)[i];
-    for (int i = tid; i < 3 * L; i += kThreads) sc<int>(P_out)[i] = 0;
-    // the consumed-candidate mask: the carried skip on the fused chain,
-    // zeros (a null p_done0) on the per-action path
-    const uint8_t* pd0 = in<uint8_t>(P_p_done0);
-    for (int i = tid; i < d(D_T); i += kThreads) sc<uint8_t>(P_p_done)[i] = pd0 ? pd0[i] : 0;
-    if (tid == 0) {
-      c.log_len = 0;
-      c.rr = *in<int>(P_rr0);
-      c.victims = c.attempts = c.fail = c.underflow = c.steps = 0;
-      c.mode = 0; c.qi = 0; c.cur_job = 0; c.phase2 = 0; c.assigned = 0;
-      c.stmt_start = 0; c.u2 = 0;
-      c.qhsize = reclaim ? *in<int>(P_qhsize0) : 0;
-      c.walk = 0;
-    }
-    __syncthreads();
-  }
 
   __device__ void write_tail() {
     if (tid == 0) {
@@ -437,40 +264,6 @@ struct Machine {
     // as its skip mask (a pipelined task is no longer PENDING)
     sc<uint8_t>(P_p_done)[t] = 1;
     log_append(OP_PIPELINE, t, node, true);
-  }
-
-  // Statement.discard: the open segment's ops undone in REVERSE order by
-  // inverse float ops ((x - r) + r need not equal a saved x)
-  __device__ void discard(int stmt_start) {
-    const int V = d(D_V);
-    const int* log = sc<int>(P_out);
-    T* used = sc<T>(P_used);
-    T* ja = sc<T>(P_job_alloc);
-    T* qa = sc<T>(P_queue_alloc);
-    while (c.log_len > stmt_start) {
-      int i = c.log_len - 1;
-      int kind = log[3 * i], x = log[3 * i + 1], y = log[3 * i + 2];
-      if (kind == OP_EVICT) {
-        size_t k = (size_t)x * V + y;
-        int jv = in<int>(P_vic_job)[k], qv = in<int>(P_vic_queue)[k];
-        T r0 = in<T>(P_vic_req)[2 * k], r1 = in<T>(P_vic_req)[2 * k + 1];
-        sc<uint8_t>(P_alive)[k] = 1;
-        sc<int>(P_ready)[jv] += 1;
-        ja[2 * jv] = ja[2 * jv] + r0; ja[2 * jv + 1] = ja[2 * jv + 1] + r1;
-        qa[2 * qv] = qa[2 * qv] + r0; qa[2 * qv + 1] = qa[2 * qv + 1] + r1;
-      } else if (kind == OP_PIPELINE) {
-        T r0 = in<T>(P_p_req)[2 * x], r1 = in<T>(P_p_req)[2 * x + 1];
-        int pj = in<int>(P_p_job)[x];
-        int pq = in<int>(P_job_queue)[pj];
-        used[2 * y] = used[2 * y] - r0; used[2 * y + 1] = used[2 * y + 1] - r1;
-        sc<int>(P_cnt)[y] -= 1;
-        sc<int>(P_wait)[pj] -= 1;
-        ja[2 * pj] = ja[2 * pj] - r0; ja[2 * pj + 1] = ja[2 * pj + 1] - r1;
-        qa[2 * pq] = qa[2 * pq] - r0; qa[2 * pq + 1] = qa[2 * pq + 1] - r1;
-        sc<uint8_t>(P_p_done)[x] = 0;
-      }
-      c.log_len = i;
-    }
   }
 
   // the eviction cut at `node` (thread 0): victims in `perm` order
@@ -610,22 +403,6 @@ struct Machine {
     return vcnt > 0 && !lt2(s0, s1, init[0], init[1]);
   }
 
-  // the claimer's drf share with its request added (uniform per step)
-  __device__ T claimer_share(int j, int t) const {
-    const T* ja = sc<T>(P_job_alloc);
-    const T* tot = in<T>(P_drf_total);
-    const T* req = in<T>(P_p_req) + 2 * t;
-    return share2(ja[2 * j] + req[0], ja[2 * j + 1] + req[1], tot[0], tot[1]);
-  }
-
-  // feasibility of task t on node i (signature mask + pod-count headroom)
-  __device__ __forceinline__ bool elig(int t, int i) const {
-    int sig = in<int>(P_p_sig)[t];
-    bool e = in<uint8_t>(P_sig_mask)[(size_t)sig * d(D_N) + i];
-    if (d(D_check_pod))
-      e = e && (sc<int>(P_cnt)[i] < in<int>(P_node_max)[i] || !in<uint8_t>(P_p_has_pod)[t]);
-    return e;
-  }
 };
 
 }  // namespace ev

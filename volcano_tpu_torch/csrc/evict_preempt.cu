@@ -20,7 +20,8 @@
 // global memory (V^2 read-modify-writes a node); 65 us a walk at cfg4 on
 // an H100.
 //
-// Design:
+// Design (the cluster machinery, the register fold, the job heap, the cut
+// and the launch live in evict_cluster.cuh, shared with K10):
 // - One cluster of 16 CTAs (a non-portable cluster size, which every
 //   Hopper card runs) of 256 threads. CTA r owns the node slice [r*S,
 //   r*S + S), S = ceil(N/16), and keeps that slice's `used` and `cnt` (and
@@ -69,7 +70,7 @@
 //   length, the step budget, iters > N*V+2).
 // - Built with -DK9_PROFILE, PROF(k) marks add CTA 0 thread 0's clock
 //   between marks to phase k's counter (volcano_tpu_torch/bench/
-//   k9_profile.py reads them); otherwise they compile to nothing.
+//   kernel_profile.py reads them); otherwise they compile to nothing.
 
 // Output: the packed int32 result (the flattened [L, 3] op log then the
 // 6-wide tail) and the final state in the wrapper's scratch (the fused
@@ -78,14 +79,7 @@
 // Rounding: built with --fmad=false; every float expression keeps the
 // order of the plain PyTorch version (ops/evict_kernels.py).
 
-#include <cooperative_groups.h>
-
-#include <mutex>
-#include <type_traits>
-
-#include "evict_common.cuh"
-
-namespace cg = cooperative_groups;
+#include "evict_cluster.cuh"
 
 #ifdef K9_PROFILE
 constexpr int kProfPhases = 18;
@@ -114,19 +108,32 @@ __device__ long long k9_prof_last;
 namespace {
 
 using namespace ev;
+using namespace evc;
 
-constexpr int kCta = 256;
-constexpr int kCtaWarps = kCta / 32;
-constexpr int kCluster = 16;  // CTAs a cluster (non-portable; Hopper runs it)
 constexpr int kMaxRun = 32;   // window nodes a thread keeps as a bit mask
-constexpr int kMaxV = 256;    // V folded in registers: the buckets 16..256
-constexpr int kMaxMW = kMaxV / 64;
-constexpr int kChunk = 8;     // slots a fold chunk or a cut step reads ahead
 
 enum { M_QUEUE = 0, M_POP_JOB = 1, M_TASK = 2, M_STMT_END = 3, M_UNDER = 4, M_DONE = 5 };
 enum { RUN_STOP = 0, RUN_WALK = 1, RUN_NEXT = 2 };
 // a list entry's fold result: victim count, then flags
 constexpr int OUT_VALID = 1 << 16, OUT_AFTER = 1 << 17, OUT_UNDER = 1 << 18;
+
+// the cluster's node state in contiguous slices: `used`/`cnt` are this
+// CTA's slice arrays, a node's row lives in the slice of CTA node / S
+template <typename T>
+struct Nodes {
+  Slices sl;
+  T* used_s;
+  int* cnt_s;
+  int S;
+  __device__ T* used(int node) const {
+    int o = node / S;
+    return sl.rem(used_s, o) + 2 * (node - o * S);
+  }
+  __device__ int* cnt(int node) const {
+    int o = node / S;
+    return sl.rem(cnt_s, o) + (node - o * S);
+  }
+};
 
 // CTA 0 thread 0's order to every CTA, written into each CTA before a
 // cluster barrier
@@ -181,20 +188,6 @@ __host__ __device__ inline size_t slice_bytes(int S, int MW, int tsize) {
   return (smem_bytes(S, MW, tsize) + 15) / 16 * 16;
 }
 
-// where the CTAs' node slices live: each CTA's shared memory (stride 0),
-// or a global buffer of kCluster slices `stride` bytes apart; rem(p, o) is
-// CTA o's counterpart of this CTA's slice pointer p
-struct Slices {
-  cg::cluster_group cl;
-  long long stride;
-  int r;
-  template <typename P>
-  __device__ P* rem(P* p, int o) const {
-    if (stride == 0) return cl.map_shared_rank(p, o);
-    return reinterpret_cast<P*>(reinterpret_cast<char*>(p) + (long long)(o - r) * stride);
-  }
-};
-
 template <typename T>
 __device__ View<T> carve(unsigned char* base, int S, int MW) {
   View<T> v;
@@ -206,187 +199,6 @@ __device__ View<T> carve(unsigned char* base, int S, int MW) {
   v.circ = v.idx + S;
   v.out = v.circ + S;
   return v;
-}
-
-template <int W>
-__device__ __forceinline__ uint64_t word(const uint64_t (&m)[W], int v) {
-  uint64_t x = 0;
-#pragma unroll
-  for (int w = 0; w < W; ++w)
-    if (w == (v >> 6)) x = m[w];
-  return x;
-}
-
-template <int W>
-__device__ __forceinline__ void put(uint64_t (&m)[W], int v, bool b) {
-#pragma unroll
-  for (int w = 0; w < W; ++w)
-    if (w == (v >> 6)) m[w] = (m[w] & ~(1ull << (v & 63))) | ((uint64_t)b << (v & 63));
-}
-
-// slot v's current value of a share walk: start minus the requests of the
-// flagged slots before v that `same` joins to v, in slot order
-template <typename T, int W>
-__device__ __forceinline__ void walk_cur(const uint64_t (&flag)[W], int v, int V,
-                                         const uint8_t* same, const T* req, T& c0,
-                                         T& c1) {
-#pragma unroll
-  for (int w = 0; w < W; ++w) {
-    if (w * 64 >= v) break;
-    uint64_t m = flag[w];
-    int top = v - w * 64;
-    if (top < 64) m &= (1ull << top) - 1;
-    while (m) {
-      int v2 = w * 64 + __ffsll((long long)m) - 1;
-      m &= m - 1;
-      if (same[(size_t)v2 * V + v]) {
-        c0 = c0 - req[2 * v2];
-        c1 = c1 - req[2 * v2 + 1];
-      }
-    }
-  }
-}
-
-// the deciding tier's victim fns, read once a walk iteration (they
-// intersect, so their order does not matter)
-struct Fns {
-  bool gang, conf, drf, prop;
-};
-
-template <typename T>
-__device__ Fns fns_of(const Machine<T>& m) {
-  Fns f{false, false, false, false};
-  for (int k = 0; k < m.d(D_n_fns); ++k) {
-    const int fn = m.d(D_fn0 + k);
-    f.gang |= fn == VF_GANG;
-    f.conf |= fn == VF_CONFORMANCE;
-    f.drf |= fn == VF_DRF;
-    f.prop |= fn == VF_PROPORTION;
-  }
-  return f;
-}
-
-// node i's victim row (the deciding-tier intersection, each fn over the
-// full claimee row, walked in slot order) into vm_out; returns validate and
-// sets vcnt/under (evict_common.cuh Machine::fold_node, with its state in
-// registers). The fns read nothing of one another, so one pass over the
-// slots runs them all, each in slot order; a chunk of slots (all 16 at
-// V = 16, else kChunk) loads its rows and job state together before the
-// pass walks it.
-template <typename T, int V>
-__device__ bool fold_node(const Machine<T>& m, const Fns& fns, int i, int filt, int j,
-                          int qj, int t, T ls, int& vcnt, bool& under, uint64_t* vm_out) {
-  constexpr int W = (V + 63) / 64;
-  constexpr int VQ = V / 8;
-  constexpr int CH = V == 16 ? 16 : kChunk;
-  constexpr bool kRows = VQ <= 4;  // gang's same-job rows preloaded (V <= 32)
-  const size_t base = (size_t)i * V;
-  const uint8_t* alive = m.template sc<uint8_t>(P_alive) + base;
-  const uint8_t* valid = m.template in<uint8_t>(P_vic_valid) + base;
-  const uint8_t* conf = m.template in<uint8_t>(P_vic_conf) + base;
-  const int* vjob = m.template in<int>(P_vic_job) + base;
-  const int* vq = m.template in<int>(P_vic_queue) + base;
-  const T* req = m.template in<T>(P_vic_req) + base * 2;
-  const T* eps = m.template in<T>(P_eps);
-  const int* ready = m.template sc<int>(P_ready);
-  const int* mav = m.template in<int>(P_job_min_av);
-  const T* ja = m.template sc<T>(P_job_alloc);
-  const T* qa = m.template sc<T>(P_queue_alloc);
-  const T* des = m.template in<T>(P_queue_deserved);
-  const T* tot = m.template in<T>(P_drf_total);
-  const uint8_t* samej = fns.gang || fns.drf ? m.template in<uint8_t>(P_vic_samejob) + base * V
-                                             : nullptr;
-  const uint8_t* sameq = fns.prop ? m.template in<uint8_t>(P_vic_samequeue) + base * V : nullptr;
-  const uint64_t* rows = reinterpret_cast<const uint64_t*>(samej);
-  uint64_t claim[W], vmm[W], doit[W], used[VQ];
-#pragma unroll
-  for (int w = 0; w < W; ++w) claim[w] = vmm[w] = doit[w] = 0;
-#pragma unroll
-  for (int q = 0; q < VQ; ++q) used[q] = 0;
-  under = false;
-  vcnt = 0;
-  T s0 = T(0), s1 = T(0);
-  for (int c0 = 0; c0 < V; c0 += CH) {
-    int jv[CH], qv[CH], ma[CH], rd[CH];
-    bool cl[CH], cf[CH];
-    T r0[CH], r1[CH];
-    uint64_t sw[CH][kRows ? VQ : 1];
-#pragma unroll
-    for (int u = 0; u < CH; ++u) {
-      const int v = c0 + u;
-      jv[u] = vjob[v];
-      qv[u] = vq[v];
-      r0[u] = req[2 * v];
-      r1[u] = req[2 * v + 1];
-      cl[u] = __ldcg(alive + v) && valid[v] &&
-              (filt == 0 ? (qv[u] == qj && jv[u] != j) : filt == 1 ? jv[u] == j : qv[u] != qj);
-      cf[u] = !fns.conf || conf[v];
-    }
-#pragma unroll
-    for (int u = 0; u < CH; ++u) {
-      if (fns.gang) {
-        ma[u] = mav[jv[u]];
-        rd[u] = __ldcg(ready + jv[u]);
-        if (kRows)
-#pragma unroll
-          for (int q = 0; q < (kRows ? VQ : 1); ++q) sw[u][q] = rows[(size_t)(c0 + u) * VQ + q];
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < CH; ++u) {
-      const int v = c0 + u;
-      put(claim, v, cl[u]);
-      bool keep = cl[u] && cf[u];
-      if (fns.gang) {
-        // used[w] of the reference, one byte a slot: a nominated slot adds
-        // its same-job row (V bytes of 0/1) as words; slot v reads only the
-        // adds of the slots before it, at most v <= 255, so no byte carries
-        // into the next before it is read
-        int b = rd[u] - ma[u];
-        b = b > 0 ? b : 0;
-        uint64_t uw = 0;
-#pragma unroll
-        for (int q = 0; q < VQ; ++q)
-          if (q == (v >> 3)) uw = used[q];
-        const int used_v = (int)((uw >> ((v & 7) * 8)) & 0xff);
-        const bool nom = cl[u] && (ma[u] == 1 || used_v < b);
-        keep = keep && nom;
-        if (nom) {
-#pragma unroll
-          for (int q = 0; q < VQ; ++q)
-            used[q] += kRows ? sw[u][kRows ? q : 0] : rows[(size_t)v * VQ + q];
-        }
-      }
-      if (fns.drf) {
-        T c_0 = __ldcg(ja + 2 * jv[u]), c_1 = __ldcg(ja + 2 * jv[u] + 1);
-        walk_cur<T, W>(claim, v, V, samej, req, c_0, c_1);
-        if (cl[u] && !le2(r0[u], r1[u], c_0, c_1, eps[0], eps[1])) under = true;
-        const T rs = share2(c_0 - r0[u], c_1 - r1[u], tot[0], tot[1]);
-        const bool verdict = (ls < rs) || (fabs(ls - rs) <= T(kShareDelta));
-        keep = keep && verdict;
-      }
-      if (fns.prop) {
-        T c_0 = __ldcg(qa + 2 * qv[u]), c_1 = __ldcg(qa + 2 * qv[u] + 1);
-        walk_cur<T, W>(doit, v, V, sameq, req, c_0, c_1);
-        const bool d = cl[u] && !lt2(c_0, c_1, r0[u], r1[u]);
-        if (d && !le2(r0[u], r1[u], c_0, c_1, eps[0], eps[1])) under = true;
-        keep = keep && d &&
-               le2(des[2 * qv[u]], des[2 * qv[u] + 1], c_0 - r0[u], c_1 - r1[u], eps[0], eps[1]);
-        put(doit, v, d);
-      }
-      // victim count and slot-order request sum
-      put(vmm, v, keep);
-      if (keep) {
-        vcnt += 1;
-        s0 = s0 + r0[u];
-        s1 = s1 + r1[u];
-      }
-    }
-  }
-#pragma unroll
-  for (int w = 0; w < W; ++w) vm_out[w] = vmm[w];
-  const T* init = m.template in<T>(P_p_init) + 2 * t;
-  return vcnt > 0 && !lt2(s0, s1, init[0], init[1]);
 }
 
 // -- block reductions (every thread calls) -------------------------------------
@@ -472,42 +284,6 @@ __device__ int block_excl(int x, int* scr, int& total) {
   return before + incl - x;
 }
 
-// -- the control machine's node-state mutators (CTA 0, thread 0) ----------------
-// Machine's pipeline and discard, with used/cnt in the owning CTA
-
-template <typename T>
-struct Nodes {
-  Slices sl;
-  View<T> sm;
-  int S;
-  __device__ T* used(int node) const {
-    int o = node / S;
-    return sl.rem(sm.used, o) + 2 * (node - o * S);
-  }
-  __device__ int* cnt(int node) const {
-    int o = node / S;
-    return sl.rem(sm.cnt, o) + (node - o * S);
-  }
-};
-
-template <typename T>
-__device__ void pipeline(Machine<T>& m, const Nodes<T>& nd, int t, int node) {
-  T r0 = m.template in<T>(P_p_req)[2 * t], r1 = m.template in<T>(P_p_req)[2 * t + 1];
-  int j = m.template in<int>(P_p_job)[t];
-  int q = m.template in<int>(P_job_queue)[j];
-  T* u = nd.used(node);
-  T* ja = m.template sc<T>(P_job_alloc);
-  T* qa = m.template sc<T>(P_queue_alloc);
-  u[0] = u[0] + r0;
-  u[1] = u[1] + r1;
-  *nd.cnt(node) += 1;
-  m.template sc<int>(P_wait)[j] += 1;
-  ja[2 * j] = ja[2 * j] + r0; ja[2 * j + 1] = ja[2 * j + 1] + r1;
-  qa[2 * q] = qa[2 * q] + r0; qa[2 * q + 1] = qa[2 * q + 1] + r1;
-  m.template sc<uint8_t>(P_p_done)[t] = 1;
-  m.log_append(OP_PIPELINE, t, node, true);
-}
-
 // Statement.discard: the open segment's ops undone in REVERSE order by
 // inverse float ops
 template <typename T>
@@ -543,145 +319,6 @@ __device__ void discard(Machine<T>& m, const Nodes<T>& nd, int stmt_start) {
     }
     c.log_len = i;
   }
-}
-
-// job_order_cmp as less(x, y) (Machine::job_less), with every key of both
-// jobs loaded before the first compare: one memory round trip a compare
-template <typename T>
-__device__ bool job_less(const Machine<T>& m, int x, int y) {
-  const int* prio = m.template in<int>(P_job_prio);
-  const int* ready = m.template sc<int>(P_ready);
-  const int* mav = m.template in<int>(P_job_min_av);
-  const int* tie = m.template in<int>(P_job_tie);
-  const T* ja = m.template sc<T>(P_job_alloc);
-  const T* tot = m.template in<T>(P_drf_total);
-  const int px = prio[x], py = prio[y], rx = ready[x], ry = ready[y];
-  const int mx = mav[x], my = mav[y], tx = tie[x], ty = tie[y];
-  const T ax0 = ja[2 * x], ax1 = ja[2 * x + 1], ay0 = ja[2 * y], ay1 = ja[2 * y + 1];
-  const T t0 = tot[0], t1 = tot[1];
-  for (int k = 0; k < m.d(D_n_keys); ++k) {
-    const int key = m.d(D_key0 + k);
-    if (key == KEY_PRIORITY) {
-      if (px != py) return px > py;
-    } else if (key == KEY_GANG) {
-      const bool gx = rx >= mx, gy = ry >= my;
-      if (gx != gy) return !gx && gy;
-    } else if (key == KEY_DRF) {
-      const T sx = share2(ax0, ax1, t0, t1), sy = share2(ay0, ay1, t0, t1);
-      if (sx != sy) return sx < sy;
-    }
-  }
-  return tx < ty;
-}
-
-// heapq's exact heappop / heappush sift order over a job heap row
-// (Machine::heap_pop / heap_push with the job keys)
-template <typename T>
-__device__ int heap_pop(const Machine<T>& m, int* row, int* size) {
-  const int root = row[0];
-  const int last = row[*size - 1];
-  const int nsize = *size - 1;
-  if (nsize > 0) {
-    int pos = 0;
-    // each level reads both candidates' children with the compare's keys
-    int lc = 1 < nsize ? row[1] : 0, rc = 2 < nsize ? row[2] : 0;
-    while (2 * pos + 1 < nsize) {
-      const int left = 2 * pos + 1, right = left + 1;
-      const int a1 = 2 * left + 1, b1 = 2 * right + 1;
-      const int la = a1 < nsize ? row[a1] : 0, lb = a1 + 1 < nsize ? row[a1 + 1] : 0;
-      const int ra = b1 < nsize ? row[b1] : 0, rb = b1 + 1 < nsize ? row[b1 + 1] : 0;
-      int child = left, cv = lc;
-      if (right < nsize && !job_less(m, lc, rc)) {
-        child = right;
-        cv = rc;
-        lc = ra;
-        rc = rb;
-      } else {
-        lc = la;
-        rc = lb;
-      }
-      row[pos] = cv;
-      pos = child;
-    }
-    row[pos] = last;
-    while (pos > 0 && job_less(m, last, row[(pos - 1) / 2])) {
-      const int parent = (pos - 1) / 2;
-      row[pos] = row[parent];
-      pos = parent;
-    }
-    row[pos] = last;
-  }
-  *size = nsize;
-  return root;
-}
-
-template <typename T>
-__device__ void heap_push(const Machine<T>& m, int* row, int* size, int item) {
-  int pos = *size;
-  row[pos] = item;
-  while (pos > 0 && job_less(m, item, row[(pos - 1) / 2])) {
-    const int parent = (pos - 1) / 2;
-    row[pos] = row[parent];
-    pos = parent;
-  }
-  row[pos] = item;
-  *size = *size + 1;
-}
-
-// Machine::evict_slot, the victim's row and its job's and queue's state
-// loaded before the first store; returns the victim's request
-template <typename T>
-__device__ void evict_slot(Machine<T>& m, int node, int slot, bool active, T& r0, T& r1) {
-  if (active) {
-    const size_t k = (size_t)node * m.d(D_V) + slot;
-    const int jv = m.template in<int>(P_vic_job)[k], qv = m.template in<int>(P_vic_queue)[k];
-    r0 = m.template in<T>(P_vic_req)[2 * k];
-    r1 = m.template in<T>(P_vic_req)[2 * k + 1];
-    int* ready = m.template sc<int>(P_ready);
-    T* ja = m.template sc<T>(P_job_alloc);
-    T* qa = m.template sc<T>(P_queue_alloc);
-    const int rd = ready[jv];
-    const T a0 = ja[2 * jv], a1 = ja[2 * jv + 1], b0 = qa[2 * qv], b1 = qa[2 * qv + 1];
-    m.template sc<uint8_t>(P_alive)[k] = 0;
-    ready[jv] = rd - 1;
-    ja[2 * jv] = a0 - r0;
-    ja[2 * jv + 1] = a1 - r1;
-    qa[2 * qv] = b0 - r0;
-    qa[2 * qv + 1] = b1 - r1;
-  }
-  m.log_append(OP_EVICT, node, slot, active);
-}
-
-// the eviction cut at `node`: victims in reversed task order (vic_cut_perm),
-// those of the mask `vm` evicted one by one until the init request is
-// covered (Machine::cut with the mask from the fold; the permutation read
-// a chunk at a time ahead of the stores)
-template <typename T>
-__device__ bool cut(Machine<T>& m, int t, int node, const uint64_t* vm) {
-  const int V = m.d(D_V);
-  const int* perm = m.template in<int>(P_vic_cut_perm) + (size_t)node * V;
-  const T* eps = m.template in<T>(P_eps);
-  const T n0 = m.template in<T>(P_p_init)[2 * t], n1 = m.template in<T>(P_p_init)[2 * t + 1];
-  T g0 = T(0), g1 = T(0);
-  bool covered = false;
-  for (int p0 = 0; p0 < V; p0 += kChunk) {
-    int pv[kChunk];
-#pragma unroll
-    for (int u = 0; u < kChunk; ++u) pv[u] = perm[p0 + u];
-#pragma unroll
-    for (int u = 0; u < kChunk; ++u) {
-      const int slot = pv[u] > 0 ? pv[u] : 0;
-      const bool selp = pv[u] >= 0 && ((vm[slot >> 6] >> (slot & 63)) & 1) && !covered;
-      T r0, r1;
-      evict_slot(m, node, slot, selp, r0, r1);
-      if (selp) {
-        g0 = g0 + r0;
-        g1 = g1 + r1;
-        covered = le2(n0, n1, g0, g1, eps[0], eps[1]);
-      }
-    }
-  }
-  return covered;
 }
 
 // one control step of the mode machine (not M_TASK)
@@ -743,11 +380,6 @@ __device__ void control_step(Machine<T>& m, const Nodes<T>& nd) {
   }
 }
 
-template <typename T>
-__device__ void push(const cg::cluster_group& cl, Cmd<T>* cmd, const Cmd<T>& v) {
-  for (int r = 0; r < (int)cl.num_blocks(); ++r) *cl.map_shared_rank(cmd, r) = v;
-}
-
 // CTA 0 thread 0, between cluster barriers: ends the walk iteration that just
 // ran (its best and visited sums are in the CTAs' Pub), then runs control
 // steps until a walk starts or the machine stops, and orders every CTA
@@ -782,7 +414,7 @@ __device__ void decide(Machine<T>& m, const Nodes<T>& nd, Pub<T>* pub, const Loc
       if constexpr (V0 == 0)
         covered = m.cut(c.t, gb.i, m.template in<int>(P_vic_cut_perm) + (size_t)gb.i * V);
       else
-        covered = cut(m, c.t, gb.i, pub->gvm);
+        covered = cut<true>(m, c.t, gb.i, pub->gvm);
       PROF(17);
       if (covered) pipeline(m, nd, c.t, gb.i);
     }
@@ -1177,13 +809,12 @@ __global__ void __launch_bounds__(kCta, 1)
   const View<T> sm = carve<T>(spill ? spill + r * stride : dyn, S, MW);
   const Slices sl{cl, stride, r};
   __shared__ Ctl<T> ctl;
-  __shared__ Red<T> red;
   __shared__ Cmd<T> cmd;
   __shared__ Pub<T> pub;
   __shared__ Loc<T> loc;
   __shared__ Best<T> bscr[kCtaWarps];
   __shared__ int sv[kCtaWarps], sf[kCtaWarps];
-  Machine<T> m{args, ctl, red, tid};
+  Machine<T> m{args, ctl, tid};
 
   // initial state: the global scratch over the cluster's threads, the
   // slice's used/cnt into its slice; whether the real slots are the prefix
@@ -1233,7 +864,7 @@ __global__ void __launch_bounds__(kCta, 1)
   bool prefix = true;
   for (int q = 0; q < C; ++q) prefix &= !cl.map_shared_rank(&pub, q)->bad;
 
-  const Nodes<T> nd{sl, sm, S};
+  const Nodes<T> nd{sl, sm.used, sm.cnt, S};
   const int budget = 8 * (m.d(D_T) + m.d(D_J) + m.d(D_QP) + m.d(D_JU)) + 64;
   for (;;) {
     PROF(0);
@@ -1258,95 +889,18 @@ __global__ void __launch_bounds__(kCta, 1)
   if (r == 0) m.write_tail();
 }
 
-// a launch's layout at N nodes: each CTA's dynamic shared memory, or, where
-// the slices do not fit there, the bytes of their global buffer; `ok`
-// where the card runs the cluster
-struct Plan {
-  int ok;
-  size_t smem, spill;
-};
-
-// planned once a (dtype, V, N): the kernel's attributes are set at the
-// first plan, a cluster-occupancy query is made at each new N
+// K9's kernel at (T, V): its plan at N nodes and its launch
 template <typename T, int V>
-Plan plan(int N) {
-  static std::mutex mu;
-  static int max_dyn = -1, last_n = -1;
-  static Plan last;
-  std::lock_guard<std::mutex> lock(mu);
-  if (N == last_n) return last;
-  auto kernel = preempt_cluster<T, V>;
-  if (max_dyn < 0) {
-    int dev = 0, optin = 0;
-    cudaFuncAttributes fa;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess ||
-        cudaFuncGetAttributes(&fa, kernel) != cudaSuccess) {
-      cudaGetLastError();
-      return Plan{0, 0, 0};
-    }
-    max_dyn = optin - (int)fa.sharedSizeBytes;
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, max_dyn);
-  }
-  const size_t bytes = slice_bytes((N + kCluster - 1) / kCluster, (V + 63) / 64, (int)sizeof(T));
-  Plan p{0, 0, 0};
-  if (bytes <= (size_t)max_dyn) p.smem = bytes;
-  else p.spill = bytes * kCluster;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(kCluster, 1, 1);
-  cfg.blockDim = dim3(kCta, 1, 1);
-  cfg.dynamicSmemBytes = p.smem;
-  cudaLaunchAttribute at[1];
-  at[0].id = cudaLaunchAttributeClusterDimension;
-  at[0].val.clusterDim.x = kCluster;
-  at[0].val.clusterDim.y = 1;
-  at[0].val.clusterDim.z = 1;
-  cfg.attrs = at;
-  cfg.numAttrs = 1;
-  int clusters = 0;
-  if (cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg) != cudaSuccess) cudaGetLastError();
-  p.ok = clusters >= 1;
-  last_n = N;
-  last = p;
-  return p;
+Plan plan_v(int N) {
+  return plan<Args<T>, preempt_cluster<T, V>>(
+      slice_bytes((N + kCluster - 1) / kCluster, (V + 63) / 64, (int)sizeof(T)));
 }
 
 template <typename T, int V>
 int launch_v(Args<T>& a, void* stream) {
-  const Plan p = plan<T, V>(a.d[D_N]);
-  if (!p.ok) return (int)cudaErrorInvalidConfiguration;
-  if (p.spill == 0) a.p[P_cpos] = nullptr;
-  else if (a.p[P_cpos] == nullptr) return (int)cudaErrorInvalidValue;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(kCluster, 1, 1);
-  cfg.blockDim = dim3(kCta, 1, 1);
-  cfg.dynamicSmemBytes = p.smem;
-  cfg.stream = (cudaStream_t)stream;
-  cudaLaunchAttribute at[1];
-  at[0].id = cudaLaunchAttributeClusterDimension;
-  at[0].val.clusterDim.x = kCluster;
-  at[0].val.clusterDim.y = 1;
-  at[0].val.clusterDim.z = 1;
-  cfg.attrs = at;
-  cfg.numAttrs = 1;
-  cudaError_t e = cudaLaunchKernelEx(&cfg, preempt_cluster<T, V>, a);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
-}
-
-// V's kernel: the encoder's buckets 16..256 fold in registers, any other
-// width from global scratch
-template <typename F>
-auto by_v(int V, F f) {
-  switch (V) {
-    case 16: return f(std::integral_constant<int, 16>());
-    case 32: return f(std::integral_constant<int, 32>());
-    case 64: return f(std::integral_constant<int, 64>());
-    case 128: return f(std::integral_constant<int, 128>());
-    case 256: return f(std::integral_constant<int, 256>());
-  }
-  return f(std::integral_constant<int, 0>());
+  return launch_cluster<Args<T>, preempt_cluster<T, V>>(
+      a, slice_bytes((a.d[D_N] + kCluster - 1) / kCluster, (V + 63) / 64, (int)sizeof(T)),
+      P_cpos, stream);
 }
 
 template <typename T>
@@ -1368,8 +922,8 @@ EV_EXPORT_NAMES
 // out[2] the bytes of the global buffer the slices need where they do not
 // fit shared memory (the caller passes it as `cpos`), else 0
 extern "C" int evict_preempt_plan(int N, int V, int f64, long long* out) {
-  const Plan p = f64 ? by_v(V, [&](auto v) { return plan<double, decltype(v)::value>(N); })
-                     : by_v(V, [&](auto v) { return plan<float, decltype(v)::value>(N); });
+  const Plan p = f64 ? by_v(V, [&](auto v) { return plan_v<double, decltype(v)::value>(N); })
+                     : by_v(V, [&](auto v) { return plan_v<float, decltype(v)::value>(N); });
   out[0] = p.ok ? kCluster : 0;
   out[1] = (long long)p.smem;
   out[2] = (long long)p.spill;

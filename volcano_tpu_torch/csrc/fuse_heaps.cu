@@ -67,9 +67,8 @@ __global__ void __launch_bounds__(kFhThreads)
     fuse_heaps_kernel(const __grid_constant__ FhArgs f,
                       const __grid_constant__ Args<T> keys, int reclaim) {
   __shared__ Ctl<T> ctl;
-  __shared__ Red<T> red;
   const int tid = threadIdx.x;
-  Machine<T> m{keys, ctl, red, tid};
+  Machine<T> m{keys, ctl, tid};
   const int J = f.d[G_J], ROWS = f.d[G_ROWS], JCAP = f.d[G_JCAP];
   int* heap = fp<int>(f, F_heap);
   int* hsize = fp<int>(f, F_hsize);

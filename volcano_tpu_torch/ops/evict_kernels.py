@@ -981,9 +981,20 @@ def _check_order(lib) -> None:
             raise RuntimeError(f"evict kernel argument order mismatch: {got}")
 
 
-# K9's victim widths folded in registers (the encoder's buckets up to 256);
-# a wider row folds from global scratch rows
+# K9's and K10's victim widths folded in registers (the encoder's buckets
+# up to 256); a wider row folds from global scratch rows
 K9_V = (16, 32, 64, 128, 256)
+
+
+def _layout(kind: str, n: int, v: int, dtype) -> tuple:
+    from volcano_tpu_torch import _build
+
+    fn = getattr(_build.library(f"evict_{kind}"), f"evict_{kind}_plan")
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_longlong * 3)()
+    fn(n, v, int(dtype == torch.float64), out)
+    return out[0], out[1], out[2]
 
 
 @functools.lru_cache(maxsize=None)
@@ -992,14 +1003,14 @@ def preempt_layout(n: int, v: int, dtype) -> tuple:
     0 where the card does not run it), each CTA's dynamic shared-memory
     bytes, and the bytes of the global buffer that holds the node slices
     where they do not fit shared memory (else 0). Needs the card."""
-    from volcano_tpu_torch import _build
+    return _layout("preempt", n, v, dtype)
 
-    fn = _build.library("evict_preempt").evict_preempt_plan
-    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    out = (ctypes.c_longlong * 3)()
-    fn(n, v, int(dtype == torch.float64), out)
-    return out[0], out[1], out[2]
+
+@functools.lru_cache(maxsize=None)
+def reclaim_layout(n: int, v: int, dtype) -> tuple:
+    """K10's launch at N nodes and V victim slots, as ``preempt_layout``
+    gives K9's. Needs the card."""
+    return _layout("reclaim", n, v, dtype)
 
 
 def _machine_cuda(kind: str, spec: EvictSpec, enc,
@@ -1082,23 +1093,18 @@ def _machine_cuda(kind: str, spec: EvictSpec, enc,
         ptr=empty(j_total, i32), heap=empty((qp, jcap), i32), hsize=empty(qp, i32),
         qheap=empty(max(qh, 1), i32), out=empty(log_rows * 3 + TAIL, i32),
         p_done=empty(t_total, torch.bool))
-    if not preempt:
-        # K10's node-axis scratch; K9 keeps its window and folds in shared
-        # memory and registers
-        scratch.update(
-            score=empty(n, dt), circ=empty(n, i32), flags=empty(n, torch.uint8),
-            vcnt=empty(n, i32), under=empty(n, torch.uint8),
-            vm=empty((n, v), torch.uint8), iwork=empty((n, v), i32),
-            fwork=empty((n, v, 2), dt), cpos=empty(n, i32))
+    if v in K9_V:
+        if not preempt:
+            # K10: a validating node's victim mask, one word a 64 slots
+            scratch["vm"] = empty((n, (v + 63) // 64), torch.int64)
     else:
-        if v not in K9_V:
-            # a row wider than the register fold's: its fold rows
-            scratch.update(vm=empty((n, v), torch.uint8), iwork=empty((n, v), i32),
-                           fwork=empty((n, v, 2), dt))
-        spill = preempt_layout(n, v, dt)[2]
-        if spill:
-            # the node slices, where they do not fit shared memory
-            scratch["cpos"] = empty(spill, torch.uint8)
+        # a row wider than the register fold's: its fold rows
+        scratch.update(vm=empty((n, v), torch.uint8), iwork=empty((n, v), i32),
+                       fwork=empty((n, v, 2), dt))
+    spill = (preempt_layout if preempt else reclaim_layout)(n, v, dt)[2]
+    if spill:
+        # the node slices, where they do not fit shared memory
+        scratch["cpos"] = empty(spill, torch.uint8)
     dims = dict(
         N=n, V=v, T=t_total, J=j_total, Q=q_total, QP=qp, JCAP=jcap,
         L=log_rows, JU=ju, QH=qh, check_pod=int(spec.check_pod_count),
@@ -1116,7 +1122,7 @@ def _machine_cuda(kind: str, spec: EvictSpec, enc,
     name = f"evict_{kind}"
     lib = _build.library(name)
     _check_order(lib)
-    if preempt and "vic_samejob" in args and args["vic_samejob"].data_ptr() % 8:
+    if "vic_samejob" in args and args["vic_samejob"].data_ptr() % 8:
         # the gang fold reads a same-job row as 8-byte words; a staged view
         # inside a packed buffer may start off that alignment
         args["vic_samejob"] = args["vic_samejob"].clone()
