@@ -85,7 +85,8 @@ Phases, each failing the run on any error:
    run, the fused K9 on the first fused cfg4 run's and the fused K10 on
    the first fused reclaim-path run's; each held against its plain
    version with torch.equal (the packed int32 result, K13's every output,
-   the fused K9's every carry tensor; float32 state), and timed; K9's and
+   the fused K9's every carry tensor; float32 state), and timed (K13 also
+   its wrapper's host time a call, ``host_ms``); K9's and
    K10's shape lines give their cluster's CTAs, a CTA's shared memory
    (static from ptxas -v, dynamic from the launcher) and microseconds a
    walk (K9) or a fold (K10).
@@ -118,7 +119,9 @@ Phases, each failing the run on any error:
    tie-heavy case (fulls > 0), a gang strip and a zero-weight case (a
    window of +0.0 ties), and K8 scatter_rows on the cfg5 replica's node
    family (1, 16, 100, 256 rows) and the lane's columns, each held
-   against its plain version with torch.equal and timed, K8 beside
+   against its plain version with torch.equal and timed (K14 also its
+   wrapper's host time a call, ``host_ms``: CUDA events over back-to-back
+   calls read the host's time where it is the longer), K8 beside
    index_copy_ from sources on the card (library_ms) and from one pinned
    staging copy a call (library_staged_ms, the wrapper's own work);
 11. parity mode (K15): (a) cfg2 at full scale in float32, one parity
@@ -214,6 +217,19 @@ def time_ms(fn, reps=20, warmup=3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def host_ms(fn, reps=20) -> float:
+    """A wrapper's host time a call: ``reps`` calls with no sync between
+    (the card runs behind), one sync outside the clock."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3 / reps
 
 
 def nbytes(*ts) -> int:
@@ -738,9 +754,11 @@ def finish_record(rec):
     log(f"kernel {rec['name']} [{rec['shape']}]: equal to plain; "
         f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
         f"bound {rec['bound_ms']:.5f} ms ({rec['bound_by']})")
-    print(json.dumps({"kernel": rec["name"], "shape": rec["shape"],
-                      "ms": rec["ms"], "plain_ms": rec["plain_ms"],
-                      "library_ms": rec["library_ms"]}), flush=True)
+    line = {"kernel": rec["name"], "shape": rec["shape"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "library_ms": rec["library_ms"]}
+    if "host_ms" in rec:
+        line["host_ms"] = rec["host_ms"]    # the wrapper's host time a call
+    print(json.dumps(line), flush=True)
 
 
 def capture_evict():
@@ -948,6 +966,7 @@ def fused_kernel_phase(captured):
             for k in want:
                 same(got[k], want[k], f"{name} ({src}) {k}")
             ms = time_ms(lambda: EK.fuse_heaps(kind, spec, enc, st, *args, **kw))
+            wrapper_ms = host_ms(lambda: EK.fuse_heaps(kind, spec, enc, st, *args, **kw))
             used = [st["ready"], st["job_alloc"], st["live_job"], enc["job_prio"],
                     enc["job_min_av"], enc["job_tie"]]
             if kind == "preempt":
@@ -965,7 +984,8 @@ def fused_kernel_phase(captured):
                 source="volcano_tpu_torch/csrc/fuse_heaps.cu",
                 replaces="volcano_tpu/ops/session_fuse.py:" + (
                     "196" if kind == "preempt" else "268"),
-                max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
+                max_abs_err=0.0, ms=ms, host_ms=wrapper_ms, plain_ms=plain_ms,
+                library_ms=None,
                 bytes=nbytes(*used) + sum(nbytes(t) for t in got.values()),
                 ops=ops, dtype=st["job_alloc"].dtype, path=src,
                 shape=(f"rows={got['heap'].shape[0]} JCAP={got['heap'].shape[1]} "
@@ -2667,6 +2687,7 @@ def express_kernel_phase(captured):
             if not int(loose[-1]) > tail[1]:
                 raise AssertionError(f"{name}: nothing stripped ({loose[-1]} vs {tail[1]})")
         ms = time_ms(lambda: P.solve_express(spec, *args))
+        wrapper_ms = host_ms(lambda: P.solve_express(spec, *args))
         n = args[0].shape[0]
         w = spec.window_k
         fulls = tail[0]
@@ -2675,7 +2696,7 @@ def express_kernel_phase(captured):
             name=name, kernel="express_place", route="cuda", launch_path="express",
             source="volcano_tpu_torch/csrc/express_place.cu",
             replaces="volcano_tpu/express/place.py:94", max_abs_err=0.0,
-            ms=ms, plain_ms=plain_ms, library_ms=None,
+            ms=ms, host_ms=wrapper_ms, plain_ms=plain_ms, library_ms=None,
             bytes=nbytes(*args) + nbytes(got), ops=scored * (SCORE_OPS + 6),
             dtype=args[0].dtype,
             shape=f"{what}: N={n} tb={spec.tb} W={w} valid={valid} "

@@ -5,7 +5,13 @@ K2 on crafted rows: signed zeros either way round, all tied, all -inf,
 -inf ties ahead of a feasible tail, last-bit neighbours; N not a power of
 two; k = N/2, k = 1 and k = N; cfg5's shape (K=16, N=10000, k=1024: a row
 spread over a cluster of CTAs) and cfg6's (K=512, N=1000: one CTA a row);
-float32 and float64. K14 on a batch whose window holds only zero scores.
+float32 and float64. K14 on a batch whose window holds only zero scores,
+on node axes past its shared memory and not a multiple of its clusters,
+in float64, with no window, with pad rows between valid ones, with no
+feasible node, with ties across the window's boundary, and on gangs it
+strips. K13 on the carried states of fused cfg4 sessions (0.05 and full
+scale), of a ten-queue cluster, and on push lists larger than its shared
+memory.
 K9 on the preempt machines of small cfg4 and reclaim-path sessions,
 per-action and fused (the packed result and every carry tensor); on real
 slots laid out other than as a prefix; on nodes of more than 256 victims;
@@ -194,6 +200,127 @@ def test_express_place_zero_window(dt):
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert int(got[spec.tb]) > 0       # zero ties never prove coverage
+
+
+def express_batch(dt, n=10000, tb=16, tasks=12, window_k=64, seed=0, valid=None,
+                  ok_p=0.85, shapes=3, gang=1):
+    """An express batch of ``tasks`` one-pod jobs (``gang`` tasks a job, each
+    job needing all of them) on ``n`` nodes of ``shapes`` shapes (few shapes:
+    many equal scores), weights (1, 1); ``valid`` the valid rows (default
+    the first ``tasks``)."""
+    from volcano_tpu_torch.express import place as tplace
+
+    rng = np.random.default_rng(seed)
+    gi, mi = float(2 ** 30), float(2 ** 20)
+    cpus = rng.choice([4000.0, 8000.0, 16000.0][:shapes], n)
+    alloc = np.stack([cpus, cpus / 1000.0 * 2 * gi], 1)
+    idle = alloc - np.stack([rng.integers(0, 4, n) * 500.0,
+                             rng.integers(0, 4, n) * 512 * mi], 1)
+    rows = np.arange(tasks) if valid is None else np.asarray(valid)
+    jobs = (np.arange(len(rows)) // gang).astype(np.int32)
+    jb = tplace.task_bucket(int(jobs.max()) + 1)
+    req = np.zeros((tb, 2))
+    req[rows] = np.stack([rng.choice([100.0, 250.0, 500.0], len(rows)),
+                          rng.choice([128.0, 256.0, 512.0], len(rows)) * mi], 1)
+    vmask = np.zeros(tb, bool)
+    vmask[rows] = True
+    task_job = np.zeros(tb, np.int32)
+    task_job[rows] = jobs
+    job_need = np.full(jb, 2 ** 31 - 1, np.int32)
+    job_need[:int(jobs.max()) + 1] = gang
+    arrays = (idle, alloc, rng.integers(0, 4, n).astype(np.int32),
+              rng.random(n) < ok_p, np.full(n, 110, np.int32), req.copy(), req,
+              req[:, 0].copy(), req[:, 1].copy(), vmask, task_job,
+              np.ones(tb, bool), job_need, np.ones(2))
+    out = []
+    for a in arrays:
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        out.append((t.to(dt) if t.dtype == torch.float64 else t).cuda())
+    return tplace.ExpressSpec(tb=tb, jb=jb, window_k=window_k), out
+
+
+def _same_express(spec, args):
+    from volcano_tpu_torch.express import place as tplace
+
+    got = tplace.solve_express(spec, *args)
+    want = tplace.solve_express_plain(spec, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), (got.tolist(), want.tolist())
+    return got
+
+
+# (id, dtype, batch keywords)
+EXPRESS_CASES = [
+    ("f32-10000", torch.float32, {}),
+    ("f64-10000", torch.float64, {}),
+    ("window-0", torch.float32, dict(n=600, window_k=0)),
+    ("pads-64", torch.float32, dict(tb=64, window_k=256, valid=list(range(0, 64, 3)))),
+    ("n-10007", torch.float32, dict(n=10007, seed=3)),
+    ("n-999", torch.float64, dict(n=999, tb=32, tasks=30, window_k=128, seed=4)),
+    ("n-5000", torch.float32, dict(n=5000, tasks=16, seed=5)),
+    ("gangs", torch.float32, dict(n=40, tb=64, tasks=64, window_k=0, gang=4, seed=6)),
+]
+
+
+@pytest.mark.parametrize("case", EXPRESS_CASES, ids=[c[0] for c in EXPRESS_CASES])
+def test_express_place_matches_plain(case):
+    _cuda()
+    _, dt, kw = case
+    spec, args = express_batch(dt, **kw)
+    got = _same_express(spec, args)
+    assert int(got[-1]) > 0                       # something placed
+
+
+@pytest.mark.parametrize("dt", DTYPES, ids=["float32", "float64"])
+def test_express_place_past_shared_memory(dt):
+    """A node axis whose window slices do not fit a CTA's shared memory
+    (64 task rows: four CTAs a row) takes the global-scratch path."""
+    _cuda()
+    from volcano_tpu_torch import _build
+    from volcano_tpu_torch.express import place as tplace
+
+    n = 240_000 if dt == torch.float32 else 120_000
+    plan = (__import__("ctypes").c_longlong * 3)()
+    lib = _build.library("express_place")
+    tplace._lib_fns(lib)[2](n, 64, 256, int(dt == torch.float64), plan)
+    assert plan[0] > 0 and plan[1] == 4 and plan[2] == 16
+    spec, args = express_batch(dt, n=n, tb=64, tasks=64, window_k=256, seed=7)
+    _same_express(spec, args)
+
+
+def test_express_place_no_feasible_node():
+    """Every score row all -inf (no node ok): every task deferred, every
+    step a full sweep on node 0."""
+    _cuda()
+    spec, args = express_batch(torch.float32, ok_p=0.0)
+    got = _same_express(spec, args)
+    assert (got[:spec.tb] == -1).all() and int(got[spec.tb]) == 12
+
+
+def test_express_place_ties_across_the_window():
+    """One node shape, one request: the window's last score equals scores
+    outside it, so no step is covered and each sweeps."""
+    _cuda()
+    spec, args = express_batch(torch.float32, shapes=1, seed=8)
+    args[0] = args[1].clone()                    # every node idle
+    args[6][:12] = args[6][0].clone()            # one request
+    args[5][:12] = args[6][0].clone()
+    args[7][:12] = args[6][0, 0]
+    args[8][:12] = args[6][0, 1]
+    got = _same_express(spec, args)
+    assert int(got[spec.tb]) == 12
+
+
+def test_express_place_one_launch_a_call():
+    _cuda()
+    from volcano_tpu_torch import device as devmod
+    from volcano_tpu_torch.express import place as tplace
+
+    spec, args = express_batch(torch.float32)
+    before = devmod.LAUNCHES["express_place"]
+    tplace.solve_express(spec, *args)
+    tplace.solve_express(spec, *args)
+    assert devmod.LAUNCHES["express_place"] == before + 2
 
 
 # -- K9: the preempt machine on a thread-block cluster --------------------------
@@ -680,3 +807,161 @@ def test_parity_scan_many_namespaces_and_queues():
     spec, enc, rr0, ntf = parity_inputs(wide_visit_cluster(), TIERS)
     assert enc["ns_active0"].shape[0] > 32 and enc["queue_deserved"].shape[0] > 32
     _same_parity(spec, enc, rr0, ntf)
+
+
+# -- K13: the fused chain's heap rebuilds ----------------------------------------
+
+
+def fused_heap_calls(cache, tiers, dtype="float32"):
+    """K13's calls of a fused session on ``cache`` (allocate, backfill,
+    preempt, reclaim on the card): {kind: (spec, enc, st, args, kwargs)}."""
+    import os
+
+    from volcano_tpu_torch.bench.clusters import make_tiers
+    from volcano_tpu_torch.ops import evict_kernels as EK
+    from volcano_tpu_torch.scheduler import framework
+    import volcano_tpu_torch.scheduler.actions  # noqa: F401
+    import volcano_tpu_torch.scheduler.plugins  # noqa: F401
+
+    seen = {}
+    real = EK.fuse_heaps
+
+    def keep(kind, spec, enc, st, *args, **kw):
+        seen.setdefault(kind, (spec, {k: v.clone() for k, v in enc.items()},
+                               {k: v.clone() for k, v in st.items()}, args, kw))
+        return real(kind, spec, enc, st, *args, **kw)
+
+    prev = os.environ.get("VOLCANO_TPU_FUSE")
+    os.environ["VOLCANO_TPU_FUSE"] = "1"
+    EK.fuse_heaps = keep
+    try:
+        ssn = framework.open_session(cache, make_tiers(["tpuscore"], *tiers, arguments={
+            "tpuscore": {"tpuscore.mode": "rounds", "tpuscore.device": "cuda",
+                         "tpuscore.dtype": dtype}}))
+        try:
+            framework.run_actions(ssn, ["allocate", "backfill", "preempt", "reclaim"])
+        finally:
+            framework.close_session(ssn)
+    finally:
+        EK.fuse_heaps = real
+        if prev is None:
+            os.environ.pop("VOLCANO_TPU_FUSE", None)
+        else:
+            os.environ["VOLCANO_TPU_FUSE"] = prev
+    return seen
+
+
+def _same_heaps(kind, spec, enc, st, args, kw):
+    from volcano_tpu_torch.ops import evict_kernels as EK
+
+    got = EK.fuse_heaps(kind, spec, enc, st, *args, **kw)
+    want = EK.fuse_heaps_plain(kind, spec, enc, st, *args, **kw)
+    torch.cuda.synchronize()
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert torch.equal(got[k], want[k]), (kind, k, (got[k] != want[k]).nonzero()[:8].tolist())
+    return got
+
+
+@pytest.mark.parametrize("scale", [0.05, 1.0])
+def test_fuse_heaps_cfg4_matches_plain(scale):
+    """Both K13 entries on the carried state of a fused cfg4 session."""
+    _cuda()
+    from volcano_tpu_torch.bench.clusters import CONFIGS, build_config
+
+    cache = build_config(4, scale)[0]
+    calls = fused_heap_calls(cache, CONFIGS[4].tiers)
+    assert sorted(calls) == ["preempt", "reclaim"]
+    got = _same_heaps("preempt", *calls["preempt"])
+    assert int(got["hsize"].sum()) > 0
+    _same_heaps("reclaim", *calls["reclaim"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("tiers", TIER_SETS, ids=["cfg4", "prop", "drf"])
+def test_fuse_heaps_ten_queues_matches_plain(tiers, dtype):
+    """Both K13 entries on a fused session of ten queues: pushes in many
+    rows, the queue heap's order at the carried queue shares."""
+    _cuda()
+    calls = fused_heap_calls(overcommit_cluster(13, nodes=12, running_jobs=40,
+                                                queues=10, hi_jobs=12), tiers, dtype)
+    got = _same_heaps("preempt", *calls["preempt"])
+    assert int((got["hsize"] > 0).sum()) > 1
+    _same_heaps("reclaim", *calls["reclaim"])
+
+
+def synthetic_heap_call(kind, dt, jobs=20000, rows=6, seed=0):
+    """K13's inputs with a push list of about 0.9 x ``jobs`` pushes, past
+    the pushes a CTA's shared memory holds: random keys (few priorities,
+    equal shares, ready on both sides of min_available), every job in the
+    push order once."""
+    from volcano_tpu_torch.ops import evict as tevict
+
+    rng = np.random.default_rng(seed)
+    dev = "cuda"
+
+    def t(a, dtype=None):
+        x = torch.from_numpy(np.ascontiguousarray(a))
+        return (x.to(dtype) if dtype is not None else x).to(dev)
+
+    n, v = 64, 4
+    min_av = rng.integers(1, 4, jobs).astype(np.int32)
+    enc = dict(
+        job_prio=t(rng.integers(0, 3, jobs).astype(np.int32)),
+        job_min_av=t(min_av),
+        job_tie=t(rng.permutation(jobs).astype(np.int32)),
+        drf_total=t(np.array([64000.0, 0.0]), dt),
+        queue_deserved=t(rng.integers(0, 3, (rows, 2)) * 1000.0, dt),
+        queue_tie=t(rng.permutation(rows).astype(np.int32)),
+        f_push_jobs=t(np.where(rng.random(jobs) < 0.02, -1,
+                               rng.permutation(jobs)).astype(np.int32)),
+        f_push_row=t(rng.integers(0, rows, jobs).astype(np.int32)),
+        f_ev_jobs=t(np.where(rng.random(jobs) < 0.02, -1,
+                             rng.permutation(jobs)).astype(np.int32)),
+        f_ev_qrow=t(rng.integers(0, rows, jobs).astype(np.int32)),
+        f_elig0=t(rng.random(jobs) < 0.95),
+        f_vtn0=t((min_av + rng.integers(0, 2, jobs)).astype(np.int32)),
+        vic_job=t(rng.integers(0, jobs, (n, v)).astype(np.int32)),
+        vic_valid=t(rng.random((n, v)) < 0.9))
+    st = dict(
+        live_job=t(rng.random(jobs) < 0.95),
+        ready=t((min_av + rng.integers(-1, 2, jobs)).astype(np.int32)),
+        job_alloc=t(rng.integers(0, 8, (jobs, 2)) * 500.0, dt),
+        queue_alloc=t(rng.integers(0, 3, (rows, 2)) * 1000.0, dt),
+        alive=t(rng.random((n, v)) < 0.5))
+    spec = tevict.EvictSpec(kind=kind, job_order_keys=("priority", "gang", "drf"),
+                            victim_fns=(), check_pod_count=True, use_nodeorder=True,
+                            use_binpack=False, use_gang_pipelined=False,
+                            use_prop_queue_order=True)
+    args = (rows, 8192) if kind == "preempt" else (rows, 8192, rows, True)
+    return spec, enc, st, args, {}
+
+
+@pytest.mark.parametrize("dt", DTYPES, ids=["float32", "float64"])
+@pytest.mark.parametrize("kind", ["preempt", "reclaim"])
+def test_fuse_heaps_spill_matches_plain(kind, dt):
+    """A push list larger than the shared memory spills its keys and heaps
+    to global scratch, with the same heaps."""
+    _cuda()
+    import ctypes
+
+    from volcano_tpu_torch import _build
+    from volcano_tpu_torch.ops import evict_kernels as EK
+
+    spec, enc, st, args, kw = synthetic_heap_call(kind, dt)
+    plan = (ctypes.c_longlong * 4)()
+    EK._fh_lib(_build.library("fuse_heaps"))[2](20000, args[0], int(dt == torch.float64), plan)
+    assert 0 < plan[1] < 18000 and plan[3] > 0        # the list outgrows shared memory
+    got = _same_heaps(kind, spec, enc, st, args, kw)
+    assert int(got["hsize"].sum()) > plan[1]
+
+
+def test_fuse_heaps_one_launch_a_call():
+    _cuda()
+    from volcano_tpu_torch import device as devmod
+    from volcano_tpu_torch.ops import evict_kernels as EK
+
+    spec, enc, st, args, kw = synthetic_heap_call("preempt", torch.float32, jobs=500)
+    before = devmod.LAUNCHES["fuse_heaps_preempt"]
+    EK.fuse_heaps("preempt", spec, enc, st, *args, **kw)
+    assert devmod.LAUNCHES["fuse_heaps_preempt"] == before + 1

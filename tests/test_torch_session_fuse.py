@@ -15,8 +15,11 @@ under jit (the test conftest). Tolerance: none; every comparison is exact.
 
 from __future__ import annotations
 
+import functools
 import random
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -30,6 +33,7 @@ from tests.test_torch_evict import (
 )
 from tests.test_torch_evict_session import ACTIONS, CPU64, session_signature
 from volcano_tpu.ops import evict as jevict
+from volcano_tpu.ops import rounds as jrounds
 from volcano_tpu.ops import session_fuse as jfuse
 from volcano_tpu.scheduler import metrics as jmetrics
 
@@ -214,10 +218,11 @@ def _np(x):
     return np.array(x, copy=True)
 
 
-def _jax_stages(build, tiers):
+def _jax_stages(build, tiers, heaps=False):
     """The reference's four stage functions on one encoded session,
     staged as its _run_fused stages them; returns the encodes and every
-    stage's outputs as numpy arrays."""
+    stage's outputs as numpy arrays (``heaps``: also the heaps the preempt
+    and reclaim stages rebuild, "heaps_p" and "heaps_r")."""
     cache = build(jclusters)
     framework = PKGS["jax"][1]
     ssn = framework.open_session(cache, jclusters.make_tiers(
@@ -247,11 +252,18 @@ def _jax_stages(build, tiers):
             out["assign_bf"] = _np(assign)
             out["carry_b"] = {k: _np(v) for k, v in carry.items()}
             out.update(bmaps=bmaps, bf_arrays=bf.arrays)
+        if heaps:
+            out["heaps_p"] = _ref_heaps(plan.spec, el, es, carry, fs["qp"],
+                                        fs["jcap"])
         packed_p, carry = jfuse._fuse_preempt(
             plan.spec, el, es, carry,
             (fs["qp"], fs["jcap"], fs["ju"], plan.log_rows))
         out["packed_p"] = _np(packed_p)
         out["carry_p"] = {k: _np(v) for k, v in carry.items()}
+        if heaps:
+            out["heaps_r"] = _ref_heaps(
+                plan.reclaim_spec, el, es, carry, fs["qb"], fs["jcap"], fs["qh"],
+                "gang" in ssn.job_valid_fns)
         out["packed_r"] = _np(jfuse._fuse_reclaim(
             plan.reclaim_spec, el, es, carry,
             (fs["qb"], fs["jcap"], fs["qh"], plan.log_rows),
@@ -433,6 +445,221 @@ def test_fuse_heaps_match_per_action_encode(tiers, cluster, seed):
         assert heaps_r["qheap"].tolist()[:n] == a["qheap0"].tolist()[:n]
     else:
         assert int(heaps_r["hsize"].sum()) == 0
+
+
+# ---------------------------------------------------------------------------
+# K13's design: the key tuple and the row-by-row replay against the reference
+# ---------------------------------------------------------------------------
+
+
+@functools.partial(jax.jit, static_argnames=("spec", "layout", "rows", "jcap",
+                                             "qh", "use_gang_valid"))
+def _ref_heaps_jit(spec, layout, bufs, carry, rows, jcap, qh, use_gang_valid):
+    """The reference stages' push loops (session_fuse.py _fuse_preempt
+    :196-215 with its state, _fuse_reclaim :268-312), with the reference's
+    own _heap_push, _job_less and _queue_less, returning the heaps."""
+    from jax import lax
+
+    enc = jrounds.unpack_layout(layout, bufs)
+    live_job = jfuse._live_job_mask(enc, jevict._live_next(~carry["skip"]))
+    j_total = enc["job_prio"].shape[0]
+    heap0 = (jnp.zeros((rows, jcap), jnp.int32), jnp.zeros(rows, jnp.int32))
+    if spec.kind == "preempt":
+        st = {"ready": enc["job_ready0"] + carry["ready_add"],
+              "job_alloc": enc["job_alloc0"] + jnp.where(
+                  enc["f_job_attr"][:, None], carry["alloc_add"], 0)}
+        less = jevict._job_less(spec, enc, st)
+        jobs, row_of = enc["f_push_jobs"], enc["f_push_row"]
+        pushable = (jobs >= 0) & live_job[jnp.clip(jobs, 0, j_total - 1)]
+
+        def body(i, hv):
+            heap, hsize = hv
+            row = jnp.clip(row_of[i], 0, rows - 1)
+
+            def do(hv):
+                heap, hsize = hv
+                rowv, nsz = jevict._heap_push(heap[row], hsize[row], jobs[i], less)
+                return heap.at[row].set(rowv), hsize.at[row].set(nsz)
+
+            return lax.cond(pushable[i], do, lambda x: x, hv)
+
+        heap, hsize = lax.fori_loop(0, jobs.shape[0], body, heap0)
+        return dict(heap=heap, hsize=hsize,
+                    under_jobs=jnp.where(pushable, jobs, -1))
+    evicted = jnp.zeros(j_total, jnp.int32).at[enc["vic_job"]].add(
+        (enc["vic_valid"] & ~carry["alive"]).astype(jnp.int32))
+    elig = enc["f_elig0"]
+    if use_gang_valid:
+        elig = elig & ((enc["f_vtn0"] - evicted) >= enc["job_min_av"])
+    less_j = jevict._job_less(spec, enc, carry)
+    less_q = jevict._queue_less(spec, enc, carry)
+    jobs, qrow = enc["f_ev_jobs"], enc["f_ev_qrow"]
+    elig_i = (jobs >= 0) & elig[jnp.clip(jobs, 0, j_total - 1)]
+    live_i = elig_i & live_job[jnp.clip(jobs, 0, j_total - 1)]
+
+    def body(i, c):
+        heap, hsize, qheap, qhsize, qpushed = c
+        q = jnp.clip(qrow[i], 0, rows - 1)
+        do_q = elig_i[i] & ~qpushed[q]
+        qheap, qhsize = lax.cond(
+            do_q, lambda c: jevict._heap_push(c[0], c[1], q, less_q),
+            lambda c: c, (qheap, qhsize))
+        qpushed = qpushed.at[q].max(do_q)
+
+        def push_j(hv):
+            heap, hsize = hv
+            rowv, nsz = jevict._heap_push(heap[q], hsize[q], jobs[i], less_j)
+            return heap.at[q].set(rowv), hsize.at[q].set(nsz)
+
+        heap, hsize = lax.cond(live_i[i], push_j, lambda x: x, (heap, hsize))
+        return heap, hsize, qheap, qhsize, qpushed
+
+    heap, hsize, qheap, qhsize, _ = lax.fori_loop(
+        0, jobs.shape[0], body,
+        heap0 + (jnp.zeros(qh, jnp.int32), jnp.int32(0), jnp.zeros(rows, bool)))
+    return dict(heap=heap, hsize=hsize, qheap=qheap, qhsize=qhsize)
+
+
+def _ref_heaps(spec, layout, bufs, carry, rows, jcap, qh=0, use_gang_valid=False):
+    got = _ref_heaps_jit(spec, layout, bufs, carry, rows, jcap, qh, use_gang_valid)
+    return {k: _np(v) for k, v in got.items()}
+
+
+KEY_ORDERS = [("priority", "gang", "drf"), ("gang", "drf"), ("drf",),
+              ("priority",), ()]
+
+
+def _key_arrays():
+    """Crafted job and queue keys: equal priorities, equal shares, ready
+    on both sides of min_available, share1 with a zero total, at a = 0 and
+    at a != 0 (the second dimension's total is 0), negative and extreme
+    priorities, and a -0.0 share beside a +0.0 one (equal)."""
+    jobs = dict(
+        job_prio=[1, 1, 1, 2, 2, 0, 0, 1, -1, -1, 2 ** 31 - 1, -2 ** 31],
+        job_min_av=[2, 2, 3, 1, 1, 4, 0, 2, 0, 0, 1, 1],
+        job_tie=[5, 3, 7, 0, 1, 2, 6, 4, 9, 8, 10, 11],
+        ready=[2, 1, 3, 0, 1, 4, 0, 2, 0, 0, 1, 0],
+        job_alloc=[[100.0, 0.0], [100.0, 0.0], [200.0, 0.0], [0.0, 0.0],
+                   [0.0, 5.0], [50.0, 0.0], [100.0, 0.0], [0.0, 0.0],
+                   [-0.0, 0.0], [0.0, 0.0], [400.0, 0.0], [300.0, 0.0]],
+        drf_total=[400.0, 0.0],
+        queue_alloc=[[1.0, 1.0], [2.0, 0.0], [0.0, 0.0], [1.0, 1.0], [0.0, 3.0]],
+        queue_deserved=[[2.0, 2.0], [4.0, 0.0], [0.0, 0.0], [2.0, 2.0], [1.0, 0.0]],
+        queue_tie=[3, 1, 4, 0, 2])
+    return {k: np.asarray(v, np.float64 if isinstance(v[0], (float, list)) else np.int32)
+            for k, v in jobs.items()}
+
+
+@pytest.mark.parametrize("prop", [True, False], ids=["prop", "tie"])
+@pytest.mark.parametrize("keys", KEY_ORDERS, ids=["/".join(k) or "rank" for k in KEY_ORDERS])
+def test_key_tuples_match_reference_compares(keys, prop):
+    """K13's key tuples (job_keys_plain, queue_keys_plain), the job keys
+    packed as the kernel packs them (job_key_code, compared as numbers)
+    and the queue keys compared by queue_key_less, decide every pair as the
+    reference's _job_less and _queue_less do under jax.jit in float64."""
+    a = _key_arrays()
+    jspec = jevict.EvictSpec(kind="preempt", job_order_keys=keys, victim_fns=(),
+                             check_pod_count=True, use_nodeorder=True,
+                             use_binpack=False, use_gang_pipelined=False,
+                             use_prop_queue_order=prop)
+    tspec = tevict.EvictSpec(**jspec._asdict())
+    jenc = {k: jnp.asarray(v) for k, v in a.items()}
+
+    @jax.jit
+    def ref(x, y, qx, qy):
+        jl = jevict._job_less(jspec, jenc, jenc)
+        ql = jevict._queue_less(jspec, jenc, jenc)
+        return jax.vmap(jl)(x, y), jax.vmap(ql)(qx, qy)
+
+    nj, nq = a["job_prio"].shape[0], a["queue_tie"].shape[0]
+    x, y = np.divmod(np.arange(nj * nj, dtype=np.int32), nj)
+    qx, qy = np.divmod(np.arange(nq * nq, dtype=np.int32), nq)
+    want_j, want_q = (np.asarray(v) for v in ref(x, y, qx, qy))
+    tenc = {k: torch.from_numpy(v) for k, v in a.items()}
+    jk = tk.job_keys_plain(tenc, tenc)
+    qk = tk.queue_keys_plain(tspec, tenc, tenc)
+    code = [tk.job_key_code(tspec, k) for k in jk]
+    got_j = [code[i] < code[j] for i, j in zip(x, y)]
+    got_q = [tk.queue_key_less(tspec, qk[i], qk[j]) for i, j in zip(qx, qy)]
+    assert got_j == want_j.tolist()
+    assert got_q == want_q.tolist()
+    # the crafted cases are there: equal shares, both share1 branches, and
+    # signed zeros packed alike
+    share = [k[2] for k in jk]
+    assert share[0] == share[1] and share[3] == 0.0 and share[4] == 1.0
+    assert share[8] == share[9] == 0.0
+    if "drf" in keys:
+        assert code[8] >> 32 == code[9] >> 32
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_push_at_once_is_heappush(seed):
+    """K13's push (the new leaf's ancestors compared at once) leaves the
+    heap heapq's sift leaves, push by push, on keys with many ties."""
+    rng = random.Random(seed)
+    keys = [(rng.randrange(4), rng.randrange(3)) for _ in range(400)]
+
+    def less(a, b):
+        return keys[a] < keys[b]
+
+    a, b = [0] * 400, [0] * 400
+    for n, item in enumerate(rng.sample(range(400), 400)):
+        assert tk._push_at_once(a, n, item, less) == tk._Plain.heap_push(b, n, item, less)
+        assert a == b
+
+
+def _heap_cases():
+    def cfg4(c):
+        cache = c.make_cache()
+        c.CONFIGS[4].populate(cache, 0.02)
+        return cache
+
+    return [("cfg4", cfg4, jclusters.CONFIGS[4].tiers),
+            ("queues-5", lambda c: overcommit_cluster(c, 11, nodes=8, running_jobs=20,
+                                                      queues=5, hi_jobs=6), TIER_SETS[1]),
+            ("reclaim", lambda c: reclaim_cluster(c, 42), TIER_SETS[0])]
+
+
+@pytest.mark.parametrize("case", _heap_cases(), ids=lambda c: c[0])
+def test_fuse_heaps_rows_match_reference(case):
+    """K13's design in Python (fuse_heaps_rows_plain: the slots decided at
+    once, each row's pushes replayed on their own) and fuse_heaps_plain
+    give the reference stages' heaps, byte for byte, on the carried states
+    of a fused session: cfg4 at 0.02, an overcommitted cluster of five
+    queues, the reclaim cluster."""
+    _, build, tiers = case
+    want = _jax_stages(build, tiers, heaps=True)
+    ssn = _port_session(build, tiers)
+    try:
+        prep, plan, bf, maps, bmaps, ms, es, bs, bms = _port_encode(ssn)
+        fs = plan.fuse_sizes
+        _, carry = tfuse._fuse_alloc(prep["spec"], prep["staged"], ms,
+                                     (fs["n"], fs["jb"], fs["qb"], fs["tb"]))
+        if not bf.trivial:
+            _, carry = tfuse._fuse_backfill(bf.spec, bs, bms, carry)
+        zero = torch.zeros((), dtype=torch.float64)
+        st_p = dict(
+            live_job=tk.live_job_mask(es, tk.live_next(~carry["skip"])),
+            ready=es["job_ready0"] + carry["ready_add"],
+            job_alloc=es["job_alloc0"] + torch.where(
+                es["f_job_attr"][:, None], carry["alloc_add"], zero))
+        _, carry2 = tfuse._fuse_preempt(plan.spec, es, carry, (fs["qp"], fs["jcap"]))
+        st_r = dict(live_job=tk.live_job_mask(es, tk.live_next(~carry2["skip"])),
+                    ready=carry2["ready"], job_alloc=carry2["job_alloc"],
+                    queue_alloc=carry2["queue_alloc"], alive=carry2["alive"])
+        gang = "gang" in ssn.job_valid_fns
+        for fn in (tk.fuse_heaps_rows_plain, tk.fuse_heaps_plain):
+            got_p = fn("preempt", plan.spec, es, st_p, fs["qp"], fs["jcap"])
+            got_r = fn("reclaim", plan.reclaim_spec, es, st_r, fs["qb"], fs["jcap"],
+                       fs["qh"], gang)
+            _equal_dict(got_p, want["heaps_p"], f"{fn.__name__} preempt")
+            _equal_dict(got_r, want["heaps_r"], f"{fn.__name__} reclaim")
+    finally:
+        tframework.close_session(ssn)
+    # the heaps hold pushes, in more than one row where the cluster has queues
+    assert want["heaps_p"]["hsize"].sum() + want["heaps_r"]["hsize"].sum() > 0
+    if case[0] == "queues-5":
+        assert (want["heaps_p"]["hsize"] > 0).sum() > 1
 
 
 def test_fused_wrappers_run_plain_versions_on_cpu_tensors():

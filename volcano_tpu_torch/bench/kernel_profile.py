@@ -1,21 +1,33 @@
-"""Where a state-machine kernel's time goes: K9, K10 or K15, phase by phase,
+"""Where a kernel's time goes: K9, K10, K13, K14 or K15, phase by phase,
 on the card.
 
 Builds the kernel's source with its profile flag (``-DK9_PROFILE``,
-``-DK10_PROFILE`` or ``-DK15_PROFILE``), which turns the kernel's PROF(k)
-marks into clock64() reads at the thread that runs its control machine
-(CTA 0 thread 0; K15's block thread 0), takes the kernel's inputs from a
-session on the card (float32), runs them through that build and prints
-each phase's share of the kernel's time and microseconds a unit of work:
+``-DK10_PROFILE``, ``-DK13_PROFILE``, ``-DK14_PROFILE`` or
+``-DK15_PROFILE``), which turns the kernel's PROF(k) marks into clock64()
+reads at the thread that runs its control machine (CTA 0 thread 0; K13's
+and K15's block thread 0; K14's walk CTA 0 thread 0), takes the kernel's
+inputs from a session on the card (float32), runs them through that build
+and prints each phase's share of the kernel's time and microseconds a unit
+of work:
 
 - k9: the preempt machine of a per-action cfg4 session; a walk;
 - k10: the reclaim machine of a per-action reclaim-path session
   (``bench/reclaim_path.py``); a candidate fold (one walk iteration);
+- k13: both heap rebuilds (preempt, reclaim) of a fused cfg4 session; a
+  push; its lines add the wrapper's host time a call and the kernel's
+  device span (globaltimer marks), to which its phases are scaled;
+- k14: the express placement of a cfg5 lane's 1-task batch and of a full
+  64-task batch; a valid task step. Its lines also split the call: the
+  wrapper's host time a call (20 calls, no sync between), the window
+  kernel's and the walk's device spans and the idle gap between them
+  (globaltimer marks), the walk's phases scaled to its span;
 - k15: the parity scan of a cfg5 (or ``--config 2``) parity session; a
   task step.
 
 A phase ends at its mark, so a barrier's wait is the time the marking
-thread spent in it. K10's and K15's builds also count their units.
+thread spent in it. K10's, K13's, K14's and K15's builds also count their
+units. A last line a case times the same calls on the kernel's own build
+(``unmarked_ms``, CUDA events over 5 back-to-back calls).
 
 On a machine with an NVIDIA GPU:
 
@@ -42,6 +54,7 @@ class Kernel(NamedTuple):
     unit: str          # what a unit of the kernel's work is
     counts_units: bool  # the counters end with the units' count
     phases: Tuple[Tuple[str, str], ...]  # PROF(k)'s phase k, in order of k
+    spans: int = 0      # globaltimer marks after the counters (ns)
 
 
 KERNELS = {
@@ -75,6 +88,19 @@ KERNELS = {
         ("cut", "the eviction cut and the pipeline"),
         ("barrier", "the iteration's closing barriers"),
     )),
+    "k13": Kernel("fuse_heaps", "K13_PROFILE", "k13_profile_read", "push", True, (
+        ("zero", "the outputs zeroed, the evictions counted (reclaim)"),
+        ("slots", "the slot pass: decisions, compaction, keys"),
+        ("pushes", "the heap pushes"),
+        ("out", "the heaps written out"),
+    ), 2),
+    "k14": Kernel("express_place", "K14_PROFILE", "k14_profile_read", "step", True, (
+        ("copy", "the walk's start: state set up"),
+        ("window", "step: the window columns rescored, coverage"),
+        ("sweep", "step: a full-width sweep and its reduction"),
+        ("apply", "step: the placement and the step's barrier"),
+        ("strip", "the gang strip and the packed result"),
+    ), 4),
     "k15": Kernel("parity_scan", "K15_PROFILE", "k15_profile_read", "step", True, (
         ("loop", "the visit loop's head (any namespace left)"),
         ("ns_argmin", "visit: the namespace argmin"),
@@ -173,6 +199,152 @@ def parity_inputs(cfg: int, scale: float):
     return parity_cases.parity_inputs(cache, CONFIGS[cfg].tiers)
 
 
+def fused_heap_inputs(scale: float):
+    """K13's calls of a fused cfg4 session on the card, float32:
+    {kind: (kind, spec, enc, st, args, kwargs)} for preempt and reclaim."""
+    from volcano_tpu_torch.bench.clusters import CONFIGS, build_config, make_tiers
+    from volcano_tpu_torch.ops import evict_kernels as EK
+    from volcano_tpu_torch.scheduler.framework import (
+        close_session, open_session, run_actions)
+    import volcano_tpu_torch.scheduler.actions  # noqa: F401
+    import volcano_tpu_torch.scheduler.plugins  # noqa: F401
+
+    seen = {}
+    real = EK.fuse_heaps
+
+    def clone(d):
+        return {k: v.clone() for k, v in d.items()}
+
+    def keep(kind, spec, enc, st, *args, **kw):
+        seen.setdefault(kind, (kind, spec, clone(enc), clone(st), args, kw))
+        return real(kind, spec, enc, st, *args, **kw)
+
+    prev = os.environ.get("VOLCANO_TPU_FUSE")
+    os.environ["VOLCANO_TPU_FUSE"] = "1"
+    EK.fuse_heaps = keep
+    try:
+        cache, _, _, actions, _ = build_config(4, scale)
+        ssn = open_session(cache, make_tiers(["tpuscore"], *CONFIGS[4].tiers, arguments={
+            "tpuscore": {"tpuscore.mode": "rounds", "tpuscore.device": "cuda",
+                         "tpuscore.dtype": "float32"}}))
+        try:
+            run_actions(ssn, list(actions))
+        finally:
+            close_session(ssn)
+    finally:
+        EK.fuse_heaps = real
+        if prev is None:
+            os.environ.pop("VOLCANO_TPU_FUSE", None)
+        else:
+            os.environ["VOLCANO_TPU_FUSE"] = prev
+    if sorted(seen) != ["preempt", "reclaim"]:
+        raise RuntimeError(f"kernel_profile: the fused session ran K13 for {sorted(seen)}")
+    return seen
+
+
+def express_inputs(scale: float):
+    """K14's (spec, args) of a cfg5 express lane on the card, float32: the
+    batch of one arrival (tb = 16) and a full batch of 64 (tb = 64)."""
+    from volcano_tpu_torch.api import objects
+    from volcano_tpu_torch.bench.clusters import CONFIGS, build_config, make_tiers
+    from volcano_tpu_torch.express import ExpressLane
+    from volcano_tpu_torch.express import place as place_mod
+    from volcano_tpu_torch.scheduler.framework import (
+        close_session, open_session, run_actions)
+    from volcano_tpu_torch.scheduler.util.test_utils import build_pod, build_pod_group
+    import volcano_tpu_torch.scheduler.actions  # noqa: F401
+    import volcano_tpu_torch.scheduler.plugins  # noqa: F401
+
+    cache, _, _, actions, _ = build_config(5, scale)
+    ssn = open_session(cache, make_tiers(["tpuscore"], *CONFIGS[5].tiers, arguments={
+        "tpuscore": {"tpuscore.mode": "rounds", "tpuscore.device": "cuda",
+                     "tpuscore.dtype": "float32"}}))
+    try:
+        run_actions(ssn, list(actions))
+    finally:
+        close_session(ssn)
+    lane = ExpressLane(cache, device="cuda", dtype="float32")
+    lane.run_once()
+    seen = {}
+    real = place_mod.solve_express
+
+    def keep(spec, *args):
+        seen.setdefault(spec.tb, (spec, [a.clone() for a in args]))
+        return real(spec, *args)
+
+    place_mod.solve_express = keep
+    try:
+        for n in (1, place_mod.EXPRESS_MAX_BATCH):
+            for i in range(n):
+                pg = f"prof-{n}-{i:03d}"
+                cache.add_pod_group(build_pod_group(pg, namespace="express", min_member=1))
+                cache.add_pod(build_pod("express", f"{pg}-t0", "", objects.POD_PHASE_PENDING,
+                                        {"cpu": "100m", "memory": "128Mi"}, pg))
+            lane.run_once()
+    finally:
+        place_mod.solve_express = real
+    if sorted(seen) != [16, 64]:
+        raise RuntimeError(f"kernel_profile: the lane's batches had tb {sorted(seen)}")
+    return seen[16], seen[64]
+
+
+def _cases(kernel: str, args):
+    """[(label, shape dict, run)] of ``kernel``: the calls to profile."""
+    if kernel == "k15":
+        from volcano_tpu_torch.ops import parity_kernels as PK
+
+        spec, enc, rr0, ntf = parity_inputs(args.config, args.scale)
+        shape = {"config": args.config, "T": enc["task_req"].shape[0],
+                 "N": enc["node_idle"].shape[0], "J": enc["job_task_start"].shape[0],
+                 "ntf": ntf}
+        return [("parity", shape, lambda: PK._solve_cuda(spec, enc, rr0, ntf))]
+    if kernel == "k13":
+        from volcano_tpu_torch.ops import evict_kernels as EK
+
+        cases = []
+        for kind, (_, spec, enc, st, a, kw) in sorted(fused_heap_inputs(args.scale).items()):
+            slots = enc["f_push_jobs" if kind == "preempt" else "f_ev_jobs"].shape[0]
+            shape = {"J": enc["job_prio"].shape[0], "rows": a[0], "jcap": a[1],
+                     "slots": slots}
+            cases.append((kind, shape, lambda kind=kind, spec=spec, enc=enc, st=st, a=a, kw=kw:
+                           EK.fuse_heaps(kind, spec, enc, st, *a, **kw)))
+        return cases
+    if kernel == "k14":
+        from volcano_tpu_torch.express import place as P
+
+        cases = []
+        for label, (spec, a) in zip(("1-task", "64-task"), express_inputs(args.scale)):
+            shape = {"N": a[0].shape[0], "tb": spec.tb, "W": spec.window_k,
+                     "valid": int(a[9].sum())}
+            cases.append((label, shape, lambda spec=spec, a=a: P.solve_express(spec, *a)))
+        return cases
+    from volcano_tpu_torch.ops import evict_kernels as EK
+
+    spec, enc = evict_inputs(kernel, args.scale)
+    n, v = enc["vic_job"].shape
+    shape = {"N": n, "V": v}
+    if kernel == "k9":
+        cluster, smem, spill = EK.preempt_layout(n, v, enc["node_used"].dtype)
+    else:
+        cluster, smem, spill = EK.reclaim_layout(n, v, enc["node_used"].dtype)
+    shape.update(cluster=cluster, smem=smem, spill=spill)
+    return [(kernel, shape, lambda: EK.solve_packed(spec, enc))]
+
+
+def _host_ms(run, reps=20) -> float:
+    """The wrapper's host time a call: ``reps`` calls with no sync between
+    (the card runs behind), then one sync outside the clock."""
+    import time
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        run()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3 / reps
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernel", choices=sorted(KERNELS), default="k9")
@@ -185,66 +357,75 @@ def main() -> int:
     from volcano_tpu_torch import _build
 
     k = KERNELS[args.kernel]
-    if args.kernel == "k15":
-        from volcano_tpu_torch.ops import parity_kernels as PK
-
-        spec, enc, rr0, ntf = parity_inputs(args.config, args.scale)
-
-        def run():
-            return PK._solve_cuda(spec, enc, rr0, ntf)
-        shape = {"config": args.config, "T": enc["task_req"].shape[0],
-                 "N": enc["node_idle"].shape[0], "J": enc["job_task_start"].shape[0],
-                 "ntf": ntf}
-    else:
-        from volcano_tpu_torch.ops import evict_kernels as EK
-
-        spec, enc = evict_inputs(args.kernel, args.scale)
-
-        def run():
-            return EK.solve_packed(spec, enc)
-        n, v = enc["vic_job"].shape
-        shape = {"N": n, "V": v}
-        if args.kernel == "k9":
-            cluster, smem, spill = EK.preempt_layout(n, v, enc["node_used"].dtype)
-        else:
-            cluster, smem, spill = EK.reclaim_layout(n, v, enc["node_used"].dtype)
-        shape.update(cluster=cluster, smem=smem, spill=spill)
+    cases = _cases(args.kernel, args)
     os.makedirs(_build.BUILD, exist_ok=True)
     so = os.path.join(_build.BUILD, f"lib{args.kernel}_profile.so")
     subprocess.run(build_command(args.kernel, so), check=True, capture_output=True)
     lib = ctypes.CDLL(so)
+    fn = getattr(lib, k.read)
+    fn.argtypes = [ctypes.c_void_p]
+    spans = k.spans
+    slots = len(k.phases) + (1 if k.counts_units else 0)
     real = _build.library
     _build.library = lambda name: lib if name == k.source else real(name)
     try:
-        run()                                        # warm-up
+        for label, shape, run in cases:
+            run()                                        # warm-up
+            host_ms = _host_ms(run) if spans else None
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = run()
+            end.record()
+            torch.cuda.synchronize()
+            ms = start.elapsed_time(end)
+            cycles = (ctypes.c_longlong * (slots + spans))()
+            if fn(cycles) != 0:
+                raise RuntimeError("kernel_profile: reading the counters failed")
+            phase_cycles = list(cycles)[:len(k.phases)]
+            # K9: its walks are the tail's attempts (one a walk at cfg4)
+            units = max(int(cycles[slots - 1]) if k.counts_units else int(out[-3]), 1)
+            total = max(sum(phase_cycles), 1)
+            extra = {}
+            span_ms = ms
+            marks = [int(x) for x in list(cycles)[slots:]]
+            if spans == 4:     # K14: the window launch, then the walk
+                w0, w1, k0, k1 = marks
+                has_window = shape["W"] > 0
+                span_ms = (k1 - k0) * 1e-6
+                extra = {"host_ms_a_call": host_ms,
+                         "window_ms": (w1 - w0) * 1e-6 if has_window else None,
+                         "gap_ms": (k0 - w1) * 1e-6 if has_window else None,
+                         "walk_ms": span_ms}
+            elif spans == 2:   # the kernel's own start and end
+                span_ms = (marks[1] - marks[0]) * 1e-6
+                extra = {"host_ms_a_call": host_ms, "kernel_ms": span_ms}
+            per = f"us_a_{k.unit}"
+            rows = {name: {"share": c / total, per: span_ms * 1e3 * c / total / units}
+                    for (name, _), c in zip(k.phases, phase_cycles)}
+            print(json.dumps({"kernel_profile": args.kernel, "case": label,
+                              "card": smi_line(), "scale": args.scale, **shape,
+                              "ms": ms, f"{k.unit}s": units, per: span_ms * 1e3 / units,
+                              **extra, "phases": rows}), flush=True)
+            for name, what in k.phases:
+                print(f"{name:18s} {rows[name][per]:8.3f} us a {k.unit}  {what}")
+    finally:
+        _build.library = real
+    # the same calls on the kernels' own build (no marks): CUDA events over
+    # back-to-back calls, as chip_smoke.py times them
+    for label, _, run in cases:
+        run()
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        out = run()
+        for _ in range(5):
+            run()
         end.record()
         torch.cuda.synchronize()
-    finally:
-        _build.library = real
-    ms = start.elapsed_time(end)
-    slots = len(k.phases) + (1 if k.counts_units else 0)
-    cycles = (ctypes.c_longlong * slots)()
-    fn = getattr(lib, k.read)
-    fn.argtypes = [ctypes.c_void_p]
-    if fn(cycles) != 0:
-        raise RuntimeError("kernel_profile: reading the counters failed")
-    phase_cycles = list(cycles)[:len(k.phases)]
-    # K9: its walks are the tail's attempts (one a walk at cfg4)
-    units = max(int(cycles[-1]) if k.counts_units else int(out[-3]), 1)
-    total = max(sum(phase_cycles), 1)
-    per = f"us_a_{k.unit}"
-    rows = {name: {"share": c / total, per: ms * 1e3 * c / total / units}
-            for (name, _), c in zip(k.phases, phase_cycles)}
-    print(json.dumps({"kernel_profile": args.kernel, "card": smi_line(),
-                      "scale": args.scale, **shape, "ms": ms, f"{k.unit}s": units,
-                      per: ms * 1e3 / units, "phases": rows}), flush=True)
-    for name, what in k.phases:
-        print(f"{name:18s} {rows[name][per]:8.3f} us a {k.unit}  {what}")
+        print(json.dumps({"kernel_profile": args.kernel, "case": label, "unmarked_ms":
+                          start.elapsed_time(end) / 5}), flush=True)
     return 0
 
 

@@ -50,7 +50,6 @@ from volcano_tpu_torch.ops.kernels import (
     MIN_MEMORY,
     MIN_MILLI_CPU,
     _check,
-    _ptr,
     fused_scores,
 )
 from volcano_tpu_torch.ops.rounds_kernels import window_topk_plain
@@ -203,14 +202,32 @@ def solve_express_plain(spec: ExpressSpec, idle, alloc, cnt, ok, maxt,
 
 
 _ARGTYPES = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 22
+# the kernel library's entry points, their argtypes set once a library
+_FNS: dict = {}
+# one launch plan and its scratch a bucket (library, device, dtype, N, tb,
+# jb, W, check_pod), its inputs checked once; the newest _MAX_BUCKETS kept.
+# Every call of a bucket reuses its scratch: the calls run in order on the
+# caller's stream (the lane's), so none overwrites another's in flight
+_BUCKETS: dict = {}
+_MAX_BUCKETS = 16
 
 
-def _solve_express_cuda(spec: ExpressSpec, idle, alloc, cnt, ok, maxt,
-                        task_initreq, task_req, task_nzc, task_nzm,
-                        task_valid, task_job, task_has_pod, job_need,
-                        weights) -> torch.Tensor:
-    from volcano_tpu_torch import _build
+def _lib_fns(lib):
+    fns = _FNS.get(lib)
+    if fns is None:
+        for fn in (lib.express_place_f32, lib.express_place_f64):
+            fn.argtypes = _ARGTYPES
+            fn.restype = ctypes.c_int
+        lib.express_place_plan.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.express_place_plan.restype = ctypes.c_int
+        fns = _FNS[lib] = (lib.express_place_f32, lib.express_place_f64,
+                           lib.express_place_plan)
+    return fns
 
+
+def _check_inputs(spec, args) -> None:
+    (idle, alloc, cnt, ok, maxt, task_initreq, task_req, task_nzc, task_nzm,
+     task_valid, task_job, task_has_pod, job_need, weights) = args
     dt, dev = idle.dtype, idle.device
     if dt not in (torch.float32, torch.float64):
         raise TypeError(f"idle: dtype {dt}")
@@ -235,34 +252,54 @@ def _solve_express_cuda(spec: ExpressSpec, idle, alloc, cnt, ok, maxt,
         if t.device != dev:
             raise ValueError(f"{name}: on {t.device}, expected {dev}")
         _check(t, name, want, shape)
-    lib = _build.library("express_place")
-    f64 = dt == torch.float64
-    lib.express_place_scratch_bytes.argtypes = [ctypes.c_int] * 4
-    lib.express_place_scratch_bytes.restype = ctypes.c_longlong
-    gbytes = lib.express_place_scratch_bytes(n, tb, w, int(f64))
+
+
+def _bucket_of(lib, plan_fn, spec, args):
+    """The bucket's (scratch pointers, scratch tensors): built, and the
+    inputs checked, at its first call."""
+    idle = args[0]
+    key = (lib, idle.device, idle.dtype, idle.shape[0], spec.tb, spec.jb,
+           spec.window_k, spec.check_pod_count)
+    got = _BUCKETS.get(key)
+    if got is not None:
+        return got
+    _check_inputs(spec, args)
+    n, tb, w = idle.shape[0], spec.tb, spec.window_k
+    plan = (ctypes.c_longlong * 3)()
+    rc = plan_fn(n, tb, w, int(idle.dtype == torch.float64), plan)
+    if rc != 0:
+        raise RuntimeError(f"express_place launch plan failed: CUDA error {rc}")
 
     def empty(shape, dtype):
-        return torch.empty(shape, dtype=dtype, device=dev)
+        return torch.empty(shape, dtype=dtype, device=idle.device)
 
-    gkeys = empty(gbytes, torch.uint8) if gbytes > 0 else None
-    top_s = empty((tb, w), dt) if w > 0 else None
-    top_i = empty((tb, w), i32) if w > 0 else None
-    idle_s = empty((n, 2), dt)
-    cnt_s = empty(n, i32)
-    job_placed = empty(jb, i32)
-    out = empty(tb + PROF_TAIL, i32)
-    fn = lib.express_place_f64 if f64 else lib.express_place_f32
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = fn(n, tb, jb, w, int(spec.check_pod_count),
-            _ptr(idle), _ptr(alloc), _ptr(cnt), _ptr(ok), _ptr(maxt),
-            _ptr(task_initreq), _ptr(task_req), _ptr(task_nzc),
-            _ptr(task_nzm), _ptr(task_valid), _ptr(task_job),
-            _ptr(task_has_pod), _ptr(job_need), _ptr(weights),
-            _ptr(gkeys), _ptr(top_s), _ptr(top_i), _ptr(idle_s),
-            _ptr(cnt_s), _ptr(job_placed), _ptr(out),
-            ctypes.c_void_p(stream))
+    scratch = (
+        empty(plan[0], torch.uint8) if plan[0] > 0 else None,   # window keys
+        empty((tb, w), idle.dtype) if w > 0 else None,          # top_s
+        empty((tb, w), torch.int32) if w > 0 else None,         # top_i
+        empty((tb, w), torch.int64) if w > 0 else None,         # select list
+        empty((tb, w), torch.int32) if w > 0 else None,
+        empty(spec.jb, torch.int32),                            # job_placed
+    )
+    ptrs = tuple(t.data_ptr() if t is not None else None for t in scratch)
+    while len(_BUCKETS) >= _MAX_BUCKETS:
+        _BUCKETS.pop(next(iter(_BUCKETS)))
+    got = _BUCKETS[key] = (ptrs, scratch)
+    return got
+
+
+def _solve_express_cuda(spec: ExpressSpec, *args) -> torch.Tensor:
+    from volcano_tpu_torch import _build
+
+    lib = _build.library("express_place")
+    f32, f64, plan_fn = _lib_fns(lib)
+    idle = args[0]
+    ptrs, _ = _bucket_of(lib, plan_fn, spec, args)
+    out = torch.empty(spec.tb + PROF_TAIL, dtype=torch.int32, device=idle.device)
+    fn = f64 if idle.dtype == torch.float64 else f32
+    rc = fn(idle.shape[0], spec.tb, spec.jb, spec.window_k,
+            int(spec.check_pod_count), *[t.data_ptr() for t in args], *ptrs,
+            out.data_ptr(), devmod.raw_stream(idle.device))
     if rc != 0:
         raise RuntimeError(f"express_place kernel launch failed: CUDA error {rc}")
     devmod.count_launch("express_place")
@@ -282,6 +319,6 @@ def solve_express(spec: ExpressSpec, idle, alloc, cnt, ok, maxt,
     args = (spec, idle, alloc, cnt, ok, maxt, task_initreq, task_req,
             task_nzc, task_nzm, task_valid, task_job, task_has_pod,
             job_need, weights)
-    if devmod.on_cuda(*args[1:]):
+    if idle.is_cuda:   # every input's device is checked at a bucket's first call
         return _solve_express_cuda(*args)
     return solve_express_plain(*args)

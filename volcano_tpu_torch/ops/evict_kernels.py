@@ -15,9 +15,10 @@ Port of the device half of volcano_tpu/ops/evict.py:
   session_fuse.py, K13): the carry bridges and the live-task maps as torch
   ops (``alloc_bridge``, ``backfill_bridge``, ``live_next``,
   ``live_job_mask``), the heap rebuilds under carried keys as
-  csrc/fuse_heaps.cu (``fuse_heaps``), and K9 and K10 fed the carried
-  state, K9 handing its final state on (``preempt_fused``,
-  ``reclaim_fused``).
+  csrc/fuse_heaps.cu (``fuse_heaps``; plain version ``fuse_heaps_plain``,
+  the kernel's design step by step in ``fuse_heaps_rows_plain`` with its
+  packed keys ``job_key_code``), and K9 and K10 fed the carried state, K9
+  handing its final state on (``preempt_fused``, ``reclaim_fused``).
 
 Each wrapper launches its kernel for CUDA tensors (and raises when it
 cannot) and runs the plain version for CPU tensors; it never falls back
@@ -43,6 +44,8 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
+import struct
 from typing import Dict, List
 
 import torch
@@ -824,47 +827,70 @@ def backfill_bridge(carry, maps, assign: torch.Tensor) -> Dict[str, torch.Tensor
         skip=_mark(carry["skip"], b2c, pm & (b2c >= 0)))
 
 
+def job_keys_plain(enc, st) -> List[tuple]:
+    """Every job's job_order key under the carried state: (priority, gang
+    readiness, drf share, rank), the fields K13 computes once a pushed job.
+    Each share is the state dtype's own value (``_share2`` over the whole
+    axis), so a comparison decides as the kernel's does."""
+    share = _share2(st["job_alloc"], enc["drf_total"]).tolist()
+    ready = (st["ready"] >= enc["job_min_av"]).tolist()
+    return list(zip(enc["job_prio"].tolist(), ready, share,
+                    enc["job_tie"].tolist()))
+
+
+def job_key_code(spec: EvictSpec, key: tuple) -> int:
+    """A job's key packed as K13 packs it: one unsigned number whose order
+    is job_order's. The enabled keys' fields in tier order, most
+    significant first, then the rank: priority (desc) as its 32 biased
+    bits inverted, gang readiness (non-ready first) as one bit, the drf
+    share (asc; never below zero) as its float64 bits with -0.0 taken as
+    +0.0 (the kernel packs float32 shares' bits, an order of the same
+    values), the rank's 32 biased bits."""
+    code = 0
+    for name in spec.job_order_keys:
+        if name == "priority":
+            code = (code << 32) | (0xFFFFFFFF - ((key[0] + 2 ** 31) & 0xFFFFFFFF))
+        elif name == "gang":
+            code = (code << 1) | int(bool(key[1]))
+        elif name == "drf":
+            share = 0 if key[2] == 0 else struct.unpack("<Q", struct.pack("<d", key[2]))[0]
+            code = (code << 63) | share
+    return (code << 32) | ((key[3] + 2 ** 31) & 0xFFFFFFFF)
+
+
+def queue_keys_plain(spec: EvictSpec, enc, st) -> List[tuple]:
+    """Every queue row's queue_order key: (proportion share at the carried
+    queue_alloc, or 0 when the order has no share; rank)."""
+    tie = enc["queue_tie"].tolist()
+    if not spec.use_prop_queue_order:
+        return [(0.0, t) for t in tie]
+    share = _share2(st["queue_alloc"], enc["queue_deserved"]).tolist()
+    return list(zip(share, tie))
+
+
+def queue_key_less(spec: EvictSpec, a: tuple, b: tuple) -> bool:
+    """queue_order_cmp as less(a, b) on two keys: share, then rank."""
+    if spec.use_prop_queue_order and a[0] != b[0]:
+        return a[0] < b[0]
+    return a[1] < b[1]
+
+
 class _HostKeys:
     """job_order_cmp and queue_order_cmp as less(a, b) over keys read to
-    the host once: a heap rebuild runs under fixed keys, and each share is
-    the state dtype's own value (``_share2`` over the whole axis), so a
-    comparison decides as the kernel's does."""
+    the host once: a heap rebuild runs under fixed keys."""
 
     def __init__(self, spec: EvictSpec, enc, st):
         self.spec = spec
-        self.prio = enc["job_prio"].tolist()
         self.min_av = enc["job_min_av"].tolist()
-        self.job_tie = enc["job_tie"].tolist()
-        self.queue_tie = enc["queue_tie"].tolist()
-        self.ready = st["ready"].tolist()
-        self.jshare = _share2(st["job_alloc"], enc["drf_total"]).tolist()
-        qa = st.get("queue_alloc")
-        self.qshare = None if qa is None else _share2(
-            qa, enc["queue_deserved"]).tolist()
+        self.jcodes = [job_key_code(spec, k) for k in job_keys_plain(enc, st)]
+        self.qkeys = queue_keys_plain(spec, enc, st) \
+            if "queue_alloc" in st else None
 
     def job_less(self, a: int, b: int) -> bool:
-        for key in self.spec.job_order_keys:
-            if key == "priority":
-                pa, pb = self.prio[a], self.prio[b]
-                if pa != pb:
-                    return pa > pb
-            elif key == "gang":
-                ra = self.ready[a] >= self.min_av[a]
-                rb = self.ready[b] >= self.min_av[b]
-                if ra != rb:
-                    return (not ra) and rb
-            elif key == "drf":
-                sa, sb = self.jshare[a], self.jshare[b]
-                if sa != sb:
-                    return sa < sb
-        return self.job_tie[a] < self.job_tie[b]
+        return self.jcodes[a] < self.jcodes[b]
 
     def queue_less(self, a: int, b: int) -> bool:
-        if self.spec.use_prop_queue_order:
-            sa, sb = self.qshare[a], self.qshare[b]
-            if sa != sb:
-                return sa < sb
-        return self.queue_tie[a] < self.queue_tie[b]
+        return queue_key_less(self.spec, self.qkeys[a], self.qkeys[b])
 
 
 def fuse_heaps_plain(kind: str, spec: EvictSpec, enc, st, rows: int,
@@ -903,8 +929,7 @@ def fuse_heaps_plain(kind: str, spec: EvictSpec, enc, st, rows: int,
                 STATS["pushes"] += 1
         out = dict(under_jobs=under)
     else:
-        dead = (enc["vic_valid"] & ~st["alive"]).reshape(-1).to(torch.int32)
-        evicted = _add(j_total, enc["vic_job"].reshape(-1), dead).tolist()
+        evicted = _evicted(enc, st).tolist()
         elig0 = enc["f_elig0"].tolist()
         vtn0 = enc["f_vtn0"].tolist()
         qheap = [0] * qh
@@ -925,6 +950,79 @@ def fuse_heaps_plain(kind: str, spec: EvictSpec, enc, st, rows: int,
                 hsize[q] = _Plain.heap_push(heap[q], hsize[q], j, job_less)
                 STATS["pushes"] += 1
         out = dict(qheap=qheap, qhsize=qhsize)
+    out.update(heap=heap, hsize=hsize)
+    return {k: torch.tensor(v, dtype=torch.int32, device=dev)
+            for k, v in out.items()}
+
+
+def _evicted(enc, st) -> torch.Tensor:
+    """Every job's evictions during preempt, from the carried alive mask."""
+    dead = (enc["vic_valid"] & ~st["alive"]).reshape(-1).to(torch.int32)
+    return _add(enc["job_prio"].shape[0], enc["vic_job"].reshape(-1), dead)
+
+
+def _push_at_once(row: List[int], size: int, item: int, less) -> int:
+    """heapq.heappush as K13's warp makes it: ``item`` is compared with
+    every ancestor of the new leaf at once (the m-th ancestor of 1-based
+    slot q is q >> m), rises past the ancestors before the first one it is
+    not less than, and those move down a level each. The same comparisons,
+    in the same outcome, as the sift's one by one."""
+    q = size + 1
+    depth = q.bit_length() - 1
+    anc = [row[(q >> m) - 1] for m in range(1, depth + 1)]
+    lt = [less(item, a) for a in anc]
+    up = lt.index(False) if False in lt else depth
+    for m in range(1, up + 1):
+        row[(q >> (m - 1)) - 1] = anc[m - 1]
+    row[(q >> up) - 1] = item
+    return size + 1
+
+
+def fuse_heaps_rows_plain(kind: str, spec: EvictSpec, enc, st, rows: int,
+                          jcap: int, qh: int = 0,
+                          use_gang_valid: bool = False) -> Dict[str, torch.Tensor]:
+    """K13's design step by step, the same outputs as ``fuse_heaps_plain``:
+    every slot's decision at once, the job pushes in slot order, each
+    pushed job's key once, then each row's pushes replayed on their own
+    (a push sifts only within its row; each push compares its ancestors at
+    once, ``_push_at_once``), and the queue pushes in the order of each
+    queue row's first eligible slot."""
+    dev = st["ready"].device
+    j_total = enc["job_prio"].shape[0]
+    live = st["live_job"]
+    if kind == "preempt":
+        jobs = enc["f_push_jobs"].long()
+        push = (jobs >= 0) & live[jobs.clamp(0, j_total - 1)]
+        row = enc["f_push_row"].long().clamp(0, rows - 1)
+        out = dict(under_jobs=torch.where(push, jobs, -1).tolist())
+    else:
+        jobs = enc["f_ev_jobs"].long()
+        jc = jobs.clamp(0, j_total - 1)
+        row = enc["f_ev_qrow"].long().clamp(0, rows - 1)
+        elig = (jobs >= 0) & enc["f_elig0"][jc]
+        if use_gang_valid:
+            elig = elig & (enc["f_vtn0"][jc] - _evicted(enc, st)[jc]
+                           >= enc["job_min_av"][jc])
+        push = elig & live[jc]
+        slot = torch.arange(jobs.shape[0], device=dev)
+        first = torch.full((rows,), jobs.shape[0], dtype=torch.long, device=dev)
+        first = first.scatter_reduce(0, row[elig], slot[elig], "amin")
+        order = [q for _, q in sorted((f, q) for q, f in enumerate(first.tolist())
+                                      if f < jobs.shape[0])]
+        qkeys = queue_keys_plain(spec, enc, st)
+        qheap = [0] * qh
+        for n, q in enumerate(order):
+            _Plain.heap_push(qheap, n, q, lambda a, b: queue_key_less(
+                spec, qkeys[a], qkeys[b]))
+        out = dict(qheap=qheap, qhsize=len(order))
+    ev_job, ev_row = jobs[push].tolist(), row[push].tolist()
+    codes = [job_key_code(spec, k) for k in job_keys_plain(enc, st)]
+    heap = [[0] * jcap for _ in range(rows)]
+    hsize = [0] * rows
+    for r in range(rows):
+        for j in (j for j, rr in zip(ev_job, ev_row) if rr == r):
+            hsize[r] = _push_at_once(heap[r], hsize[r], j,
+                                     lambda a, b: codes[a] < codes[b])
     out.update(heap=heap, hsize=hsize)
     return {k: torch.tensor(v, dtype=torch.int32, device=dev)
             for k, v in out.items()}
@@ -1229,29 +1327,52 @@ def reclaim_fused(spec: EvictSpec, enc) -> torch.Tensor:
 
 
 # argument tables of K13, in the order csrc/fuse_heaps.cu fixes (checked
-# against the library's fh_ptr_names()/fh_dim_names())
+# against the library's fh_ptr_names()/fh_dim_names() once a library)
 _FH_PTRS = (
     "job_prio", "job_min_av", "job_tie", "drf_total", "queue_deserved",
     "queue_tie", "ready", "job_alloc", "queue_alloc", "live_job",
     "push_jobs", "push_row", "ev_jobs", "ev_qrow", "elig0", "vtn0",
     "vic_job", "vic_valid", "alive", "heap", "hsize", "under", "qheap",
-    "qhsize", "evicted", "qpushed")
+    "qhsize", "evicted", "qpushed", "work", "spill")
 _FH_DIMS = (
     "J", "ROWS", "JCAP", "PB", "EB", "NV", "QH", "use_gang_valid", "n_keys",
-    "key0", "key1", "key2", "use_prop_queue_order")
+    "key0", "key1", "key2", "use_prop_queue_order", "cap")
+# K13's libraries whose argument order was checked and argtypes set
+_FH_LIBS: dict = {}
+# one scratch plan a bucket (library, device, dtype, kind, sizes), its
+# inputs checked at the first call; the newest _FH_MAX_BUCKETS kept. Every
+# call of a bucket reuses its scratch: the calls run in order on the
+# caller's stream
+_FH_BUCKETS: dict = {}
+_FH_MAX_BUCKETS = 16
 
 
-def _fuse_heaps_cuda(kind, spec, enc, st, rows, jcap, qh, use_gang_valid):
-    from volcano_tpu_torch import _build
+def _fh_lib(lib):
+    fns = _FH_LIBS.get(lib)
+    if fns is None:
+        for fn, want in ((lib.fh_ptr_names, _FH_PTRS), (lib.fh_dim_names, _FH_DIMS)):
+            fn.restype = ctypes.c_char_p
+            got = tuple(x for x in fn().decode().split(",") if x)
+            if got != want:
+                raise RuntimeError(f"fuse_heaps argument order mismatch: {got}")
+        for fn in (lib.fuse_heaps_f32, lib.fuse_heaps_f64):
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                           ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        lib.fuse_heaps_plan.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        lib.fuse_heaps_plan.restype = ctypes.c_int
+        fns = _FH_LIBS[lib] = (lib.fuse_heaps_f32, lib.fuse_heaps_f64,
+                               lib.fuse_heaps_plan)
+    return fns
 
+
+def _fh_inputs(kind, enc, st):
+    """{name: (tensor, dtype, shape)} of K13's inputs for ``kind``."""
     ja = st["job_alloc"]
-    dev, dt = ja.device, ja.dtype
-    if dt not in (torch.float32, torch.float64):
-        raise TypeError(f"job_alloc: dtype {dt}")
+    dt = ja.dtype
     j_total = enc["job_prio"].shape[0]
     q_total = enc["queue_tie"].shape[0]
     n, v = enc["vic_job"].shape
-    reclaim = kind == "reclaim"
     i32, b8 = torch.int32, torch.bool
     ins = {
         "job_prio": (enc["job_prio"], i32, (j_total,)),
@@ -1264,7 +1385,7 @@ def _fuse_heaps_cuda(kind, spec, enc, st, rows, jcap, qh, use_gang_valid):
         "job_alloc": (ja, dt, (j_total, 2)),
         "live_job": (st["live_job"], b8, (j_total,)),
     }
-    if reclaim:
+    if kind == "reclaim":
         eb = enc["f_ev_jobs"].shape[0]
         ins.update({
             "queue_alloc": (st["queue_alloc"], dt, (q_total, 2)),
@@ -1276,59 +1397,114 @@ def _fuse_heaps_cuda(kind, spec, enc, st, rows, jcap, qh, use_gang_valid):
             "vic_valid": (enc["vic_valid"], b8, (n, v)),
             "alive": (st["alive"], b8, (n, v)),
         })
-        pb = 0
     else:
         pb = enc["f_push_jobs"].shape[0]
         ins.update({
             "push_jobs": (enc["f_push_jobs"], i32, (pb,)),
             "push_row": (enc["f_push_row"], i32, (pb,)),
         })
-        eb = 0
+    return ins
+
+
+def _fh_bucket(lib, plan_fn, kind, spec, enc, st, rows, jcap, qh, use_gang_valid):
+    """The bucket's launch recipe, built and its inputs checked at its first
+    call: (the pointer table, its input entries (index, from the carried
+    state, key), its output entries (index, output), the outputs' names,
+    shapes and offsets in one buffer, the dims table, the scratch)."""
+    ja = st["job_alloc"]
+    dev, dt = ja.device, ja.dtype
+    reclaim = kind == "reclaim"
+    slots = enc["f_ev_jobs" if reclaim else "f_push_jobs"].shape[0]
+    key = (lib, dev, dt, kind, spec.job_order_keys, spec.use_prop_queue_order,
+           tuple(enc["job_prio"].shape), tuple(enc["queue_tie"].shape),
+           tuple(enc["vic_job"].shape), slots, rows, jcap, qh, use_gang_valid)
+    got = _FH_BUCKETS.get(key)
+    if got is not None:
+        return got
+    if dt not in (torch.float32, torch.float64):
+        raise TypeError(f"job_alloc: dtype {dt}")
+    ins = _fh_inputs(kind, enc, st)
     for name, (t, want, shape) in ins.items():
         if t.device != dev:
             raise ValueError(f"{name}: on {t.device}, expected {dev}")
         kmod._check(t, name, want, shape)
-
-    def empty(shape, dtype=i32):
-        return torch.empty(shape, dtype=dtype, device=dev)
-
-    out = dict(heap=empty((rows, jcap)), hsize=empty(rows))
-    if reclaim:
-        out.update(qheap=empty(qh), qhsize=empty(()))
-        work = dict(evicted=empty(j_total), qpushed=empty(rows, b8))
-    else:
-        out.update(under_jobs=empty(pb))
-        work = {}
-    tensors = {k: t for k, (t, _, _) in ins.items()}
-    tensors.update(work, under=out.get("under_jobs"), heap=out["heap"],
-                   hsize=out["hsize"], qheap=out.get("qheap"),
-                   qhsize=out.get("qhsize"))
+    plan = (ctypes.c_longlong * 4)()
+    rc = plan_fn(slots, rows, int(dt == torch.float64), plan)
+    if rc != 0:
+        raise RuntimeError(f"fuse_heaps scratch plan failed: CUDA error {rc}")
+    j_total = enc["job_prio"].shape[0]
+    n, v = enc["vic_job"].shape
     keys = [_KEY_CODES[k] for k in spec.job_order_keys]
-    dims = dict(J=j_total, ROWS=rows, JCAP=jcap, PB=pb, EB=eb, NV=n * v,
-                QH=qh, use_gang_valid=int(use_gang_valid), n_keys=len(keys),
-                use_prop_queue_order=int(spec.use_prop_queue_order))
+    dims = dict(J=j_total, ROWS=rows, JCAP=jcap, PB=0 if reclaim else slots,
+                EB=slots if reclaim else 0, NV=n * v, QH=qh,
+                use_gang_valid=int(use_gang_valid), n_keys=len(keys),
+                use_prop_queue_order=int(spec.use_prop_queue_order), cap=plan[1])
     for i in range(3):
         dims[f"key{i}"] = keys[i] if i < len(keys) else -1
 
+    def empty(size, dtype=torch.uint8):
+        return torch.empty(size, dtype=dtype, device=dev)
+
+    scratch = dict(work=empty(plan[0]),
+                   spill=empty(plan[3]) if plan[3] > 0 else None)
+    if reclaim:
+        scratch.update(evicted=empty(j_total, torch.int32),
+                       qpushed=empty(rows, torch.bool))
+    # the outputs: views of one int32 buffer a call, at these offsets
+    outs = [("heap", (rows, jcap)), ("hsize", (rows,))]
+    outs += [("qheap", (qh,)), ("qhsize", ())] if reclaim else [("under_jobs", (slots,))]
+    ends = [0]
+    for _, shape in outs:
+        ends.append(ends[-1] + math.prod(shape))
+    outs = [(k, shape, ends[i], ends[i + 1]) for i, (k, shape) in enumerate(outs)]
+    slot_of = {"under" if k == "under_jobs" else k: i for i, (k, *_) in enumerate(outs)}
+    # the pointer table: the scratch's entries set once, the inputs' and
+    # outputs' at each call
+    ptrs = (ctypes.c_void_p * len(_FH_PTRS))()
+    from_in, from_out = [], []
+    for i, k in enumerate(_FH_PTRS):
+        if k in ins:
+            src = _FH_SRC.get(k, k)
+            from_in.append((i, src == "st", k if src == "st" else src))
+        elif k in slot_of:
+            from_out.append((i, slot_of[k]))
+        elif scratch.get(k) is not None:
+            ptrs[i] = scratch[k].data_ptr()
+    got = (ptrs, from_in, from_out, outs,
+           (ctypes.c_int * len(_FH_DIMS))(*[dims[k] for k in _FH_DIMS]), scratch)
+    while len(_FH_BUCKETS) >= _FH_MAX_BUCKETS:
+        _FH_BUCKETS.pop(next(iter(_FH_BUCKETS)))
+    _FH_BUCKETS[key] = got
+    return got
+
+
+_FH_SRC = {  # where each input of K13 lies: enc or the carried state
+    "ready": "st", "job_alloc": "st", "live_job": "st", "queue_alloc": "st",
+    "alive": "st", "push_jobs": "f_push_jobs", "push_row": "f_push_row",
+    "ev_jobs": "f_ev_jobs", "ev_qrow": "f_ev_qrow", "elig0": "f_elig0",
+    "vtn0": "f_vtn0"}
+
+
+def _fuse_heaps_cuda(kind, spec, enc, st, rows, jcap, qh, use_gang_valid):
+    from volcano_tpu_torch import _build
+
     lib = _build.library("fuse_heaps")
-    for fn, want in ((lib.fh_ptr_names, _FH_PTRS), (lib.fh_dim_names, _FH_DIMS)):
-        fn.restype = ctypes.c_char_p
-        got = tuple(x for x in fn().decode().split(",") if x)
-        if got != want:
-            raise RuntimeError(f"fuse_heaps argument order mismatch: {got}")
-    ptrs = (ctypes.c_void_p * len(_FH_PTRS))(*[
-        (tensors[k].data_ptr() if tensors.get(k) is not None else 0)
-        for k in _FH_PTRS])
-    dvals = (ctypes.c_int * len(_FH_DIMS))(*[dims[k] for k in _FH_DIMS])
-    fn = lib.fuse_heaps_f64 if dt == torch.float64 else lib.fuse_heaps_f32
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    rc = fn(ptrs, dvals, int(reclaim), _stream(ja))
+    f32, f64, plan_fn = _fh_lib(lib)
+    ptrs, from_in, from_out, outs, dims, _ = _fh_bucket(
+        lib, plan_fn, kind, spec, enc, st, rows, jcap, qh, use_gang_valid)
+    ja = st["job_alloc"]
+    buf = torch.empty(outs[-1][3], dtype=torch.int32, device=ja.device)
+    parts = [buf[a:b].view(shape) for _, shape, a, b in outs]
+    for i, is_st, key in from_in:
+        ptrs[i] = (st if is_st else enc)[key].data_ptr()
+    for i, j in from_out:
+        ptrs[i] = parts[j].data_ptr()
+    fn = f64 if ja.dtype == torch.float64 else f32
+    rc = fn(ptrs, dims, int(kind == "reclaim"), devmod.raw_stream(ja.device))
     if rc != 0:
         raise RuntimeError(f"fuse_heaps kernel launch failed: CUDA error {rc}")
     devmod.count_launch(f"fuse_heaps_{kind}")
-    return out
+    return {k: p for (k, *_), p in zip(outs, parts)}
 
 
 def fuse_heaps(kind: str, spec: EvictSpec, enc, st, rows: int, jcap: int,
@@ -1338,7 +1514,7 @@ def fuse_heaps(kind: str, spec: EvictSpec, enc, st, rows: int, jcap: int,
     carried keys in ``st`` (see ``fuse_heaps_plain``). csrc/fuse_heaps.cu
     on CUDA tensors (raising if it cannot launch), the plain version on CPU
     tensors."""
-    if devmod.on_cuda(*enc.values(), *st.values()):
+    if st["job_alloc"].is_cuda:   # every input's device is checked at a bucket's first call
         return _fuse_heaps_cuda(kind, spec, enc, st, rows, jcap, qh,
                                 use_gang_valid)
     return fuse_heaps_plain(kind, spec, enc, st, rows, jcap, qh,
