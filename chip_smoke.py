@@ -27,7 +27,7 @@ Phases, each failing the run on any error:
    queue_budget); each kernel is then held against its plain PyTorch
    version on those inputs with torch.equal (exact), and both are timed
    with CUDA events; the same session times the rounds solver's torch-op
-   parts (K2b, K3, K6) with CUDA events around each call. These sessions
+   parts (K2b, K6's job ranks) with CUDA events around each call. These sessions
    run the step machine from the host (loop="host"), so each call is an
    eager launch. K2 is also held against its plain version (bits equal)
    on crafted rows (signed zeros either way round, all tied, all -inf,
@@ -52,8 +52,12 @@ Phases, each failing the run on any error:
    sync point, the fetch; K7a rounds_ctl is held against its plain
    version on every controller input the host runs recorded, K7b
    tail_pass on the capped cfg6 tail's inputs (every state tensor), both
-   timed; solve ms of the graph beside the host loop, the capture ms and
-   the graphs cached are printed;
+   timed; K3 round_select and K7c round_commit on every select and commit
+   call the host runs of cfg2, cfg5 (window and cover) and cfg6
+   (exclusion) made and on crafted inputs (bench/round_cases.py), K7c's
+   plain version on CPU copies, both timed on cfg5's calls; solve ms of
+   the graph beside the host loop, the capture ms and the graphs cached
+   are printed;
 4. session phase: cfg2 (5k x 1k), cfg3 (20k x 5k), cfg5 (50k x 10k) and
    cfg6 (cfg2 with anti-affinity groups, always at full scale: it caps
    and runs the tail pass)
@@ -67,8 +71,8 @@ Phases, each failing the run on any error:
    the fused session chain and once more on the per-action path
    (VOLCANO_TPU_FUSE=0), each on a fresh cache with tpuscore on cuda.
    Launch counters are zeroed just before each run and read just after:
-   every kernel of the path must have launched (K1/K2/K4/K5 and K7a
-   everywhere, K7b exactly once on cfg6;
+   every kernel of the path must have launched (K1/K2/K3/K4/K5, K7a and
+   K7c everywhere, K7b exactly once on cfg6;
    on a fused run K13 fuse_heaps twice, the fused K9 and K10 once each and
    K11 once where backfill has work, and no per-action K9/K10; on the
    per-action run K9 and K11 on cfg4, K9 and K10 on the reclaim path, and
@@ -422,13 +426,12 @@ def capture_inputs():
     return seen, restore
 
 
-# the rounds solver's parts that stay torch ops (ROADMAP Queue 2 K2b, K3,
-# K6), timed call by call on a cfg5 session of the host-driven machine;
-# inside the solve's graph they run as captured nodes
+# the rounds solver's parts that stay torch ops (ROADMAP Queue 2 K2b and
+# K6's job ranks), timed call by call on a cfg5 session of the host-driven
+# machine; inside the solve's graph they run as captured nodes
 TORCH_OP_ROWS = {
     "K2b": ("_cap_walk", "_nominate_full"),
-    "K3": ("_select",),
-    "K6": ("_job_rank", "_rank_in_class", "_excl_grank"),
+    "K6": ("_job_rank",),
 }
 
 
@@ -1132,7 +1135,7 @@ def reference_check():
 
 
 ALLOC_KERNELS = ("score_block", "window_topk", "resolve_prefix", "queue_budget",
-                 "rounds_ctl")
+                 "rounds_ctl", "round_select", "round_commit")
 EVICT_KERNELS = ("evict_preempt", "evict_reclaim", "evict_backfill")
 FUSED_KERNELS = ("fuse_heaps_preempt", "fuse_heaps_reclaim", "evict_preempt_fused",
                  "evict_reclaim_fused")
@@ -1395,8 +1398,10 @@ def rounds_loop_phase():
     from volcano_tpu_torch.ops import rounds_graph
     from volcano_tpu_torch.ops import rounds_kernels as RK
 
+    from volcano_tpu_torch.bench import round_cases
+
     scale = 1.0
-    rows, ctl_inputs, tail_inputs = [], [], None
+    rows, ctl_inputs, tail_inputs, recorded = [], [], None, {}
     for cfg in K7_CFGS:
         spec, enc = solve_inputs(cfg, scale)
         seen, restore = record_host_machine()
@@ -1405,6 +1410,8 @@ def rounds_loop_phase():
         finally:
             restore()
         ctl_inputs += seen["ctl"]
+        if cfg in ROUND_KERNEL_CFGS:
+            recorded[cfg] = round_cases.record_solve(spec, enc, limit=24)
         caps0 = rounds_graph.STATS["captures"]
         cap_s0 = rounds_graph.STATS["capture_s"]
         devmod.reset_launches()
@@ -1448,6 +1455,9 @@ def rounds_loop_phase():
                "inputs_bytes": nbytes(*enc.values()) + nbytes(torch.from_numpy(warm))}
         rows.append(row)
         print(json.dumps(row), flush=True)
+    # K3 and K7c on the select and commit inputs of the host-driven cfg2,
+    # cfg5 (window and cover) and cfg6 (exclusion) solves, and crafted ones
+    round_recs = round_kernel_records(recorded)
     print(json.dumps({"k7_graphs": {
         "graphs_cached": rounds_graph.graphs_cached(),
         "captures": rounds_graph.STATS["captures"],
@@ -1523,7 +1533,193 @@ def rounds_loop_phase():
               "bound_ms": warm5["inputs_bytes"] / MEM_BPS * 1e3,
               "capture_ms": warm5["capture_ms"]}
     print(json.dumps({"K7": k7_row, "card": CARD}), flush=True)
-    return [ctl_rec, tail_rec], k7_row
+    return [ctl_rec, tail_rec] + round_recs, k7_row
+
+
+# the K7 solves whose select and commit inputs K3 and K7c are held on
+ROUND_KERNEL_CFGS = (2, 5, 6)
+SELECT_OUT = ("choice", "cons_choice", "slot", "final", "uncovered")
+# the state a commit reads and writes
+COMMIT_STATE = ("idle", "used", "cnt", "active", "job_placed", "job_alloc",
+                "queue_alloc", "ns_alloc")
+
+
+def commit_bytes(spec, tc, st, choice, accept, ctl):
+    """The bytes one commit must move: each task's choice, mask, request,
+    job, queue and namespace read once (and its exclusion group where the
+    spec has exclusion), the jobs' task ranges, the state it updates read
+    and written once, the control vector; written only: the accepted
+    tasks' assign (and exclusion occupancy), the dirty row."""
+    placed = int(accept.sum())
+    cols = ("task_req", "task_job", "task_queue", "task_ns", "job_task_start",
+            "job_task_count") + (("task_excl",) if spec.use_exclusion else ())
+    written = placed * st["assign"].element_size() + nbytes(st["dirty"])
+    if spec.use_exclusion:
+        written += int((accept & (tc["task_excl"] >= 0)).sum()) * st["excl_occ"].element_size()
+    return (nbytes(choice, accept, *(tc[n] for n in cols))
+            + 2 * nbytes(*(st[n] for n in COMMIT_STATE), ctl) + written)
+
+
+def _to_cpu(x):
+    if isinstance(x, torch.Tensor):
+        return x.cpu()
+    if isinstance(x, dict):
+        return {k: _to_cpu(v) for k, v in x.items()}
+    return x
+
+
+def hold_select(args, kw, what):
+    from volcano_tpu_torch.ops import rounds_kernels as RK
+
+    got = RK.round_select(*args, **kw)
+    want = RK.round_select_plain(*args, **kw)
+    for name, a, b in zip(SELECT_OUT, got, want):
+        if (a is None) != (b is None):
+            raise AssertionError(f"round_select {what}: {name} missing")
+        if b is not None:
+            same(a, b, f"round_select {what} {name}")
+
+
+def hold_commit(args, what, rollback=False):
+    """K7c on the card (the commit, or with ``rollback`` the rollback's
+    undo) against its plain version on CPU copies of the same inputs, on
+    one thread: the plain version's serial CPU semantics (a
+    row's float updates added one after another in task order, to the
+    row's value, as XLA's scatter adds them) are the ones the kernel
+    keeps; torch's CUDA index_put_ adds a row's duplicates up first."""
+    from volcano_tpu_torch.bench.round_cases import _clone
+    from volcano_tpu_torch.ops import rounds_kernels as RK
+
+    spec, tc, st, *rest, ctl = args
+    kernel, plain = ((RK.round_rollback, RK.round_rollback_plain) if rollback
+                     else (RK.round_commit, RK.round_commit_plain))
+    st_k, ctl_k = _clone(st), ctl.clone()
+    kernel(spec, tc, st_k, *rest, ctl_k)
+    st_p, ctl_p = _to_cpu(_clone(st)), ctl.cpu()
+    # one thread: torch's CPU index_put_ adds float32 rows with atomics
+    # from several threads past 32k elements, in no fixed order
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        plain(spec, _to_cpu(tc), st_p, *(_to_cpu(x) for x in rest), ctl_p)
+    finally:
+        torch.set_num_threads(threads)
+    for name in st_p:
+        got, want = st_k[name].cpu(), st_p[name]
+        if got.is_floating_point():  # by their bits: -0.0 is not +0.0
+            got, want = _bits(got), _bits(want)
+        same(got, want, f"round_commit {what} {name}")
+    same(ctl_k.cpu(), ctl_p, f"round_commit {what} ctl")
+
+
+def round_kernel_records(recorded):
+    """K3 round_select and K7c round_commit held against their plain
+    versions (torch.equal) on every select, commit and rollback call the
+    recorded host-driven solves made, then on the crafted inputs of
+    bench/round_cases.py; each timed on cfg5's calls (K3 its window and
+    its cover, K7c its commit of 50k tasks and its rollback step), cfg2's
+    beside, with the wrapper's host time a call (``host_ms``: CUDA events
+    over back-to-back calls read the longer of host and card; inside the
+    graph only the card's counts). Returns the two records."""
+    from volcano_tpu_torch.bench import round_cases
+    from volcano_tpu_torch.ops import rounds_kernels as RK
+
+    held = {"select": 0, "commit": 0, "rollback": 0}
+    for cfg, seen in recorded.items():
+        if not seen["select"] or not seen["commit"]:
+            raise AssertionError(f"K7 cfg{cfg}: no select or commit call recorded")
+        for i, (args, kw) in enumerate(seen["select"]):
+            hold_select(args, kw, f"cfg{cfg} call {i}")
+            held["select"] += 1
+        for i, (args, _) in enumerate(seen["commit"]):
+            hold_commit(args, f"cfg{cfg} call {i}")
+            held["commit"] += 1
+        for i, (args, _) in enumerate(seen["rollback"]):
+            hold_commit(args, f"cfg{cfg} rollback {i}", rollback=True)
+            held["rollback"] += 1
+    for label, args, kw in round_cases.select_cases("cuda", torch.float32):
+        hold_select(args, kw, f"crafted {label}")
+    for label, args in round_cases.commit_cases("cuda", torch.float32):
+        hold_commit(args, f"crafted {label}")
+    for label, args in round_cases.rollback_cases("cuda", torch.float32):
+        hold_commit(args, f"crafted rollback {label}", rollback=True)
+    widths = {}
+    for cfg in (5, 2):
+        for args, kw in recorded[cfg]["select"]:
+            key = (cfg, "window" if kw.get("coverage") else "cover")
+            widths.setdefault(key, (args, kw))
+    recs = []
+    # K3: timed on cfg5's window call, its cover and cfg2's window beside
+    (args, kw) = widths[(5, "window")]
+    for key, (a, k) in sorted(widths.items()):
+        if key != (5, "window"):
+            print(json.dumps({"kernel": "round_select", "shape": f"cfg{key[0]} {key[1]} "
+                              f"(K={a[4].shape[0]} W={a[4].shape[1]} T={a[2].shape[0]})",
+                              "card": CARD, "ms": time_ms(lambda: RK.round_select(*a, **k)),
+                              "plain_ms": timed_plain(lambda: RK.round_select_plain(*a, **k))[1]}),
+                  flush=True)
+    spec, corder, active, n_feas, order, walk = args
+    t_n, (k_n, w_n) = active.shape[0], order.shape
+    recs.append(dict(
+        name="round_select", kernel="round_select", route="cuda",
+        source="volcano_tpu_torch/csrc/round_select.cu",
+        replaces="volcano_tpu/ops/rounds.py:336", max_abs_err=0.0,
+        ms=time_ms(lambda: RK.round_select(*args, **kw)),
+        host_ms=host_ms(lambda: RK.round_select(*args, **kw)),
+        plain_ms=timed_plain(lambda: RK.round_select_plain(*args, **kw))[1],
+        library_ms=None,
+        bytes=nbytes(active, n_feas, order, *walk,
+                     *(corder[n] for n in ("cls_excl", "perm", "off", "chunk_first",
+                                           "excl_perm", "excl_start", "excl_pos")))
+        + 16 * t_n + k_n,
+        ops=t_n * (max(1, w_n.bit_length()) + 24), dtype=torch.int32, launch_path=5,
+        shape=f"cfg5 window: K={k_n} W={w_n} T={t_n}; {held['select']} recorded calls "
+              f"of cfg{ROUND_KERNEL_CFGS} and {len(round_cases.SELECT_CASES)} crafted held equal"))
+    # K7c: timed on cfg5's commit (the wrapper: its sort and the launch)
+    spec, tc, st, choice, accept, did_full, ctl = recorded[5]["commit"][0][0]
+    st_t, ctl_t = round_cases._clone(st), ctl.clone()
+    st_p, ctl_p = round_cases._clone(st), ctl.clone()
+    placed = int(accept.sum())
+    r_n = st["idle"].shape[1]
+    for a2 in recorded[2]["commit"][:1]:
+        spec2, tc2, st2, ch2, acc2, df2, c2 = a2[0]
+        st2k, st2p = round_cases._clone(st2), round_cases._clone(st2)
+        print(json.dumps({"kernel": "round_commit", "card": CARD,
+                          "shape": f"cfg2 round 1: T={ch2.shape[0]}, {int(acc2.sum())} accepted",
+                          "ms": time_ms(lambda: RK.round_commit(spec2, tc2, st2k, ch2, acc2,
+                                                                df2, c2.clone())),
+                          "plain_ms": timed_plain(lambda: RK.round_commit_plain(
+                              spec2, tc2, st2p, ch2, acc2, df2, c2.clone()))[1]}), flush=True)
+    # its rollback mode on cfg5's rollback step (no gang to retire)
+    for a3 in recorded[5]["rollback"][:1]:
+        spec3, tc3, st3, rj3, ac3, c3 = a3[0]
+        st3k, st3p = round_cases._clone(st3), round_cases._clone(st3)
+        print(json.dumps({"kernel": "round_commit", "card": CARD,
+                          "shape": f"cfg5 rollback: T={tc3['task_job'].shape[0]}, "
+                                   f"{int(rj3.sum())} job retired",
+                          "ms": time_ms(lambda: RK.round_rollback(spec3, tc3, st3k, rj3, ac3,
+                                                                  c3.clone())),
+                          "plain_ms": timed_plain(lambda: RK.round_rollback_plain(
+                              spec3, tc3, st3p, rj3, ac3, c3.clone()))[1]}), flush=True)
+    recs.append(dict(
+        name="round_commit", kernel="round_commit", route="cuda",
+        source="volcano_tpu_torch/csrc/round_commit.cu",
+        replaces="volcano_tpu/ops/rounds.py:838", max_abs_err=0.0,
+        ms=time_ms(lambda: RK.round_commit(spec, tc, st_t, choice, accept, did_full, ctl_t)),
+        host_ms=host_ms(lambda: RK.round_commit(spec, tc, st_t, choice, accept, did_full,
+                                                ctl_t)),
+        plain_ms=timed_plain(lambda: RK.round_commit_plain(
+            spec, tc, st_p, choice, accept, did_full, ctl_p))[1],
+        library_ms=None,
+        bytes=commit_bytes(spec, tc, st, choice, accept, ctl),
+        ops=placed * r_n * 5, dtype=st["idle"].dtype, launch_path=5,
+        shape=f"cfg5 round 1: T={choice.shape[0]} N={st['idle'].shape[0]} R={r_n}, "
+              f"{placed} accepted; {held['commit']} recorded commits, "
+              f"{held['rollback']} recorded rollbacks and "
+              f"{2 * len(round_cases.COMMIT_CASES) + 1} crafted held equal (plain on the CPU)"))
+    for rec in recs:
+        finish_record(rec)
+    return recs
 
 
 # ---------------------------------------------------------------------------

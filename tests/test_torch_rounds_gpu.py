@@ -1,6 +1,8 @@
-"""K7 on a CUDA card: K7a (``rounds_ctl``) and K7b (``tail_pass``) against
+"""K7 on a CUDA card: K7a (``rounds_ctl``), K7b (``tail_pass``), K3
+(``round_select``, with K6's ranks) and K7c (``round_commit``) against
 their plain versions, and the graph-replayed solve against the host-driven
-step machine (``loop="host"``), on encodes the port's own session prepares.
+step machine (``loop="host"``), on encodes the port's own session prepares
+and on crafted inputs (volcano_tpu_torch/bench/round_cases.py).
 
 This file imports nothing of JAX, so it runs where the card is:
 
@@ -8,7 +10,11 @@ This file imports nothing of JAX, so it runs where the card is:
 
 Without a card its tests skip. Tolerance: exact equality (torch.equal)
 of every state tensor, the control vector, the predicates and the packed
-result.
+result; K7c's float state by its bits (-0.0 is not +0.0). K7c's plain
+version runs on CPU copies of the inputs, on one thread: its serial CPU
+semantics (each row's float updates added one after another in task
+order, to the row's value, as XLA's scatter adds them) are the ones the
+kernel keeps.
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ from __future__ import annotations
 import pytest
 import torch
 
+from volcano_tpu_torch.bench import round_cases as RC
 from volcano_tpu_torch.ops import rounds as trounds
 from volcano_tpu_torch.ops import rounds_kernels as RK
 
@@ -115,3 +122,142 @@ def test_gpu_graph_replay_equals_host_loop(cfg, scale, capped):
     for _ in range(2):
         got = trounds.solve_rounds_packed(spec, enc)
         assert torch.equal(got, host)
+
+
+def _to(x, device):
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    if isinstance(x, dict):
+        return {k: _to(v, device) for k, v in x.items()}
+    if isinstance(x, tuple):
+        return tuple(_to(v, device) for v in x)
+    return x
+
+
+def assert_select_equal(args, kw, what):
+    got = RK.round_select(*args, **kw)
+    want = RK.round_select_plain(*args, **kw)
+    names = ("choice", "cons_choice", "slot", "final", "uncovered")
+    for name, a, b in zip(names, got, want):
+        if b is None:
+            assert a is None, (what, name)
+            continue
+        assert torch.equal(a, b), (what, name, int((a != b).sum()))
+
+
+def assert_commit_equal(args, what, rollback=False):
+    """K7c (the commit, or with ``rollback`` the rollback's undo) on the
+    card against its plain version on CPU copies of the inputs."""
+    spec, tc, st, *rest, ctl = args
+    kernel, plain = ((RK.round_rollback, RK.round_rollback_plain) if rollback
+                     else (RK.round_commit, RK.round_commit_plain))
+    st_k, ctl_k = RC._clone(st), ctl.clone()
+    kernel(spec, tc, st_k, *rest, ctl_k)
+    tc_p, st_p, rest_p, ctl_p = _to((tc, RC._clone(st), tuple(rest), ctl.clone()), "cpu")
+    # one thread: torch's CPU index_put_ adds float32 rows with atomics from
+    # several threads past 32k elements, in no fixed order
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        plain(spec, tc_p, st_p, *rest_p, ctl_p)
+    finally:
+        torch.set_num_threads(threads)
+    for name in st_p:
+        got = st_k[name].cpu()
+        assert RC.bit_equal(got, st_p[name]), (what, name, int((got != st_p[name]).sum()))
+    assert torch.equal(ctl_k.cpu(), ctl_p), what
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cfg,scale,dtype", [
+    (2, 0.2, "float32"), (3, 0.1, "float32"), (5, 0.05, "float32"),
+    (6, 0.3, "float32"), (6, 0.3, "float64")])
+def test_gpu_round_kernels_equal_plain_on_recorded_rounds(cfg, scale, dtype):
+    """K3 and K7c on every select, commit and rollback call of a
+    host-driven solve (the wrappers launch the kernels there), window and
+    cover widths."""
+    _cuda()
+    spec, enc = prepared(cfg, scale, device="cuda", dtype=dtype)
+    seen = RC.record_solve(spec, enc, limit=12)
+    assert seen["select"] and seen["commit"]
+    for i, (args, kw) in enumerate(seen["select"]):
+        assert_select_equal(args, kw, f"cfg{cfg} select {i}")
+    for i, (args, _) in enumerate(seen["commit"]):
+        assert_commit_equal(args, f"cfg{cfg} commit {i}")
+    for i, (args, _) in enumerate(seen["rollback"]):
+        assert_commit_equal(args, f"cfg{cfg} rollback {i}", rollback=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("label", [c[0] for c in RC.SELECT_CASES])
+def test_gpu_round_select_equals_plain_on_crafted_inputs(label):
+    _cuda()
+    kw = dict(RC.SELECT_CASES)[label]
+    args, kwargs = RC.select_case(device="cuda", dtype=torch.float32, **kw)
+    assert_select_equal(args, kwargs, label)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("label", [c[0] for c in RC.COMMIT_CASES])
+def test_gpu_round_commit_equals_plain_on_crafted_inputs(label, dtype):
+    _cuda()
+    kw = dict(RC.COMMIT_CASES)[label]
+    assert_commit_equal(RC.commit_case(device="cuda", dtype=dtype, **kw), label)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_gpu_round_rollback_equals_plain_on_crafted_inputs(dtype):
+    _cuda()
+    for label, args in RC.rollback_cases(device="cuda", dtype=dtype):
+        assert_commit_equal(args, label, rollback=True)
+
+
+@pytest.mark.gpu
+def test_gpu_round_kernels_raise_instead_of_falling_back():
+    """A CUDA tensor the kernel does not take raises; nothing runs the
+    plain version instead."""
+    _cuda()
+    args, kw = RC.select_case(device="cuda", dtype=torch.float32,
+                              **dict(RC.SELECT_CASES)["window"])
+    bad = list(args)
+    bad[3] = bad[3].to(torch.int64)           # n_feas
+    with pytest.raises(TypeError):
+        RK.round_select(*bad, **kw)
+    spec, tc, st, choice, accept, did_full, ctl = RC.commit_case(
+        device="cuda", dtype=torch.float32, **dict(RC.COMMIT_CASES)["random"])
+    with pytest.raises(TypeError):
+        RK.round_commit(spec, tc, st, choice.to(torch.int64), accept, did_full, ctl)
+
+
+@pytest.mark.gpu
+def test_gpu_index_put_sums_duplicates_first_unlike_the_commit():
+    """torch's CUDA index_put_(accumulate=True) adds a row's duplicate
+    updates up first and the sum to the row (1 + (2^24 - 2^24) = 1); the
+    CPU, like XLA's scatter, adds them one after another ((1 + 2^24) -
+    2^24 = 0 in float32). K7c keeps the sequential order on the card."""
+    _cuda()
+    big = 2.0 ** 24
+    idx = [0, 0]
+    vals = [[big, big], [-big, -big]]
+    for dev, want in (("cpu", 0.0), ("cuda", 1.0)):
+        row = torch.ones((1, 2), device=dev)
+        row.index_put_((torch.tensor(idx, device=dev),),
+                       torch.tensor(vals, device=dev), accumulate=True)
+        assert row.tolist() == [[want, want]], dev
+    spec, tc, st, choice, accept, did_full, ctl = RC.commit_case(
+        device="cuda", dtype=torch.float32, **dict(RC.COMMIT_CASES)["random"])
+    t = choice.shape[0]
+    choice.zero_()
+    accept.zero_()
+    accept[:2] = True
+    st["active"][:2] = True
+    tc["task_req"][:2] = torch.tensor(vals, device="cuda")
+    tc["task_queue"].fill_(0)
+    st["used"][0] = 1.0
+    st["queue_alloc"][0] = 1.0
+    assert t > 2
+    RK.round_commit(spec, tc, st, choice, accept, did_full, ctl)
+    assert st["used"][0].tolist() == [0.0, 0.0]
+    assert st["queue_alloc"][0].tolist() == [0.0, 0.0]

@@ -1,5 +1,6 @@
 """Where a kernel's time goes: K9, K10, K13, K14 or K15, phase by phase,
-on the card.
+on the card; and, with ``--kernel k7``, where a warm graph round of the
+rounds solve spends it, node group by node group (bench/round_split.py).
 
 Builds the kernel's source with its profile flag (``-DK9_PROFILE``,
 ``-DK10_PROFILE``, ``-DK13_PROFILE``, ``-DK14_PROFILE`` or
@@ -347,13 +348,17 @@ def _host_ms(run, reps=20) -> float:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--kernel", choices=sorted(KERNELS), default="k9")
+    ap.add_argument("--kernel", choices=sorted(KERNELS) + ["k7"], default="k9")
     ap.add_argument("--scale", type=float, default=1.0, help="the cluster's scale")
     ap.add_argument("--config", type=int, default=5, help="k15: the parity session's bench config")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_profile: no CUDA device is available", file=sys.stderr)
         return 2
+    if args.kernel == "k7":
+        from volcano_tpu_torch.bench import round_split
+
+        return round_split.main(args.scale)
     from volcano_tpu_torch import _build
 
     k = KERNELS[args.kernel]

@@ -1,0 +1,291 @@
+"""Inputs of the round's select (K3, ``round_select``) and of K7c, the
+round's commit (``round_commit``) and the rollback's undo
+(``round_rollback``): those a solve hands them, recorded, and crafted
+ones.
+
+The GPU tests and ``chip_smoke.py`` hold each kernel against its plain
+version on both kinds; tests/test_torch_round_kernels.py holds the plain
+versions against the jitted JAX functions on the same arrays (CPU,
+float64).
+
+Crafted select cases (``select_cases``): a class with a single task, a
+class holding every task, inactive tasks, slots past the class's feasible
+count (overflow), classes with no feasible node, ±0.0 score ties (one
+equal-score group, as the capacity walk's IEEE compare makes them),
+exclusion groups with live and dead classes, binpack with and without
+exclusion, the window's coverage test and the cover's width. Crafted
+commit cases (``commit_cases``): every task accepted onto one node, one
+queue and one namespace taking every task, no task accepted, exclusion
+occupancy, rows of -0.0 and padding tasks; each also gives a rollback
+case (``rollback_case``) that retires a job with placed tasks, or none.
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+import numpy as np
+import torch
+
+from volcano_tpu_torch.ops import rounds as R
+from volcano_tpu_torch.ops import rounds_kernels as RK
+from volcano_tpu_torch.ops.kernels import SolveSpec
+
+
+def _clone(x):
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, dict):
+        return {k: _clone(v) for k, v in x.items()}
+    if isinstance(x, (tuple, list)) and not hasattr(x, "_fields"):
+        return type(x)(_clone(v) for v in x)
+    return x
+
+
+def bit_equal(a, b) -> bool:
+    """torch.equal, with the sign of a float zero told apart."""
+    if not torch.equal(a, b):
+        return False
+    return not a.is_floating_point() or torch.equal(torch.signbit(a), torch.signbit(b))
+
+
+@contextlib.contextmanager
+def recording(limit=None):
+    """While open, every ``round_select``, ``round_commit`` and
+    ``round_rollback`` call of the rounds module keeps a copy of its inputs
+    (at most ``limit`` of each): yields {"select": [(args, kwargs)],
+    "commit": [...], "rollback": [...]}."""
+    names = {"select": "round_select", "commit": "round_commit",
+             "rollback": "round_rollback"}
+    seen = {kind: [] for kind in names}
+    real = {kind: getattr(R, name) for kind, name in names.items()}
+
+    def wrap(kind):
+        def fn(*args, **kw):
+            if limit is None or len(seen[kind]) < limit:
+                seen[kind].append((_clone(args), _clone(kw)))
+            return real[kind](*args, **kw)
+        return fn
+
+    for kind, name in names.items():
+        setattr(R, name, wrap(kind))
+    try:
+        yield seen
+    finally:
+        for kind, name in names.items():
+            setattr(R, name, real[kind])
+
+
+def record_solve(spec, enc, limit=None):
+    """The select, commit and rollback inputs of one solve of the step
+    machine driven from the host (the CPU's plain machine, or ``loop="host"`` on the
+    card, where the wrappers launch the kernels)."""
+    with recording(limit) as seen:
+        R.solve(spec, enc, loop="host")
+    return seen
+
+
+def _spec(binpack, excl, pod=True):
+    return SolveSpec(
+        job_order_keys=("priority", "gang"), use_drf_ns_order=False,
+        use_prop_queue_order=False, use_prop_overused=False,
+        check_pod_count=pod, use_nodeorder=not binpack, use_binpack=binpack,
+        use_exclusion=excl, round_min_progress=0, straggler_rounds=0,
+        window_k=0, dirty_k=0)
+
+
+def select_case(seed, t, k, w, *, binpack=False, excl=False, coverage=False,
+                layout="random", p_active=0.7, device="cpu",
+                dtype=torch.float64):
+    """One crafted select call: ((spec, corder, active, n_feas, order,
+    walk), {"coverage": coverage}), the walk made by the capacity
+    walk (``rounds._cap_walk``, plain) from rows of tied and signed-zero
+    scores. ``layout``: "random" classes, "one" (every task in class 0),
+    "singletons" (class c holds task c, the rest in the last class)."""
+    g = np.random.default_rng(seed)
+    n = max(w, 4)
+    if layout == "one":
+        task_cls = np.zeros(t, np.int32)
+    elif layout == "singletons":
+        task_cls = np.minimum(np.arange(t), k - 1).astype(np.int32)
+        g.shuffle(task_cls)
+    else:
+        task_cls = g.integers(0, k, t).astype(np.int32)
+    cls_excl = (g.integers(-1, max(2, k // 3), k) if excl
+                else np.full(k, -1)).astype(np.int32)
+    active = g.random(t) < p_active
+    # feasible counts: none, some, all of the window and past it
+    n_feas = g.choice([0, 1, max(1, w // 3), w, w + 1 + w // 2], k).astype(np.int32)
+    levels = np.array([7.5, 3.0, 3.0, 0.0, -0.0, -0.0, 0.0, -1.25])
+    score = np.full((k, w), -np.inf)
+    order = np.zeros((k, w), np.int64)
+    for c in range(k):
+        f = min(int(n_feas[c]), w)
+        score[c, :f] = np.sort(g.choice(levels, f))[::-1]
+        order[c] = g.permutation(n)[:w]
+    idle = g.choice([0.0, 300.0, 1000.0, 4000.0, 16000.0], (n, 2))
+    req = g.choice([0.0, 100.0, 250.0, 1000.0], (k, 2))
+    dev = torch.device(device)
+    ft = lambda x: torch.tensor(x, dtype=dtype, device=dev)  # noqa: E731
+    it = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)  # noqa: E731
+    spec = _spec(binpack, excl)
+    enc = {"eps": ft([10.0, 10.0]),
+           "node_max_tasks": it(g.integers(1, 6, n))}
+    frac = ft(g.random(k)) if binpack else None
+    walk = R._cap_walk(spec, enc, it(order), ft(score), ft(req), it(cls_excl),
+                       torch.tensor(g.random(k) < 0.5, device=dev), frac,
+                       ft(idle), it(g.integers(0, 3, n)), t + 1)
+    corder = RK.class_order(it(task_cls), it(cls_excl))
+    args = (spec, corder, torch.tensor(active, device=dev), it(n_feas),
+            it(order), tuple(walk))
+    return args, {"coverage": coverage}
+
+
+# (label, select_case keyword arguments): the crafted select cases
+SELECT_CASES = (
+    ("window", dict(seed=1, t=300, k=8, w=16, coverage=True)),
+    ("window-binpack", dict(seed=2, t=300, k=8, w=16, binpack=True, coverage=True)),
+    ("window-excl", dict(seed=3, t=300, k=24, w=16, excl=True, coverage=True)),
+    ("window-binpack-excl", dict(seed=4, t=300, k=24, w=16, binpack=True,
+                                 excl=True, coverage=True)),
+    ("cover", dict(seed=5, t=500, k=6, w=200)),
+    ("one-class", dict(seed=6, t=3000, k=4, w=32, layout="one", coverage=True)),
+    ("singletons-excl", dict(seed=7, t=40, k=32, w=8, layout="singletons",
+                             excl=True, coverage=True)),
+    ("mostly-inactive", dict(seed=8, t=2500, k=3, w=64, p_active=0.05,
+                             coverage=True)),
+    ("width-1", dict(seed=9, t=64, k=4, w=1, coverage=True)),
+    ("wide-row", dict(seed=10, t=700, k=2, w=13000)),
+)
+
+
+def select_cases(device="cpu", dtype=torch.float64):
+    """[(label, args, kwargs)] of SELECT_CASES on ``device``."""
+    return [(label, *select_case(device=device, dtype=dtype, **kw))
+            for label, kw in SELECT_CASES]
+
+
+def commit_case(seed, t, n, j, q, s, r=2, *, excl=False, p_accept=0.4,
+                one_node=False, signed_zeros=False, pad=0, device="cpu",
+                dtype=torch.float64):
+    """One crafted commit call: (spec, tc, st, choice, accept, did_full,
+    ctl). Jobs own contiguous task ranges, as the encoder lays them out,
+    and ``pad`` padding tasks follow them (job, queue and namespace 0, no
+    request, never accepted), as the solver's buckets pad the task axis.
+    ``signed_zeros``: state rows of -0.0 (nodes, jobs, queues and
+    namespaces, some of which no task reaches) and -0.0 requests (the
+    last dimension's all of them), so that a row's sign of zero depends on
+    the unaccepted tasks' +0.0."""
+    g = np.random.default_rng(seed)
+    dev = torch.device(device)
+    ft = lambda x: torch.tensor(x, dtype=dtype, device=dev)  # noqa: E731
+    it = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)  # noqa: E731
+    # with signed zeros, the even jobs (job 0 among them) hold no task, and
+    # the last queue, the last namespace and half the nodes take none
+    jobs = np.arange(1, j, 2) if signed_zeros else np.arange(j)
+    counts = np.bincount(g.choice(jobs, t), minlength=j).astype(np.int32)
+    start = np.concatenate([[0], np.cumsum(counts)[:-1]]).astype(np.int32)
+    task_job = np.repeat(np.arange(j), counts).astype(np.int32)
+    job_queue = g.integers(0, max(1, q - signed_zeros), j)
+    job_ns = g.integers(0, max(1, s - signed_zeros), j)
+    groups = 3
+    task_excl = g.integers(-1, groups, t).astype(np.int32) if excl \
+        else np.full(t, -1, np.int32)
+    n_reach = n // 2 if signed_zeros else n
+    choice = (np.zeros(t) if one_node else g.integers(-1, n_reach, t)).astype(np.int32)
+    accept = (g.random(t) < p_accept) & (choice >= 0)
+    if excl:
+        # one accepted member of a group per node, as the winner scatter leaves it
+        seen = set()
+        for i in range(t):
+            key = (int(task_excl[i]), int(choice[i]))
+            if accept[i] and task_excl[i] >= 0:
+                if key in seen:
+                    accept[i] = False
+                seen.add(key)
+    vals = [0.0, 1.0, 0.1, 100.0, 333.3, 2.0 ** 24, 1e-3]
+    req_vals = [0.0, -0.0, -0.0, 1.0] if signed_zeros else vals
+    st = dict(
+        idle=ft(g.choice(vals, (n, r)) * 7.0), used=ft(g.choice(vals, (n, r))),
+        cnt=it(g.integers(0, 5, n)), assign=it(g.integers(-1, n, t)),
+        active=torch.tensor(accept | (g.random(t) < 0.5), device=dev),
+        job_placed=it(g.integers(0, 3, j)), job_alloc=ft(g.choice(vals, (j, r))),
+        queue_alloc=ft(g.choice(vals, (q, r))), ns_alloc=ft(g.choice(vals, (s, r))),
+        dirty=torch.tensor(g.random(n) < 0.5, device=dev))
+    if excl:
+        st["excl_occ"] = torch.tensor(g.random((groups, n)) < 0.2, device=dev)
+    if signed_zeros:
+        for name, rows in (("idle", slice(1, None, 3)), ("used", slice(0, None, 3)),
+                           ("job_alloc", slice(0, None, 2)),
+                           ("queue_alloc", slice(0, None, 2)),
+                           ("ns_alloc", slice(0, None, 2))):
+            st[name][rows] = -0.0
+        for name in ("queue_alloc", "ns_alloc"):
+            st[name][-1] = -0.0
+    task_req = g.choice(req_vals, (t, r))
+    if signed_zeros:
+        task_req[:, -1] = -0.0  # a dimension no task asks for
+    task_queue, task_ns = job_queue[task_job], job_ns[task_job]
+    if pad:
+        z = np.zeros(pad, np.int32)
+        task_job, task_queue, task_ns = (np.concatenate([x, z]).astype(np.int32)
+                                         for x in (task_job, task_queue, task_ns))
+        task_excl = np.concatenate([task_excl, z - 1]).astype(np.int32)
+        task_req = np.concatenate([task_req, np.zeros((pad, r))])
+        choice = np.concatenate([choice, z - 1]).astype(np.int32)
+        accept = np.concatenate([accept, np.zeros(pad, bool)])
+        for name in ("assign", "active"):
+            x = st[name]
+            st[name] = torch.cat([x, torch.full((pad,), -1 if name == "assign" else 0,
+                                                dtype=x.dtype, device=dev)])
+    tc = dict(task_req=ft(task_req), task_job=it(task_job),
+              task_queue=it(task_queue), task_ns=it(task_ns),
+              task_excl=it(task_excl), job_task_start=it(start),
+              job_task_count=it(counts))
+    ctl = torch.zeros(RK.CTL_LEN, dtype=torch.int32, device=dev)
+    did_full = torch.tensor(int(g.integers(0, 2)), dtype=torch.int64, device=dev)
+    return (_spec(False, excl), tc, st, it(choice), torch.tensor(accept, device=dev),
+            did_full, ctl)
+
+
+COMMIT_CASES = (
+    ("random", dict(seed=1, t=900, n=40, j=60, q=3, s=2)),
+    ("one-node-one-queue", dict(seed=2, t=2000, n=8, j=30, q=1, s=1, one_node=True,
+                                p_accept=0.9)),
+    ("none-accepted", dict(seed=3, t=300, n=16, j=20, q=2, s=2, p_accept=0.0)),
+    ("excl", dict(seed=4, t=600, n=32, j=40, q=4, s=3, excl=True)),
+    ("three-dims", dict(seed=5, t=700, n=24, j=50, q=2, s=5, r=3)),
+    ("signed-zeros", dict(seed=6, t=400, n=32, j=24, q=4, s=3, r=3,
+                          signed_zeros=True, pad=48)),
+)
+
+
+def commit_cases(device="cpu", dtype=torch.float64):
+    """[(label, args)] of COMMIT_CASES on ``device``."""
+    return [(label, commit_case(device=device, dtype=dtype, **kw))
+            for label, kw in COMMIT_CASES]
+
+
+def rollback_case(seed, roll=True, **kw):
+    """A crafted rollback call (spec, tc, st, roll_job, any_cand, ctl) on
+    a commit case's state after its commit: the job with the most placed
+    tasks retires (``roll``), or no job does."""
+    spec, tc, st, choice, accept, did_full, ctl = commit_case(seed, **kw)
+    RK.round_commit_plain(spec, tc, st, choice, accept, did_full, ctl)
+    j = st["job_placed"].shape[0]
+    roll_job = torch.zeros(j, dtype=torch.bool, device=ctl.device)
+    if roll:
+        roll_job[int(torch.argmax(st["job_placed"]))] = True
+    any_cand = torch.tensor(int(roll), dtype=torch.int64, device=ctl.device)
+    return spec, tc, st, roll_job, any_cand, ctl
+
+
+def rollback_cases(device="cpu", dtype=torch.float64):
+    """[(label, args)]: each COMMIT_CASES state with a job retired, and the
+    first with none."""
+    out = [(label, rollback_case(device=device, dtype=dtype, **kw))
+           for label, kw in COMMIT_CASES]
+    label, kw = COMMIT_CASES[0]
+    out.append((label + "-no-candidate",
+                rollback_case(roll=False, device=device, dtype=dtype, **kw)))
+    return out

@@ -1,0 +1,384 @@
+"""Where a warm graph round of the rounds solve (K7) spends the card's time.
+
+``python -m volcano_tpu_torch.bench.kernel_profile --kernel k7`` runs this
+on the card, for cfg2 (24 rounds, binpack, a GPU scalar dimension) and cfg5
+(one round and the full-width cover), both at full scale, float32, on the
+solver's own encode:
+
+1. A solve by the host-driven step machine (``loop="host"``: the same round
+   body, launched eagerly) under ``torch.profiler``, with a range around
+   each node group: K1 (``score_block``, ``_rescore_dirty``), K2
+   (``window_topk``), the ranks (K6), the capacity walk (K2b), the select
+   (K3), ``_resolve`` (its sort and K4), ``_queue_budget`` (its sort and
+   K5), and around the round, the rollback, the tail, the head and the
+   finish. A kernel belongs to the range its launch was issued in; the
+   round's kernels outside every group range are its commit. Each group's
+   kernel count and device time a round come from this run.
+2. A warm graph solve under the profiler. Its kernels, in the order the
+   card ran them, are matched against the host run's labelled launches by
+   name (same body code, same order; the graph adds K7a and the condition
+   kernels); the device time of each group inside the graph, the replay's
+   span, its busy time and idle share, the input copies before the replay
+   and the clones after it, and the kernels a round.
+3. Warm graph solves timed with CUDA events, the captured graph's per-body
+   launch counts (``utils/devprof``: hand-written kernels only), and K4 and
+   K5 timed on the first inputs the cfg2 run gave them (CUDA events, 20
+   calls after 3), beside their bytes bounds and plain versions.
+
+Where the profiler records no device time (its CUPTI tracing is untried on
+the machine), the lines say so and carry the CUDA-event numbers only.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import os
+import tempfile
+import time
+
+import torch
+
+MEM_BPS = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
+
+# node groups of a round: the rounds module's functions whose launches
+# each group owns (the parent's torch-op functions and this tree's kernel
+# wrappers both named, so one profile reads either tree)
+GROUPS = (
+    ("K1", ("score_block", "_rescore_dirty")),
+    ("K2", ("window_topk",)),
+    ("ranks (K6)", ("_job_rank", "_rank_in_class", "_excl_grank")),
+    ("capacity walk (K2b)", ("_cap_walk", "_nominate_full")),
+    ("select (K3)", ("_select", "round_select")),
+    ("resolve + K4", ("_resolve",)),
+    ("queue budget + K5", ("_queue_budget",)),
+)
+BODIES = ("_round", "_rollback", "_tail", "head", "finish")
+# hand-written kernels by a substring of their name, for graph kernels the
+# host run has no launch of (K7a, the condition kernels)
+KERNEL_NAMES = (
+    ("rounds_ctl", "K7a"), ("set_cond", "K7a"), ("tail_pass", "tail"),
+    ("score_block", "K1"), ("window_topk", "K2"), ("resolve_prefix", "resolve + K4"),
+    ("queue_budget", "queue budget + K5"), ("round_select", "select (K3)"),
+)
+CFGS = (2, 5)
+
+
+def smi_line() -> str:
+    import subprocess
+
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip()
+    return out.splitlines()[0]
+
+
+def solve_inputs(cfg, scale):
+    """(spec, staged encode) of the allocate solve a session of ``cfg``
+    prepares on the card (float32)."""
+    from volcano_tpu_torch.bench.clusters import CONFIGS, build_config, make_tiers
+    from volcano_tpu_torch.scheduler.framework import close_session, open_session
+    import volcano_tpu_torch.scheduler.actions  # noqa: F401
+    import volcano_tpu_torch.scheduler.plugins  # noqa: F401
+
+    cache, *_ = build_config(cfg, scale)
+    tiers = make_tiers(["tpuscore"], *CONFIGS[cfg].tiers, arguments={
+        "tpuscore": {"tpuscore.mode": "rounds", "tpuscore.device": "cuda",
+                     "tpuscore.dtype": "float32"}})
+    ssn = open_session(cache, tiers)
+    try:
+        prep = ssn.batch_allocator._prepare(ssn)
+    finally:
+        close_session(ssn)
+    if prep is None or prep["mode"] != "rounds":
+        raise RuntimeError(f"cfg{cfg}: no rounds solve prepared")
+    return prep["spec"], prep["staged"]
+
+
+@contextlib.contextmanager
+def group_ranges(keep_inputs=None):
+    """Wrap the rounds module's group functions and the machine's bodies in
+    profiler ranges named ``group:<name>`` and ``body:<name>``. A group
+    call inside another group's range is not wrapped again.
+    ``keep_inputs`` (a dict) takes the first inputs of K4 and K5."""
+    from torch.autograd.profiler import record_function
+
+    from volcano_tpu_torch.ops import rounds as R
+
+    real, depth = {}, [0]
+
+    def wrap(fn, label):
+        def inner(*a, **kw):
+            if depth[0]:
+                return fn(*a, **kw)
+            depth[0] += 1
+            try:
+                with record_function(label):
+                    return fn(*a, **kw)
+            finally:
+                depth[0] -= 1
+        return inner
+
+    def body(fn, label):
+        def inner(*a, **kw):
+            with record_function(label):
+                return fn(*a, **kw)
+        return inner
+
+    def keep(fn, name):
+        def inner(*a, **kw):
+            if keep_inputs is not None and name not in keep_inputs:
+                keep_inputs[name] = [x.clone() if isinstance(x, torch.Tensor) else x
+                                     for x in a]
+            return fn(*a, **kw)
+        return inner
+
+    for group, names in GROUPS:
+        for name in names:
+            if hasattr(R, name):
+                real[(R, name)] = getattr(R, name)
+                setattr(R, name, wrap(real[(R, name)], f"group:{group}"))
+    for name in ("resolve_prefix", "queue_budget"):
+        real[(R, name)] = getattr(R, name)
+        setattr(R, name, keep(real[(R, name)], name))
+    for name in BODIES:
+        real[(R.StepMachine, name)] = getattr(R.StepMachine, name)
+        setattr(R.StepMachine, name, body(real[(R.StepMachine, name)], f"body:{name}"))
+    try:
+        yield
+    finally:
+        for (owner, name), fn in real.items():
+            setattr(owner, name, fn)
+
+
+def _trace(prof):
+    """The profile's chrome trace as (kernels, launches by correlation, host
+    ranges): kernels as dicts with name, ts, dur, correlation."""
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            events = json.load(fh)
+    finally:
+        os.unlink(path)
+    if isinstance(events, dict):
+        events = events.get("traceEvents", [])
+    kernels, launches, ranges = [], {}, []
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        cat = e.get("cat", "")
+        args = e.get("args", {})
+        if cat in ("kernel", "gpu_memcpy", "gpu_memset"):
+            kernels.append({"name": e["name"], "ts": float(e["ts"]), "dur": float(e["dur"]),
+                            "corr": args.get("correlation")})
+        elif cat == "cuda_runtime" or cat == "cuda_driver":
+            launches[args.get("correlation")] = (e["name"], float(e["ts"]))
+        elif cat == "user_annotation" or (cat == "cpu_op" and ":" in e["name"]
+                                          and e["name"].split(":")[0] in ("group", "body")):
+            ranges.append((e["name"], float(e["ts"]), float(e["ts"]) + float(e["dur"])))
+    kernels.sort(key=lambda k: k["ts"])
+    return kernels, launches, ranges
+
+
+def _label_host(kernels, launches, ranges):
+    """Each kernel of the host run labelled by the innermost group or body
+    range its launch lies in: (name, label, dur)."""
+    groups = [r for r in ranges if r[0].startswith("group:")]
+    bodies = [r for r in ranges if r[0].startswith("body:")]
+    out = []
+    for k in kernels:
+        ts = launches.get(k["corr"], (None, None))[1]
+        label = "other"
+        if ts is not None:
+            g = next((r for r in groups if r[1] <= ts <= r[2]), None)
+            b = next((r for r in bodies if r[1] <= ts <= r[2]), None)
+            if g is not None:
+                label = g[0][len("group:"):]
+            elif b is not None:
+                label = {"body:_round": "commit", "body:_rollback": "rollback",
+                         "body:_tail": "tail", "body:head": "head",
+                         "body:finish": "finish"}[b[0]]
+        out.append((k["name"], label, k["dur"]))
+    return out
+
+
+def _by_name(name):
+    return next((lab for key, lab in KERNEL_NAMES if key in name), None)
+
+
+def _label_graph(graph_kernels, host_seq, window=64):
+    """Label the graph's kernels by matching them, in order, with the host
+    run's labelled sequence: the next host kernel of the same name within
+    ``window`` positions; else by the kernel's own name; else unattributed."""
+    out, p = [], 0
+    for k in graph_kernels:
+        lab = None
+        for q in range(p, min(p + window, len(host_seq))):
+            if host_seq[q][0] == k["name"]:
+                lab, p = host_seq[q][1], q + 1
+                break
+        if lab is None:
+            lab = _by_name(k["name"]) or "unattributed"
+        out.append((k, lab))
+    return out
+
+
+def _busy(kernels):
+    """The union of the kernels' intervals (us)."""
+    busy, end = 0.0, None
+    for k in sorted(kernels, key=lambda x: x["ts"]):
+        a, b = k["ts"], k["ts"] + k["dur"]
+        if end is None or a >= end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return busy
+
+
+def _profile(fn):
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, prof
+
+
+def _events_ms(fn, reps=5, warmup=1):
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def split_config(cfg, scale, card):
+    """Print and return the split of ``cfg``'s warm graph round."""
+    from volcano_tpu_torch import device as devmod
+    from volcano_tpu_torch.ops import rounds as R
+    from volcano_tpu_torch.ops import rounds_graph
+    from volcano_tpu_torch.ops import rounds_kernels as RK
+    from volcano_tpu_torch.utils import devprof
+
+    spec, enc = solve_inputs(cfg, scale)
+    # the host run, once to warm (kernel builds, lazy set-up), once profiled
+    kept = {}
+    R.solve(spec, enc, loop="host")
+    torch.cuda.synchronize()
+    with group_ranges(kept):
+        (raw, _), prof = _profile(lambda: R.solve(spec, enc, loop="host"))
+    rounds = max(int(raw[1]), 1)
+    kernels, launches, ranges = _trace(prof)
+    host_seq = _label_host(kernels, launches, ranges)
+    host_groups, by_name = {}, {}
+    for name, lab, dur in host_seq:
+        g = host_groups.setdefault(lab, {"kernels": 0, "device_ms": 0.0})
+        g["kernels"] += 1
+        g["device_ms"] += dur / 1e3
+        k = by_name.setdefault((lab, name[:80]), [0, 0.0])
+        k[0] += 1
+        k[1] += dur / 1e3
+    # each group's heaviest kernels (name, launches, device ms a solve)
+    host_top = {}
+    for (lab, name), (n, ms) in sorted(by_name.items(), key=lambda x: -x[1][1]):
+        if len(host_top.setdefault(lab, [])) < 4:
+            host_top[lab].append([name, n, ms])
+    # the graph: capture (cold), warm, then a profiled warm solve
+    packed = R.solve(spec, enc)[1]
+    devprof.fetch(packed)
+    graph = rounds_graph._GRAPHS[rounds_graph.graph_key(spec, enc)]
+    warm_ms = _events_ms(lambda: R.solve(spec, enc)[1])
+
+    (raw_g, _), gprof = _profile(lambda: R.solve(spec, enc))
+    gkernels, glaunches, _ = _trace(gprof)
+    # the replay's kernels: correlated with the graph launch, or with no
+    # host launch at all (the conditional bodies' nodes); the rest are the
+    # eager copies into the graph's inputs before it and the clones after
+    graph_ts = min((ts for name, ts in glaunches.values()
+                    if name.startswith("cudaGraphLaunch")), default=None)
+    replay, copies, clones = [], [], []
+    for k in gkernels:
+        name, ts = glaunches.get(k["corr"], ("", None))
+        if ts is None or name.startswith("cudaGraphLaunch"):
+            replay.append(k)
+        elif graph_ts is not None and ts < graph_ts:
+            copies.append(k)
+        else:
+            clones.append(k)
+    first = replay[0]["ts"] if replay else None
+    labelled = _label_graph(replay, host_seq)
+    graph_groups = {}
+    for k, lab in labelled:
+        g = graph_groups.setdefault(lab, {"kernels": 0, "device_ms": 0.0})
+        g["kernels"] += 1
+        g["device_ms"] += k["dur"] / 1e3
+    graph_groups["copies in"] = {"kernels": len(copies),
+                                 "device_ms": sum(k["dur"] for k in copies) / 1e3}
+    graph_groups["clones out"] = {"kernels": len(clones),
+                                  "device_ms": sum(k["dur"] for k in clones) / 1e3}
+    span = (max(k["ts"] + k["dur"] for k in replay) - first) / 1e3 if replay else None
+    busy = _busy(replay) / 1e3 if replay else None
+    round_kernels = sum(v["kernels"] for lab, v in graph_groups.items()
+                        if lab in dict(GROUPS) or lab == "commit")
+    rec = {
+        "kernel_profile": "k7", "config": cfg, "scale": scale, "card": card,
+        "T": enc["task_cls"].shape[0], "N": enc["node_idle"].shape[0],
+        "K": enc["cls_req"].shape[0], "window_k": spec.window_k,
+        "rounds": int(raw[1]), "full_sweeps": int(raw[3]),
+        "graph_equals_host": bool(all(torch.equal(a, b) for a, b in zip(raw_g, raw))),
+        "warm_solve_ms": warm_ms,
+        "profiler_device_time": bool(replay),
+        "replay_span_ms": span, "replay_busy_ms": busy,
+        "replay_idle_share": (1 - busy / span) if span else None,
+        "graph_kernels": len(replay),
+        "graph_round_kernels_a_round": round_kernels / rounds,
+        "graph_ms_a_round": {lab: v["device_ms"] / rounds for lab, v in graph_groups.items()},
+        "graph": graph_groups,
+        "host_run_ms_a_round": {lab: v["device_ms"] / rounds for lab, v in host_groups.items()},
+        "host_run": host_groups,
+        "host_run_top_kernels": host_top,
+        "body_launches": {"head": graph.head_counts, **graph.body_counts},
+    }
+    print(json.dumps(rec), flush=True)
+    # K4 and K5 on the inputs this config's path gave them
+    for name, plain, fn in (("resolve_prefix", RK.resolve_prefix_plain, RK.resolve_prefix),
+                            ("queue_budget", RK.queue_budget_plain, RK.queue_budget)):
+        args = kept.get(name)
+        if args is None:
+            continue
+        got, want = fn(*args), plain(*args)
+        torch.cuda.synchronize()
+        ms = _events_ms(lambda: fn(*args), reps=20, warmup=3)
+        t0 = time.perf_counter()
+        plain(*args)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        byts = sum(a.numel() * a.element_size() for a in args
+                   if isinstance(a, torch.Tensor)) + args[0].shape[0]
+        print(json.dumps({"kernel_profile": "k7", "config": cfg, "kernel": name,
+                          "card": card, "T": args[0].shape[0],
+                          "equal_plain": bool(torch.equal(got, want)), "ms": ms,
+                          "plain_ms": plain_ms, "bound_ms": byts / MEM_BPS * 1e3,
+                          "launches_a_solve": int(raw[1])}), flush=True)
+    devmod.reset_launches()
+    return rec
+
+
+def main(scale: float = 1.0) -> int:
+    if not torch.cuda.is_available():
+        raise RuntimeError("round_split: no CUDA device is available")
+    card = smi_line()
+    print(f"device: {card}", flush=True)
+    for cfg in CFGS:
+        split_config(cfg, scale, card)
+    return 0

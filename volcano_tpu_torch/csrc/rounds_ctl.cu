@@ -9,10 +9,10 @@
 // (`_ctl_fold_decide`), field for field.
 //
 // The solve is a flat step machine whose state is one int32 vector on the
-// card (the C_* layout below, mirrored from rounds_kernels.py). One thread
-// runs after every step: it folds the step's counters (placed, still
-// active, next dirty count, full sweep, rollback candidate) into the loop
-// state, then walks the phases (outer test, inner rounds, straggler set-up
+// card (the C_* layout of rounds_ctl.cuh, mirrored from rounds_kernels.py).
+// One thread runs after every step: it folds the step's counters (placed,
+// still active, next dirty count, full sweep, rollback candidate) into the
+// loop state, then walks the phases (outer test, inner rounds, straggler set-up
 // and rounds, tail, done) until it picks the next step, and writes the
 // step's predicates. Inside the solve's CUDA graph the steps run under a
 // WHILE node whose body gates each step kind with IF nodes; this kernel's
@@ -32,15 +32,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "rounds_ctl.cuh"
+
 namespace {
 
-enum {
-  C_ROUNDS, C_PROGRESS, C_TRIED, C_CAPPED, C_DEAD, C_EXTRA, C_PHASE,
-  C_FULL_SWEEPS, C_REMAINING, C_NDIRTY, C_STEPS, C_LAST, C_CONS,
-  C_TAIL_PLACED, C_PLACED, C_STILL, C_NDIRTY_NEXT, C_DID_FULL, C_ANY_CAND,
-  C_ERR, C_HIST
-};
-constexpr int kProfSlots = 64;
+using namespace rctl;
+
 enum { PH_INIT, PH_OUTER, PH_INNER, PH_STRAG_INIT, PH_STRAG, PH_TAIL, PH_DONE };
 enum { ST_NONE, ST_ROUND, ST_STRAG, ST_ROLLBACK, ST_TAIL };
 enum { P_ACTIVE, P_ROUND, P_CONS, P_FULL, P_DIRTY, P_ROLLBACK, P_TAIL, P_DONE };

@@ -41,6 +41,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "rounds_ctl.cuh"
 #include "score_common.cuh"
 
 // The argument block, field for field the ctypes structure
@@ -68,7 +69,6 @@ constexpr int kMaxR = 16;
 constexpr int kLevels = 5;  // three job-order keys, tie rank, task_in_job
 constexpr double kMinMilliScalar = 10.0;  // resource.MIN_MILLI_SCALAR
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kCtlTailPlaced = 13;  // rounds_kernels.C_TAIL_PLACED
 
 struct Lex {
   double k[kLevels];
@@ -317,7 +317,7 @@ __global__ void __launch_bounds__(kThreads) tail_kernel(TailParams p) {
     __syncthreads();
     if (!has) break;
   }
-  if (tid == 0) ((int32_t*)p.ctl)[kCtlTailPlaced] = placed;
+  if (tid == 0) ((int32_t*)p.ctl)[rctl::C_TAIL_PLACED] = placed;
 }
 
 template <typename F>

@@ -46,6 +46,8 @@ LAUNCHES: Dict[str, int] = {
     "rounds_ctl": 0,
     "tail_pass": 0,
     "probe_evict_fold": 0,
+    "round_select": 0,
+    "round_commit": 0,
 }
 
 _SINKS: List[Dict[str, int]] = []

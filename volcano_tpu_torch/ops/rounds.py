@@ -21,14 +21,19 @@ host with the plain controller and the plain tail.
 
 The kernel-shaped steps run through hand-written CUDA kernels on the card:
 K1 ``score_block`` (ops/kernels.py) for the full and the dirty-column
-score refresh, K2 ``window_topk``, K4 ``resolve_prefix``, K5
-``queue_budget``, K7a ``rounds_ctl`` and K7b ``tail_pass`` (the whole
-sequential tail in one launch; ops/rounds_kernels.py). Sorts,
-gathers and scatters around them are torch ops. Scatter-adds of float
-state use ``index_put_(accumulate=True)``, which accumulates the updates
-of one row in their original order on both devices (on CUDA it sorts the
-indices stably first instead of using atomics), so a solve is run-to-run
-deterministic and matches the reference's sequential scatter.
+score refresh, K2 ``window_topk``, K3 ``round_select`` (the select with K6's
+in-class and exclusion-group ranks and the window's coverage test, on the
+class order the head sorts once a solve), K4 ``resolve_prefix``, K5
+``queue_budget``, K7a ``rounds_ctl``, K7b ``tail_pass`` (the whole
+sequential tail in one launch) and K7c ``round_commit`` (the scatter-adds
+of a round's commit and of the rollback, each row's updates in task
+order; ops/rounds_kernels.py). Sorts, the job ranks, gathers and
+scatters around them are torch ops. On the CPU the
+scatter-adds of float state use ``index_put_(accumulate=True)``, which
+adds a row's updates one after another in task order, to the row's value,
+as the reference's sequential scatter does; on the card K7c does the same
+in one launch (torch's CUDA ``index_put_`` sums a row's duplicates first
+and adds the sum, another rounding). A solve is run-to-run deterministic.
 """
 
 from __future__ import annotations
@@ -48,6 +53,9 @@ from volcano_tpu_torch.ops.rounds_kernels import (
     INT32_MAX,
     queue_budget,
     resolve_prefix,
+    round_commit,
+    round_rollback,
+    round_select,
     window_topk,
 )
 from volcano_tpu_torch.utils import devprof
@@ -86,17 +94,6 @@ def _pair_order(primary: torch.Tensor, secondary: torch.Tensor):
     key = primary.to(torch.int64) * (1 << 32) + (secondary.to(torch.int64)
                                                  + (1 << 31))
     return torch.argsort(key, stable=True)
-
-
-def _scatter_add(base, idx, vals):
-    """base.at[idx].add(vals): updates of one row land in index order."""
-    return base.index_put((idx,), vals, accumulate=True)
-
-
-def _scatter_any(size, idx, vals):
-    """zeros(size, bool).at[idx].max(vals)."""
-    out = torch.zeros(size, dtype=torch.int8, device=idx.device)
-    return out.scatter_reduce(0, idx, vals.to(torch.int8), "amax").bool()
 
 
 def _to_i32(x):
@@ -215,88 +212,6 @@ def _nominate_full(spec: SolveSpec, enc, scores, idle, cnt, cls_frac, t_cap):
             cls_frac[sl] if spec.use_binpack else None, idle, cnt, t_cap)
         outs.append((order,) + walk)
     return tuple(torch.cat([o[i] for o in outs], dim=0) for i in range(5))
-
-
-def _excl_grank(enc, cls_live):
-    """Rank of each class among its exclusion group's LIVE classes, lower
-    class index first (one stable argsort + segmented prefix count)."""
-    exl_all = enc["cls_excl"]
-    perm = torch.argsort(exl_all, stable=True)
-    sorted_gid = exl_all[perm]
-    sorted_live = cls_live[perm].to(torch.int32)
-    prefix = torch.cumsum(sorted_live, dim=0).to(torch.int32) - sorted_live
-    seg_start = torch.ones_like(sorted_live, dtype=torch.bool)
-    seg_start[1:] = sorted_gid[1:] != sorted_gid[:-1]
-    seg_base = torch.cummax(torch.where(seg_start, prefix,
-                                        torch.zeros_like(prefix)), dim=0).values
-    out = torch.zeros(exl_all.shape[0], dtype=torch.int32, device=exl_all.device)
-    out[perm] = (prefix - seg_base).to(torch.int32)
-    return out
-
-
-def _rank_in_class(task_cls, active):
-    """Rank of each ACTIVE task within its class, in flat order: sort by
-    (class, inactive-last, flat index), position inside the segment."""
-    t_total = task_cls.shape[0]
-    idxs = torch.arange(t_total, dtype=torch.int32, device=task_cls.device)
-    ordix = _lexsort([idxs, ~active, task_cls])
-    sorted_cls = task_cls[ordix]
-    sorted_act = active[ordix]
-    seg_start = torch.ones(t_total, dtype=torch.bool, device=task_cls.device)
-    seg_start[1:] = (sorted_cls[1:] != sorted_cls[:-1]) \
-        | (sorted_act[1:] != sorted_act[:-1])
-    start_idx = torch.cummax(torch.where(seg_start, idxs,
-                                         torch.zeros_like(idxs)), dim=0).values
-    out = torch.zeros(t_total, dtype=torch.int32, device=task_cls.device)
-    out[ordix] = idxs - start_idx
-    return out
-
-
-def _select(spec: SolveSpec, enc, task_cls, active, rank, n_feas, grank,
-            order, ccap, g_start, g_size, ccap_before):
-    """Per-task node choice from an ordered per-class candidate axis of
-    width W: binary search of the task's rank in its class's cumulative
-    capacity, rotation within equal-score groups (not under binpack),
-    exclusion spread. Returns (choice, cons_choice, slot, final)."""
-    width = order.shape[1]
-    tk = task_cls.long()
-    t_total = tk.shape[0]
-    dev = tk.device
-    lo = torch.zeros(t_total, dtype=torch.int32, device=dev)
-    hi = torch.full((t_total,), width, dtype=torch.int32, device=dev)
-    for _ in range(max(1, int(width).bit_length())):
-        mid = (lo + hi) // 2
-        go_right = ccap[tk, torch.clamp(mid, max=width - 1).long()] <= rank
-        lo = torch.where(go_right, mid + 1, lo)
-        hi = torch.where(go_right, hi, mid)
-    slot = lo
-    nf = n_feas[tk]
-    overflow = slot >= nf
-    slot_c = torch.clamp(slot, 0, width - 1)
-    slot_l = slot_c.long()
-    if spec.use_binpack and not spec.use_exclusion:
-        final = slot_c
-    else:
-        gs = g_start[tk, slot_l]
-        gz = torch.clamp(g_size[tk, slot_l], min=1)
-        local = rank - ccap_before[tk, slot_l]
-        rotated = gs + (torch.clamp(local, min=0) % gz)
-        if spec.use_binpack:
-            is_excl = enc["cls_excl"][tk] >= 0
-            final = torch.where(is_excl, rotated, slot_c)
-        else:
-            final = rotated
-    if spec.use_exclusion:
-        is_exg = enc["cls_excl"][tk] >= 0
-        spread = torch.minimum(
-            torch.clamp(final + grank[tk], min=0),
-            torch.clamp(nf - 1, min=0))
-        final = torch.where(is_exg, spread, final)
-    choice = order[tk, torch.clamp(final, 0, width - 1).long()]
-    feasible = (nf > 0) & ~overflow & active
-    minus1 = torch.full_like(choice, -1)
-    cons_choice = torch.where((nf > 0) & active, order[tk, 0], minus1)
-    return torch.where(feasible, choice, minus1), cons_choice, slot, final
 
 
 def _quantize(enc):
@@ -523,6 +438,14 @@ class StepMachine:
         )
         d = _Dims(enc)
         self.enc, self.d = enc, d
+        # the class order of the round's select, once a solve (K3), and the
+        # task columns of its commit and of the rollback (K7c)
+        self.corder = RK.class_order(d.task_cls, enc["cls_excl"])
+        self.tcols = dict(task_req=enc["task_req"], task_job=d.task_job,
+                          task_queue=d.task_queue, task_ns=d.task_ns,
+                          task_excl=d.task_excl,
+                          job_task_start=enc["job_task_start"],
+                          job_task_count=enc["job_task_count"])
         # what the tail kernel reads beside the encode
         self.tenc = dict(enc, task_queue=d.task_queue, task_ns=d.task_ns,
                          task_in_job=d.task_in_job, task_excl=d.task_excl,
@@ -614,15 +537,12 @@ class StepMachine:
             full()
         n_feas = torch.sum(scores > float("-inf"), dim=-1).to(torch.int32)
 
-        cls_live = _scatter_any(d.k, d.task_cls_l, active)
         cls_frac = None
         if spec.use_binpack:
             cls_demand = torch.zeros(d.k, dtype=torch.int32, device=d.dev) \
                 .index_add_(0, d.task_cls_l, active.to(torch.int32))
             cls_frac = cls_demand.to(d.dt) / torch.clamp(
                 torch.sum(cls_demand), min=1).to(d.dt)
-        grank = _excl_grank(enc, cls_live) if spec.use_exclusion else None
-        rank = _rank_in_class(d.task_cls, active)
         excl_cls = enc["cls_excl"] if spec.use_exclusion else None
 
         if spec.window_k > 0:
@@ -630,22 +550,10 @@ class StepMachine:
             top_s, top_i = window_topk(scores, k_eff)
             nom_w = _cap_walk(spec, enc, top_i, top_s, enc["cls_req"], excl_cls,
                               enc["cls_has_pod"], cls_frac, idle, cnt, t_cap)
-            choice_w, cons_choice, slot_w, final_w = _select(
-                spec, enc, d.task_cls, active, rank, n_feas, grank, top_i, *nom_w)
-            # coverage bit: is the windowed answer provably full-width?
-            g_start_w = nom_w[1]
-            all_in = n_feas <= k_eff
-            full_k = torch.full((d.k,), k_eff, dtype=torch.int32, device=d.dev)
-            if spec.use_binpack and not spec.use_exclusion:
-                safe_end = full_k
-            elif spec.use_binpack:
-                safe_end = torch.where(enc["cls_excl"] >= 0,
-                                       g_start_w[:, k_eff - 1], full_k)
-            else:
-                safe_end = g_start_w[:, k_eff - 1]
-            safe_end = torch.where(all_in, full_k, safe_end)[d.task_cls_l]
-            exact = all_in[d.task_cls_l] | ((slot_w < safe_end) & (final_w < safe_end))
-            uncovered = _scatter_any(d.k, d.task_cls_l, active & ~exact)
+            # the select, and the coverage bit: is the windowed answer
+            # provably full-width?
+            choice_w, cons_choice, _, _, uncovered = round_select(
+                spec, self.corder, active, n_feas, top_i, nom_w, coverage=True)
             # stall rounds take cons_choice (exact by construction), so only
             # a real windowed round falls back to the full width
             run_full = torch.any(uncovered) & ~cons
@@ -654,8 +562,8 @@ class StepMachine:
             def cover():
                 nom_f = _nominate_full(spec, enc, scores, idle, cnt, cls_frac,
                                        t_cap)
-                self.choice_full.copy_(_select(spec, enc, d.task_cls, active, rank,
-                                               n_feas, grank, *nom_f)[0])
+                self.choice_full.copy_(round_select(
+                    spec, self.corder, active, n_feas, nom_f[0], nom_f[1:])[0])
 
             self._gate(run_full, "cover", cover)
             choice = torch.where(uncovered[d.task_cls_l], self.choice_full,
@@ -667,8 +575,8 @@ class StepMachine:
             did_full = run_full.to(torch.int64)
         else:
             nom_f = _nominate_full(spec, enc, scores, idle, cnt, cls_frac, t_cap)
-            choice, cons_choice, _, _ = _select(
-                spec, enc, d.task_cls, active, rank, n_feas, grank, *nom_f)
+            choice, cons_choice, _, _, _ = round_select(
+                spec, self.corder, active, n_feas, nom_f[0], nom_f[1:])
             did_full = torch.ones((), dtype=torch.int64, device=d.dev)
             touched = torch.ones_like(st["touched"])
         choice = torch.where(cons, cons_choice, choice)
@@ -691,30 +599,10 @@ class StepMachine:
             accept = _queue_budget(enc, st["queue_alloc"], accept, task_rank,
                                    d.task_queue, d.task_job)
 
-        node = torch.clamp(choice, 0, d.n - 1).long()
-        dreq = torch.where(accept[:, None], enc["task_req"],
-                           torch.zeros_like(enc["task_req"]))
-        acc_i = accept.to(torch.int32)
-        dirty = _scatter_any(d.n, node, accept)
-        if spec.use_exclusion:
-            g_flat = torch.clamp(task_excl, min=0).long() * d.n + node
-            occ_flat = occ.reshape(-1).to(torch.int8).scatter_reduce(
-                0, g_flat, (accept & (task_excl >= 0)).to(torch.int8), "amax")
-            occ.copy_(occ_flat.bool().reshape(occ.shape))
-        # the commit, in place: the updates of one row land in index order
-        idle.index_put_((node,), -dreq, accumulate=True)
-        used.index_put_((node,), dreq, accumulate=True)
-        cnt.index_add_(0, node, acc_i)
-        st["assign"].copy_(torch.where(accept, choice, st["assign"]))
-        st["active"].logical_and_(~accept)
-        st["job_placed"].index_add_(0, d.task_job_l, acc_i)
-        st["job_alloc"].index_put_((d.task_job_l,), dreq, accumulate=True)
-        st["queue_alloc"].index_put_((d.task_queue_l,), dreq, accumulate=True)
-        st["ns_alloc"].index_put_((d.task_ns_l,), dreq, accumulate=True)
-        st["dirty"].copy_(dirty)
+        # the commit (K7c): state updated in place, the counters into
+        # ctl[C_PLACED .. C_DID_FULL]
+        round_commit(spec, self.tcols, st, choice, accept, did_full, self.ctl)
         st["touched"].copy_(touched)
-        self.ctl[RK.C_PLACED:RK.C_DID_FULL + 1] = torch.stack([
-            acc_i.sum(), st["active"].sum(), dirty.sum(), did_full])
 
     def _rollback(self) -> None:
         """Retire the WORST-ranked gang still short of min_available
@@ -728,32 +616,10 @@ class StepMachine:
         worst = torch.argmax(torch.where(cand, job_rank,
                                          torch.full_like(job_rank, -1)))
         roll_job = cand & (torch.arange(d.j, device=d.dev) == worst)
-        dead_task = roll_job[d.task_job_l]
-        roll = dead_task & (st["assign"] >= 0)
-        node = torch.clamp(st["assign"], 0, d.n - 1).long()
-        dreq = torch.where(roll[:, None], enc["task_req"],
-                           torch.zeros_like(enc["task_req"]))
-        if spec.use_exclusion:
-            # free the rolled members' group slots
-            occ = st["excl_occ"]
-            g_flat = torch.clamp(d.task_excl, min=0).long() * d.n + node
-            occ_flat = occ.reshape(-1).to(torch.int8).scatter_reduce(
-                0, g_flat, (~(roll & (d.task_excl >= 0))).to(torch.int8), "amin")
-            occ.copy_(occ_flat.bool().reshape(occ.shape))
-        st["idle"].index_put_((node,), dreq, accumulate=True)
-        st["used"].index_put_((node,), -dreq, accumulate=True)
-        st["cnt"].index_add_(0, node, -roll.to(torch.int32))
-        st["assign"].masked_fill_(roll, -1)
-        st["active"].logical_and_(~dead_task)
-        st["job_placed"].masked_fill_(roll_job, 0)
-        st["job_alloc"].index_put_((d.task_job_l,), -dreq, accumulate=True)
-        st["queue_alloc"].index_put_((d.task_queue_l,), -dreq, accumulate=True)
-        st["ns_alloc"].index_put_((d.task_ns_l,), -dreq, accumulate=True)
-        st["dirty"].logical_or_(_scatter_any(d.n, node, roll))
-        zero = torch.zeros((), dtype=torch.int64, device=d.dev)
-        self.ctl[RK.C_STILL:RK.C_ANY_CAND + 1] = torch.stack([
-            st["active"].sum(), st["dirty"].sum(), zero,
-            cand.any().to(torch.int64)])
+        # its placed tasks given back (K7c's rollback mode): state updated in
+        # place, the counters into ctl[C_STILL .. C_ANY_CAND]
+        round_rollback(spec, self.tcols, st, roll_job,
+                       cand.any().to(torch.int64), self.ctl)
 
     def _tail(self) -> None:
         """The sequential tail pass (K7b; the plain version on the host

@@ -1,6 +1,8 @@
-"""K2 window_topk, K4 resolve_prefix, K5 queue_budget, K7a rounds_ctl and
-K7b tail_pass: the wrappers of the hand-written CUDA kernels of the rounds
-solver, each beside its plain PyTorch version.
+"""K2 window_topk, K3 round_select (with K6's in-class and exclusion-group
+ranks), K4 resolve_prefix, K5 queue_budget, K7a rounds_ctl, K7b tail_pass
+and K7c round_commit (the round's commit and the rollback's undo): the
+wrappers of the hand-written CUDA kernels of the rounds solver, each
+beside its plain PyTorch version.
 
 A wrapper launches its kernel (csrc/<name>.cu) for CUDA tensors, raising
 when it cannot, and runs the plain version for CPU tensors; it never falls
@@ -98,6 +100,235 @@ def window_topk_launch(scores, k, top_s, top_i, scratch) -> None:
     if rc != 0:
         raise RuntimeError(f"window_topk kernel launch failed: CUDA error {rc}")
     devmod.count_launch("window_topk")
+
+
+# each kernel library's entry points, their argtypes set once a library
+_FNS: dict = {}
+
+
+def _entry(lib_name, *fn_names, argtypes):
+    """The named entry points of the kernel library, argtypes set once."""
+    from volcano_tpu_torch import _build
+
+    lib = _build.library(lib_name)
+    fns = _FNS.get((lib, fn_names))
+    if fns is None:
+        fns = tuple(getattr(lib, n) for n in fn_names)
+        for fn in fns:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _FNS[(lib, fn_names)] = fns
+    return fns
+
+
+# -- K3 with K6's ranks: the round's task-axis select --------------------------
+
+SELECT_CHUNK = 1024  # tasks a CTA of csrc/round_select.cu takes (kChunk)
+
+
+def class_order(task_cls, cls_excl):
+    """The solve's class order, computed once in its head (a task's class
+    never changes within a solve): ``perm`` the tasks stably sorted by
+    class (one torch sort), ``cls_s`` their classes, ``off`` [K+1] each
+    class's first position, ``chunk_first`` [K+1] each class's first chunk
+    of SELECT_CHUNK tasks; for the exclusion groups, ``excl_perm`` the
+    classes stably sorted by group, ``excl_start`` the first position of
+    each class's group there, ``excl_pos`` the class's own position; and
+    ``task_cls`` and ``cls_excl`` themselves."""
+    k = cls_excl.shape[0]
+    dev = task_cls.device
+    i32 = torch.int32
+    cls_s, perm = torch.sort(task_cls, stable=True)
+    classes = torch.arange(k + 1, dtype=cls_s.dtype, device=dev)
+    off = torch.searchsorted(cls_s, classes, out_int32=True)
+    n_chunks = (off[1:] - off[:-1] + SELECT_CHUNK - 1) // SELECT_CHUNK
+    chunk_first = torch.cat([torch.zeros(1, dtype=i32, device=dev),
+                             torch.cumsum(n_chunks, 0).to(i32)])
+    ex_s, excl_perm = torch.sort(cls_excl, stable=True)
+    excl_pos = torch.empty(k, dtype=i32, device=dev).scatter_(
+        0, excl_perm, torch.arange(k, dtype=i32, device=dev))
+    return dict(
+        task_cls=task_cls, cls_excl=cls_excl, perm=perm.to(i32), cls_s=cls_s,
+        off=off, chunk_first=chunk_first, excl_perm=excl_perm.to(i32),
+        excl_start=torch.searchsorted(ex_s, cls_excl, out_int32=True),
+        excl_pos=excl_pos)
+
+
+def rank_in_class(corder, active):
+    """(rank, live): each task's rank within its class in flat order,
+    active and inactive tasks counted apart (volcano_tpu/ops/rounds.py:319
+    ``_rank_in_class``), by a scan of ``active`` along the class order;
+    and each class's live bit (an active task)."""
+    perm, off = corder["perm"].long(), corder["off"].long()
+    cls_s = corder["cls_s"].long()
+    act = active[perm]
+    a64 = act.to(torch.int64)
+    cum0 = torch.cat([torch.zeros(1, dtype=torch.int64, device=act.device),
+                      torch.cumsum(a64, 0)])
+    base = cum0[off]                               # active before each class
+    ahead = cum0[:-1] - base[cls_s]                # active before, in class
+    pos = torch.arange(perm.shape[0], dtype=torch.int64, device=act.device)
+    in_cls = pos - off[cls_s]
+    rank_s = torch.where(act, ahead, in_cls - ahead).to(torch.int32)
+    rank = torch.empty_like(rank_s).scatter_(0, perm, rank_s)
+    return rank, (base[1:] - base[:-1]) > 0
+
+
+def excl_grank(corder, live):
+    """Rank of each class among its exclusion group's live classes, lower
+    class index first (volcano_tpu/ops/rounds.py:293 ``_excl_grank``), on
+    the head's group order."""
+    sl = live[corder["excl_perm"].long()].to(torch.int64)
+    prefix = torch.cumsum(sl, 0) - sl
+    return (prefix[corder["excl_pos"].long()]
+            - prefix[corder["excl_start"].long()]).to(torch.int32)
+
+
+def select_plain(spec, cls_excl, task_cls, active, rank, n_feas, grank, order,
+                 ccap, g_start, g_size, ccap_before):
+    """Per-task node choice from an ordered per-class candidate axis of
+    width W (volcano_tpu/ops/rounds.py:336 ``_select``): binary search of
+    the task's rank in its class's cumulative capacity, rotation within
+    equal-score groups (not under binpack), exclusion spread. Returns
+    (choice, cons_choice, slot, final)."""
+    width = order.shape[1]
+    tk = task_cls.long()
+    t_total = tk.shape[0]
+    dev = tk.device
+    lo = torch.zeros(t_total, dtype=torch.int32, device=dev)
+    hi = torch.full((t_total,), width, dtype=torch.int32, device=dev)
+    for _ in range(max(1, int(width).bit_length())):
+        mid = (lo + hi) // 2
+        go_right = ccap[tk, torch.clamp(mid, max=width - 1).long()] <= rank
+        lo = torch.where(go_right, mid + 1, lo)
+        hi = torch.where(go_right, hi, mid)
+    slot = lo
+    nf = n_feas[tk]
+    overflow = slot >= nf
+    slot_c = torch.clamp(slot, 0, width - 1)
+    slot_l = slot_c.long()
+    if spec.use_binpack and not spec.use_exclusion:
+        final = slot_c
+    else:
+        gs = g_start[tk, slot_l]
+        gz = torch.clamp(g_size[tk, slot_l], min=1)
+        local = rank - ccap_before[tk, slot_l]
+        rotated = gs + (torch.clamp(local, min=0) % gz)
+        if spec.use_binpack:
+            is_excl = cls_excl[tk] >= 0
+            final = torch.where(is_excl, rotated, slot_c)
+        else:
+            final = rotated
+    if spec.use_exclusion:
+        is_exg = cls_excl[tk] >= 0
+        spread = torch.minimum(
+            torch.clamp(final + grank[tk], min=0),
+            torch.clamp(nf - 1, min=0))
+        final = torch.where(is_exg, spread, final)
+    choice = order[tk, torch.clamp(final, 0, width - 1).long()]
+    feasible = (nf > 0) & ~overflow & active
+    minus1 = torch.full_like(choice, -1)
+    cons_choice = torch.where((nf > 0) & active, order[tk, 0], minus1)
+    return torch.where(feasible, choice, minus1), cons_choice, slot, final
+
+
+def coverage_plain(spec, cls_excl, task_cls, active, n_feas, g_start, slot,
+                   final):
+    """The window's coverage test (volcano_tpu/ops/rounds.py:766-786): a
+    class is uncovered when an active task's windowed answer is not
+    provably the full-width one. Returns bool [K]."""
+    k_total, width = g_start.shape
+    tk = task_cls.long()
+    all_in = n_feas <= width
+    full_k = torch.full((k_total,), width, dtype=torch.int32, device=tk.device)
+    if spec.use_binpack and not spec.use_exclusion:
+        safe_end = full_k
+    elif spec.use_binpack:
+        safe_end = torch.where(cls_excl >= 0, g_start[:, width - 1], full_k)
+    else:
+        safe_end = g_start[:, width - 1]
+    safe_end = torch.where(all_in, full_k, safe_end)[tk]
+    exact = all_in[tk] | ((slot < safe_end) & (final < safe_end))
+    bad = (active & ~exact).to(torch.int8)
+    return torch.zeros(k_total, dtype=torch.int8, device=tk.device).scatter_reduce(
+        0, tk, bad, "amax").bool()
+
+
+def round_select_plain(spec, corder, active, n_feas, order, walk, coverage=False):
+    """Plain version of K3 with K6's ranks: the in-class ranks and the
+    exclusion-group ranks on the head's class order, the select, and (on
+    the window, ``coverage``) the uncovered classes. Returns (choice,
+    cons_choice, slot, final, uncovered or None)."""
+    task_cls, cls_excl = corder["task_cls"], corder["cls_excl"]
+    rank, live = rank_in_class(corder, active)
+    grank = excl_grank(corder, live) if spec.use_exclusion else None
+    sel = select_plain(spec, cls_excl, task_cls, active, rank, n_feas, grank,
+                       order, *walk)
+    unc = None
+    if coverage:
+        unc = coverage_plain(spec, cls_excl, task_cls, active, n_feas, walk[1],
+                             sel[2], sel[3])
+    return sel + (unc,)
+
+
+class _SelArgs(ctypes.Structure):
+    _fields_ = ([(name, ctypes.c_void_p) for name in (
+        "perm", "off", "chunk_first", "excl_perm", "excl_start", "excl_pos",
+        "cls_excl", "active", "n_feas", "order", "ccap", "g_start", "g_size",
+        "ccap_before", "choice", "cons_choice", "slot", "final_", "uncovered")]
+        + [(name, ctypes.c_int) for name in (
+            "T", "K", "W", "steps", "flags", "chunk")])
+
+
+def round_select(spec, corder, active, n_feas, order, walk, coverage=False):
+    """K3 with K6's ranks (csrc/round_select.cu, a CTA a chunk of a class's
+    tasks) on CUDA, the plain version on the CPU; the same arguments and
+    results as ``round_select_plain``. ``walk`` is K2b's (ccap, g_start,
+    g_size, ccap_before) over ``order`` [K, W]. The outputs are its only
+    memory (allocated from the graph's pool while a solve is captured)."""
+    if not devmod.on_cuda(active, order, n_feas):
+        return round_select_plain(spec, corder, active, n_feas, order, walk,
+                                  coverage)
+    k_total, width = order.shape
+    t_total = active.shape[0]
+    i32 = torch.int32
+    cls_excl = corder["cls_excl"]
+    _same_device(order, active=active, n_feas=n_feas, cls_excl=cls_excl,
+                 perm=corder["perm"])
+    _check(active, "active", torch.bool, (t_total,))
+    _check(n_feas, "n_feas", i32, (k_total,))
+    _check(cls_excl, "cls_excl", i32, (k_total,))
+    for name, t in zip(("order", "ccap", "g_start", "g_size", "ccap_before"),
+                       (order,) + tuple(walk)):
+        _check(t, name, i32, (k_total, width))
+    for name, shape in (("perm", (t_total,)), ("off", (k_total + 1,)),
+                        ("chunk_first", (k_total + 1,)), ("excl_perm", (k_total,)),
+                        ("excl_start", (k_total,)), ("excl_pos", (k_total,))):
+        _check(corder[name], name, i32, shape)
+    out = torch.empty((4, t_total), dtype=i32, device=order.device)
+    unc = torch.empty(k_total, dtype=torch.bool, device=order.device) if coverage else None
+    a = _SelArgs(
+        perm=corder["perm"].data_ptr(), off=corder["off"].data_ptr(),
+        chunk_first=corder["chunk_first"].data_ptr(),
+        excl_perm=corder["excl_perm"].data_ptr(),
+        excl_start=corder["excl_start"].data_ptr(),
+        excl_pos=corder["excl_pos"].data_ptr(), cls_excl=cls_excl.data_ptr(),
+        active=active.data_ptr(), n_feas=n_feas.data_ptr(),
+        order=order.data_ptr(), ccap=walk[0].data_ptr(),
+        g_start=walk[1].data_ptr(), g_size=walk[2].data_ptr(),
+        ccap_before=walk[3].data_ptr(), choice=out[0].data_ptr(),
+        cons_choice=out[1].data_ptr(), slot=out[2].data_ptr(),
+        final_=out[3].data_ptr(), uncovered=unc.data_ptr() if coverage else None,
+        T=t_total, K=k_total, W=width, steps=max(1, int(width).bit_length()),
+        flags=int(spec.use_binpack) | 2 * int(spec.use_exclusion) | 4 * int(coverage),
+        chunk=SELECT_CHUNK)
+    fn, = _entry("round_select", "round_select",
+                 argtypes=[ctypes.POINTER(_SelArgs), ctypes.c_void_p])
+    rc = fn(ctypes.byref(a), devmod.raw_stream(order.device))
+    if rc != 0:
+        raise RuntimeError(f"round_select kernel launch failed: CUDA error {rc}")
+    devmod.count_launch("round_select")
+    return out[0], out[1], out[2], out[3], unc
 
 
 # -- segment helpers of the plain scans --------------------------------------
@@ -238,6 +469,189 @@ def queue_budget(q_s, job_s, req_s, acc_s, alloc_i, bound, is_scalar):
         raise RuntimeError(f"queue_budget kernel launch failed: CUDA error {rc}")
     devmod.count_launch("queue_budget")
     return out
+
+
+# -- K7c: the round's commit and the rollback's undo ------------------------------
+
+def round_commit_plain(spec, tc, st, choice, accept, did_full, ctl) -> None:
+    """Plain version of K7c: the commit of one round (volcano_tpu/ops/
+    rounds.py:838-870). The accepted tasks' requests are scatter-added
+    into idle (subtracted), used, job_alloc, queue_alloc and ns_alloc
+    with ``index_put_(accumulate=True)``, which on the CPU adds a row's
+    updates one after another in task order, to the row's value, as XLA's
+    scatter does (float64 always; float32 on one thread: past 32k
+    elements torch adds float32 rows with atomics from several threads);
+    then the counts, assign, active, the exclusion occupancy and the dirty
+    columns; the counters go to ctl[C_PLACED .. C_DID_FULL]. ``tc`` holds
+    the task columns task_req, task_job, task_queue, task_ns, task_excl,
+    job_task_start and job_task_count; ``st`` is updated in place."""
+    n = st["idle"].shape[0]
+    node = torch.clamp(choice, 0, n - 1).long()
+    req = tc["task_req"]
+    dreq = torch.where(accept[:, None], req, torch.zeros_like(req))
+    acc_i = accept.to(torch.int32)
+    dirty = torch.zeros(n, dtype=torch.int8, device=node.device).scatter_reduce(
+        0, node, accept.to(torch.int8), "amax").bool()
+    if spec.use_exclusion:
+        occ, task_excl = st["excl_occ"], tc["task_excl"]
+        g_flat = torch.clamp(task_excl, min=0).long() * n + node
+        occ_flat = occ.reshape(-1).to(torch.int8).scatter_reduce(
+            0, g_flat, (accept & (task_excl >= 0)).to(torch.int8), "amax")
+        occ.copy_(occ_flat.bool().reshape(occ.shape))
+    st["idle"].index_put_((node,), -dreq, accumulate=True)
+    st["used"].index_put_((node,), dreq, accumulate=True)
+    st["cnt"].index_add_(0, node, acc_i)
+    st["assign"].copy_(torch.where(accept, choice, st["assign"]))
+    st["active"].logical_and_(~accept)
+    job = tc["task_job"].long()
+    st["job_placed"].index_add_(0, job, acc_i)
+    st["job_alloc"].index_put_((job,), dreq, accumulate=True)
+    st["queue_alloc"].index_put_((tc["task_queue"].long(),), dreq, accumulate=True)
+    st["ns_alloc"].index_put_((tc["task_ns"].long(),), dreq, accumulate=True)
+    st["dirty"].copy_(dirty)
+    ctl[C_PLACED:C_DID_FULL + 1] = torch.stack([
+        acc_i.sum(), st["active"].sum(), dirty.sum(), did_full])
+
+
+def round_rollback_plain(spec, tc, st, roll_job, any_cand, ctl) -> None:
+    """Plain version of K7c's rollback mode: the scatters of the rollback
+    (volcano_tpu/ops/rounds.py:886-922) once the gang to retire is chosen.
+    ``roll_job`` [J] bool marks it (or nothing); its placed tasks' requests
+    go back into their nodes and allocations (``index_put_``, as in
+    ``round_commit_plain``), their assignments are cleared, the gang's
+    tasks leave the active set, the freed nodes join the dirty set; the
+    counters go to ctl[C_STILL .. C_ANY_CAND] (``any_cand``: a 0-d int64,
+    whether any gang was a candidate)."""
+    n = st["idle"].shape[0]
+    job = tc["task_job"].long()
+    dead_task = roll_job[job]
+    roll = dead_task & (st["assign"] >= 0)
+    node = torch.clamp(st["assign"], 0, n - 1).long()
+    req = tc["task_req"]
+    dreq = torch.where(roll[:, None], req, torch.zeros_like(req))
+    if spec.use_exclusion:
+        # free the rolled members' group slots
+        occ, task_excl = st["excl_occ"], tc["task_excl"]
+        g_flat = torch.clamp(task_excl, min=0).long() * n + node
+        occ_flat = occ.reshape(-1).to(torch.int8).scatter_reduce(
+            0, g_flat, (~(roll & (task_excl >= 0))).to(torch.int8), "amin")
+        occ.copy_(occ_flat.bool().reshape(occ.shape))
+    st["idle"].index_put_((node,), dreq, accumulate=True)
+    st["used"].index_put_((node,), -dreq, accumulate=True)
+    st["cnt"].index_add_(0, node, -roll.to(torch.int32))
+    st["assign"].masked_fill_(roll, -1)
+    st["active"].logical_and_(~dead_task)
+    st["job_placed"].masked_fill_(roll_job, 0)
+    st["job_alloc"].index_put_((job,), -dreq, accumulate=True)
+    st["queue_alloc"].index_put_((tc["task_queue"].long(),), -dreq, accumulate=True)
+    st["ns_alloc"].index_put_((tc["task_ns"].long(),), -dreq, accumulate=True)
+    st["dirty"].logical_or_(torch.zeros(n, dtype=torch.int8, device=node.device)
+                            .scatter_reduce(0, node, roll.to(torch.int8), "amax").bool())
+    zero = torch.zeros((), dtype=torch.int64, device=node.device)
+    ctl[C_STILL:C_ANY_CAND + 1] = torch.stack([
+        st["active"].sum(), st["dirty"].sum(), zero, any_cand])
+
+
+_COMMIT_PTRS = ("node", "mask", "task_req", "task_job", "task_queue",
+                "task_ns", "task_excl", "job_start", "job_count", "roll_job",
+                "key_s", "perm_s", "flag", "idle", "used", "cnt", "assign",
+                "active", "job_placed", "job_alloc", "queue_alloc",
+                "ns_alloc", "excl_occ", "dirty", "ctl")
+
+
+class _CommitArgs(ctypes.Structure):
+    _fields_ = ([(name, ctypes.c_void_p) for name in _COMMIT_PTRS]
+                + [(name, ctypes.c_int) for name in (
+                    "T", "N", "R", "J", "Q", "S", "use_excl", "mode", "nb_node",
+                    "nb_job")])
+
+
+def _commit_launch(spec, tc, st, node, mask, roll_job, flag, ctl, mode) -> None:
+    """One launch of K7c (csrc/round_commit.cu) behind one stable torch sort
+    of the masked tasks by node: mode 0 commits the ``mask``ed (accepted)
+    tasks onto ``node`` (their choice), mode 1 gives the ``mask``ed
+    (rolled) tasks back from ``node`` (their assignment)."""
+    idle = st["idle"]
+    dt = idle.dtype
+    n, r = idle.shape
+    t = node.shape[0]
+    j = st["job_placed"].shape[0]
+    q = st["queue_alloc"].shape[0]
+    s_rows = st["ns_alloc"].shape[0]
+    i32 = torch.int32
+    checks = [("node", node, i32, (t,)), ("mask", mask, torch.bool, (t,)),
+              ("task_req", tc["task_req"], dt, (t, r)),
+              ("task_job", tc["task_job"], i32, (t,)),
+              ("task_queue", tc["task_queue"], i32, (t,)),
+              ("task_ns", tc["task_ns"], i32, (t,)),
+              ("job_task_start", tc["job_task_start"], i32, (j,)),
+              ("job_task_count", tc["job_task_count"], i32, (j,)),
+              ("flag", flag, torch.int64, ()),
+              ("idle", idle, dt, (n, r)), ("used", st["used"], dt, (n, r)),
+              ("cnt", st["cnt"], i32, (n,)), ("assign", st["assign"], i32, (t,)),
+              ("active", st["active"], torch.bool, (t,)),
+              ("job_placed", st["job_placed"], i32, (j,)),
+              ("job_alloc", st["job_alloc"], dt, (j, r)),
+              ("queue_alloc", st["queue_alloc"], dt, (q, r)),
+              ("ns_alloc", st["ns_alloc"], dt, (s_rows, r)),
+              ("dirty", st["dirty"], torch.bool, (n,)), ("ctl", ctl, i32, (CTL_LEN,))]
+    if mode:
+        checks.append(("roll_job", roll_job, torch.bool, (j,)))
+    if spec.use_exclusion:
+        checks += [("task_excl", tc["task_excl"], i32, (t,)),
+                   ("excl_occ", st["excl_occ"], torch.bool,
+                    (st["excl_occ"].shape[0], n))]
+    for name, x, want, shape in checks:
+        if x.device != idle.device:
+            raise ValueError(f"{name}: on {x.device}, expected {idle.device}")
+        _check(x, name, want, shape)
+    key_s, perm_s = torch.sort(torch.where(mask, node, torch.full_like(node, n)),
+                               stable=True)
+    ptrs = dict(node=node, mask=mask, task_req=tc["task_req"],
+                task_job=tc["task_job"], task_queue=tc["task_queue"],
+                task_ns=tc["task_ns"], job_start=tc["job_task_start"],
+                job_count=tc["job_task_count"], key_s=key_s, perm_s=perm_s,
+                flag=flag, idle=idle, used=st["used"], cnt=st["cnt"],
+                assign=st["assign"], active=st["active"],
+                job_placed=st["job_placed"], job_alloc=st["job_alloc"],
+                queue_alloc=st["queue_alloc"], ns_alloc=st["ns_alloc"],
+                dirty=st["dirty"], ctl=ctl)
+    if mode:
+        ptrs["roll_job"] = roll_job
+    if spec.use_exclusion:
+        ptrs.update(task_excl=tc["task_excl"], excl_occ=st["excl_occ"])
+    a = _CommitArgs(**{k: v.data_ptr() for k, v in ptrs.items()},
+                    T=t, N=n, R=r, J=j, Q=q, S=s_rows,
+                    use_excl=int(spec.use_exclusion), mode=mode,
+                    nb_node=(n + 255) // 256, nb_job=(j + 255) // 256)
+    f32, f64 = _entry("round_commit", "round_commit_f32", "round_commit_f64",
+                      argtypes=[ctypes.POINTER(_CommitArgs), ctypes.c_void_p])
+    rc = (f64 if dt == torch.float64 else f32)(
+        ctypes.byref(a), devmod.raw_stream(idle.device))
+    if rc != 0:
+        raise RuntimeError(f"round_commit kernel launch failed: CUDA error {rc}")
+    devmod.count_launch("round_commit")
+
+
+def round_commit(spec, tc, st, choice, accept, did_full, ctl) -> None:
+    """K7c (csrc/round_commit.cu) on CUDA, the plain version on the CPU;
+    the same arguments and effects as ``round_commit_plain``. Its only
+    memory is its sort's output (from the graph's pool while a solve is
+    captured)."""
+    if not devmod.on_cuda(choice, st["idle"], ctl):
+        round_commit_plain(spec, tc, st, choice, accept, did_full, ctl)
+        return
+    _commit_launch(spec, tc, st, choice, accept, None, did_full, ctl, 0)
+
+
+def round_rollback(spec, tc, st, roll_job, any_cand, ctl) -> None:
+    """K7c in its rollback mode on CUDA, the plain version on the CPU; the
+    same arguments and effects as ``round_rollback_plain``."""
+    if not devmod.on_cuda(roll_job, st["idle"], ctl):
+        round_rollback_plain(spec, tc, st, roll_job, any_cand, ctl)
+        return
+    roll = roll_job[tc["task_job"].long()] & (st["assign"] >= 0)
+    _commit_launch(spec, tc, st, st["assign"], roll, roll_job, any_cand, ctl, 1)
 
 
 # -- K7a: the rounds solve's loop control ------------------------------------
