@@ -23,9 +23,9 @@ Phases, each failing the run on any error:
    native host engines (volcano_tpu_torch/_native, cc), which must load;
 2. kernel phase (allocate): one cfg5 allocate session on the card records
    the first input each kernel wrapper sees on that path (K1 score_block
-   full and dirty-column, K2 window_topk, K4 resolve_prefix, K5
-   queue_budget); each kernel is then held against its plain PyTorch
-   version on those inputs with torch.equal (exact), and both are timed
+   full and dirty-column, K2 window_topk); each kernel is then held
+   against its plain PyTorch version on those inputs with torch.equal
+   (exact), and both are timed
    with CUDA events; the same session times the rounds solver's torch-op
    parts (K2b, K6's job ranks) with CUDA events around each call. These sessions
    run the step machine from the host (loop="host"), so each call is an
@@ -53,9 +53,14 @@ Phases, each failing the run on any error:
    version on every controller input the host runs recorded, K7b
    tail_pass on the capped cfg6 tail's inputs (every state tensor), both
    timed; K3 round_select and K7c round_commit on every select and commit
-   call the host runs of cfg2, cfg5 (window and cover) and cfg6
+   call the host runs of cfg2, cfg3, cfg5 (window and cover) and cfg6
    (exclusion) made and on crafted inputs (bench/round_cases.py), K7c's
-   plain version on CPU copies, both timed on cfg5's calls; solve ms of
+   plain version on CPU copies, both timed on cfg5's calls; K4
+   resolve_prefix and K5 queue_budget (two launches: the job sums and
+   queue scan, then queue_budget_mask) on every call of those host runs
+   (cfg2's rounds, R = 3; cfg3's ten queues) and on crafted inputs in
+   float32 and float64, timed with their host time and recounted bytes
+   bound on cfg2's first and a later round, cfg3's and cfg5's; solve ms of
    the graph beside the host loop, the capture ms and the graphs cached
    are printed;
 4. session phase: cfg2 (5k x 1k), cfg3 (20k x 5k), cfg5 (50k x 10k) and
@@ -71,8 +76,8 @@ Phases, each failing the run on any error:
    the fused session chain and once more on the per-action path
    (VOLCANO_TPU_FUSE=0), each on a fresh cache with tpuscore on cuda.
    Launch counters are zeroed just before each run and read just after:
-   every kernel of the path must have launched (K1/K2/K3/K4/K5, K7a and
-   K7c everywhere, K7b exactly once on cfg6;
+   every kernel of the path must have launched (K1/K2/K3/K4/K5 and K5's
+   mask, K7a and K7c everywhere, K7b exactly once on cfg6;
    on a fused run K13 fuse_heaps twice, the fused K9 and K10 once each and
    K11 once where backfill has work, and no per-action K9/K10; on the
    per-action run K9 and K11 on cfg4, K9 and K10 on the reclaim path, and
@@ -221,6 +226,33 @@ def time_ms(fn, reps=20, warmup=3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps=20, replays=5) -> float:
+    """A call's device time: ``reps`` calls captured into one CUDA graph,
+    replayed once to warm and ``replays`` times under CUDA events, so the
+    wrapper's host work stays off the clock (as inside the solve's graph).
+    For kernels whose scratch is planned before a capture (a warm call)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        with torch.cuda.graph(graph, stream=stream):
+            for _ in range(reps):
+                fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * replays)
 
 
 def host_ms(fn, reps=20) -> float:
@@ -401,8 +433,7 @@ def capture_inputs():
     from volcano_tpu_torch.ops import rounds
 
     seen = {}
-    real = {n: getattr(rounds, n) for n in
-            ("score_block", "window_topk", "resolve_prefix", "queue_budget")}
+    real = {n: getattr(rounds, n) for n in ("score_block", "window_topk")}
 
     def cl(x):
         return x.clone() if isinstance(x, torch.Tensor) else x
@@ -521,8 +552,7 @@ def kernel_phase(scale):
                      "bytes": byts, "bound_ms": byts / MEM_BPS * 1e3,
                      "bound_by": "bytes"}
     print(json.dumps({"torch_op_rows": rows, "session": "cfg5 (warm)"}), flush=True)
-    missing = {"score_block", "window_topk", "resolve_prefix",
-               "queue_budget"} - set(seen)
+    missing = {"score_block", "window_topk"} - set(seen)
     if missing:
         raise AssertionError(f"cfg5 path never called {sorted(missing)}")
     records = []
@@ -600,45 +630,6 @@ def kernel_phase(scale):
                       "plain_ms": time_ms(lambda: RK.window_topk_plain(s6, k6))}),
           flush=True)
 
-    # K4
-    args, _ = seen["resolve_prefix"]
-    a1 = RK.resolve_prefix(*args)
-    a2 = RK.resolve_prefix_plain(*args)
-    torch.cuda.synchronize()
-    if not torch.equal(a1, a2):
-        raise AssertionError(f"resolve_prefix: kernel != plain at "
-                             f"{(a1 != a2).sum().item()} rows")
-    key_s, req_s, pod_s, bound, is_scalar, cnt, nmax, _ = args
-    records.append(dict(
-        name="resolve_prefix", kernel="resolve_prefix", route="cuda",
-        source="volcano_tpu_torch/csrc/resolve_prefix.cu",
-        replaces="volcano_tpu/ops/rounds.py:442", max_abs_err=0.0,
-        ms=time_ms(lambda: RK.resolve_prefix(*args)),
-        plain_ms=time_ms(lambda: RK.resolve_prefix_plain(*args)),
-        library_ms=None,
-        bytes=nbytes(key_s, req_s, pod_s, bound, is_scalar, cnt, nmax) + key_s.shape[0],
-        ops=req_s.numel() * 3, dtype=torch.int64,
-        shape=f"T={key_s.shape[0]} R={req_s.shape[1]} N={bound.shape[0]}"))
-
-    # K5
-    args, _ = seen["queue_budget"]
-    b1 = RK.queue_budget(*args)
-    b2 = RK.queue_budget_plain(*args)
-    torch.cuda.synchronize()
-    if not torch.equal(b1, b2):
-        raise AssertionError(f"queue_budget: kernel != plain at "
-                             f"{(b1 != b2).sum().item()} rows")
-    q_s = args[0]
-    records.append(dict(
-        name="queue_budget", kernel="queue_budget", route="cuda",
-        source="volcano_tpu_torch/csrc/queue_budget.cu",
-        replaces="volcano_tpu/ops/rounds.py:495", max_abs_err=0.0,
-        ms=time_ms(lambda: RK.queue_budget(*args)),
-        plain_ms=time_ms(lambda: RK.queue_budget_plain(*args)),
-        library_ms=None,
-        bytes=nbytes(*args) + q_s.shape[0],
-        ops=args[2].numel() * 4, dtype=torch.int64,
-        shape=f"T={q_s.shape[0]} R={args[2].shape[1]} Q={args[4].shape[0]}"))
     for rec in records:
         finish_record(rec)
     return records
@@ -1135,7 +1126,7 @@ def reference_check():
 
 
 ALLOC_KERNELS = ("score_block", "window_topk", "resolve_prefix", "queue_budget",
-                 "rounds_ctl", "round_select", "round_commit")
+                 "queue_budget_mask", "rounds_ctl", "round_select", "round_commit")
 EVICT_KERNELS = ("evict_preempt", "evict_reclaim", "evict_backfill")
 FUSED_KERNELS = ("fuse_heaps_preempt", "fuse_heaps_reclaim", "evict_preempt_fused",
                  "evict_reclaim_fused")
@@ -1537,7 +1528,7 @@ def rounds_loop_phase():
 
 
 # the K7 solves whose select and commit inputs K3 and K7c are held on
-ROUND_KERNEL_CFGS = (2, 5, 6)
+ROUND_KERNEL_CFGS = (2, 3, 5, 6)
 SELECT_OUT = ("choice", "cons_choice", "slot", "final", "uncovered")
 # the state a commit reads and writes
 COMMIT_STATE = ("idle", "used", "cnt", "active", "job_placed", "job_alloc",
@@ -1717,8 +1708,122 @@ def round_kernel_records(recorded):
               f"{placed} accepted; {held['commit']} recorded commits, "
               f"{held['rollback']} recorded rollbacks and "
               f"{2 * len(round_cases.COMMIT_CASES) + 1} crafted held equal (plain on the CPU)"))
+    recs += acceptance_records(recorded)
     for rec in recs:
         finish_record(rec)
+    return recs
+
+
+def resolve_bytes(args):
+    """The bytes one K4 call must move: the order, each task's choice and
+    pod flag, the request rows of the tasks with a choice, the idle row,
+    cnt and nmax of each node chosen, read once; the accept flags written."""
+    order, choice, req_i, has_pod, idle, unit, eps_i, is_scalar, cnt, nmax, _ = args
+    t, r = req_i.shape
+    feas = choice >= 0
+    nodes = int(torch.unique(choice[feas]).numel())
+    return (nbytes(order, choice, has_pod, unit, eps_i, is_scalar) + t
+            + int(feas.sum()) * r * 8 + nodes * (r * idle.element_size() + 8))
+
+
+def budget_bytes(args, mask_only=False):
+    """The bytes one K5 call must move: each task's accept flag and job
+    (and the request rows of the accepted tasks), the job order, each
+    job's queue and the queues' rows read once, the flags written; the
+    mask alone reads accept, task_job and a decision a job."""
+    accept, task_job, req_i, jq, job_queue, queue_alloc, unit, bound, is_scalar = args
+    t, r = req_i.shape
+    if mask_only:
+        return nbytes(accept, task_job) + jq.shape[0] + t
+    return (nbytes(accept, task_job, jq, job_queue, queue_alloc, unit, bound, is_scalar)
+            + int(accept.sum()) * r * 8 + t)
+
+
+def acceptance_records(recorded):
+    """K4 resolve_prefix and K5 queue_budget (its two launches) held
+    against their plain versions (torch.equal) on every call the recorded
+    host-driven solves made (cfg2's rounds, R = 3; cfg3's ten queues;
+    cfg5; cfg6) and on the crafted inputs of bench/round_cases.py in
+    float32 and float64; each timed on cfg2's first and a later round,
+    cfg3's and cfg5's call: its device time (``ms``, 20 calls in a CUDA
+    graph), the wrapper a call under CUDA events (``wrapper_ms``: back to
+    back, they read the longer of host and card) and its host time
+    (``host_ms``). Returns the records of K4, K5 and K5's mask at cfg5."""
+    from volcano_tpu_torch.bench import round_cases
+    from volcano_tpu_torch.ops import rounds_kernels as RK
+
+    held = {"resolve": 0, "budget": 0}
+    kinds = {"resolve": (RK.resolve_prefix, RK.resolve_prefix_plain),
+             "budget": (RK.queue_budget, RK.queue_budget_plain)}
+    for cfg, seen in recorded.items():
+        for kind, (kernel, plain) in kinds.items():
+            if not seen[kind]:
+                raise AssertionError(f"K7 cfg{cfg}: no {kind} call recorded")
+            for i, (args, _) in enumerate(seen[kind]):
+                same(kernel(*args), plain(*args), f"{kind} cfg{cfg} call {i}")
+                held[kind] += 1
+    crafted = 0
+    for dt in (torch.float32, torch.float64):
+        for label, args in round_cases.resolve_cases("cuda", dt):
+            same(RK.resolve_prefix(*args), RK.resolve_prefix_plain(*args),
+                 f"resolve crafted {label} {dt}")
+            crafted += 1
+        for label, args in round_cases.budget_cases("cuda", dt):
+            same(RK.queue_budget(*args), RK.queue_budget_plain(*args),
+                 f"budget crafted {label} {dt}")
+            crafted += 1
+    # timed: cfg2's first and a later round, cfg3, cfg5
+    lines = {}
+    for cfg, which in ((2, 0), (2, -1), (3, 0), (5, 0)):
+        for kind, (kernel, plain) in kinds.items():
+            args = recorded[cfg][kind][which][0]
+            line = {"kernel": kind, "card": CARD,
+                    "call": f"cfg{cfg} {'round 1' if which == 0 else 'a later round'}",
+                    "ms": graph_ms(lambda: kernel(*args)),
+                    "wrapper_ms": time_ms(lambda: kernel(*args)),
+                    "host_ms": host_ms(lambda: kernel(*args)),
+                    "plain_ms": timed_plain(lambda: plain(*args))[1]}
+            if kind == "resolve":
+                line["shape"] = (f"T={args[0].shape[0]} R={args[2].shape[1]} "
+                                 f"N={args[4].shape[0]}, {int((args[1] >= 0).sum())} chosen")
+                line["bound_ms"] = resolve_bytes(args) / MEM_BPS * 1e3
+            else:
+                line["shape"] = (f"T={args[0].shape[0]} R={args[2].shape[1]} "
+                                 f"J={args[3].shape[0]} Q={args[5].shape[0]}, "
+                                 f"{int(args[0].sum())} accepted")
+                line["bound_ms"] = budget_bytes(args) / MEM_BPS * 1e3
+                RK.queue_budget(*args)
+                line["mask_ms"] = graph_ms(lambda: RK.queue_budget(*args, parts=("mask",)))
+            lines[(cfg, which, kind)] = line
+            print(json.dumps({"k4_k5": line}), flush=True)
+    note = (f"{held['resolve']} recorded K4 calls and {held['budget']} K5 calls of "
+            f"cfg{ROUND_KERNEL_CFGS}, {crafted} crafted held equal")
+    r_args = recorded[5]["resolve"][0][0]
+    b_args = recorded[5]["budget"][0][0]
+    r5, b5 = lines[(5, 0, "resolve")], lines[(5, 0, "budget")]
+    recs = [
+        dict(name="resolve_prefix", kernel="resolve_prefix", route="cuda",
+             source="volcano_tpu_torch/csrc/resolve_prefix.cu",
+             replaces="volcano_tpu/ops/rounds.py:442", max_abs_err=0.0,
+             ms=r5["ms"], host_ms=r5["host_ms"], plain_ms=r5["plain_ms"],
+             library_ms=None, bytes=resolve_bytes(r_args),
+             ops=r_args[2].numel() * 4, dtype=torch.int64, launch_path=5,
+             shape=f"cfg5: {r5['shape']}; {note}"),
+        dict(name="queue_budget", kernel="queue_budget", route="cuda",
+             source="volcano_tpu_torch/csrc/queue_budget.cu",
+             replaces="volcano_tpu/ops/rounds.py:495", max_abs_err=0.0,
+             ms=b5["ms"], host_ms=b5["host_ms"], plain_ms=b5["plain_ms"],
+             library_ms=None, bytes=budget_bytes(b_args),
+             ops=b_args[2].numel() * 2, dtype=torch.int64, launch_path=5,
+             shape=f"cfg5 (both launches): {b5['shape']}"),
+        dict(name="queue_budget_mask", kernel="queue_budget_mask", route="cuda",
+             source="volcano_tpu_torch/csrc/queue_budget.cu",
+             replaces="volcano_tpu/ops/rounds.py:548", max_abs_err=0.0,
+             ms=b5["mask_ms"], plain_ms=b5["plain_ms"], library_ms=None,
+             bytes=budget_bytes(b_args, mask_only=True), ops=b_args[0].shape[0],
+             dtype=torch.int32, launch_path=5,
+             shape=f"cfg5, the mask alone (plain: the whole of K5): T={b_args[0].shape[0]}"),
+    ]
     return recs
 
 

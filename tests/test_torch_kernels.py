@@ -239,10 +239,27 @@ def test_resolve_matches_reference(seed, check_pod):
     assert got.any() and not got.all()
 
 
+def job_major_ranks(task_job, seed):
+    """Task ranks as a round makes them: a job's rank x T + the task's
+    place in its job (volcano_tpu/ops/rounds.py round_body), the jobs in a
+    seeded random order; K5 takes a job's tasks to lie together."""
+    rng = np.random.default_rng(seed + 100)
+    t = task_job.shape[0]
+    jobs = np.unique(task_job)
+    job_rank = dict(zip(jobs, rng.permutation(len(jobs))))
+    in_job = np.zeros(t, np.int64)
+    seen = {}
+    for i in rng.permutation(t):
+        in_job[i] = seen.get(task_job[i], 0)
+        seen[task_job[i]] = in_job[i] + 1
+    return (np.array([job_rank[j] for j in task_job]) * t + in_job).astype(np.int32)
+
+
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_queue_budget_matches_reference(seed):
-    enc, _, _, rank, _, task_queue, task_job, queue_alloc, accept = \
+    enc, _, _, _, _, task_queue, task_job, queue_alloc, accept = \
         _resolve_inputs(seed)
+    rank = job_major_ranks(task_job, seed)
     je = {k: jnp.asarray(v) for k, v in enc.items()}
     ref = jrounds._queue_budget(je, jnp.asarray(queue_alloc),
                                 jnp.asarray(accept), jnp.asarray(rank),
@@ -291,23 +308,27 @@ def test_resolve_exact_past_int32():
 def test_segment_scans_exact_past_int32():
     """70k rows of 64-core requests in one node segment and one queue
     (tests/test_rounds.py test_seg_limbs_exact_past_lo_limb_wrap): the
-    int64 scans of both plain versions stay exact."""
+    int64 scans of both plain versions stay exact where the sums pass
+    2^31. K4: a node whose bound saturates at 2^31 - 1 units takes the
+    first 33,554 rows (33,554 x 64,000 < 2^31 - 1 < 33,555 x 64,000); K5:
+    70k one-task jobs of one queue, whose budget is every job but the
+    last."""
     t = 70_000
     req = torch.full((t, 1), 64_000, dtype=torch.int64)
-    key = torch.zeros(t, dtype=torch.int32)
-    bound = torch.tensor([[70_000 * 64_000 + 1]], dtype=torch.int64)
-    acc = tk.resolve_prefix(key, req, torch.zeros(t, dtype=torch.bool), bound,
-                            torch.tensor([False]), torch.zeros(1, dtype=torch.int32),
-                            torch.ones(1, dtype=torch.int32), False)
-    assert bool(acc.all())
-    bound[0, 0] -= 2
-    acc = tk.resolve_prefix(key, req, torch.zeros(t, dtype=torch.bool), bound,
-                            torch.tensor([False]), torch.zeros(1, dtype=torch.int32),
-                            torch.ones(1, dtype=torch.int32), False)
-    assert bool(acc[:-1].all()) and not bool(acc[-1])
-    ok = tk.queue_budget(key, torch.arange(t, dtype=torch.int32), req,
-                         torch.ones(t, dtype=torch.bool),
-                         torch.zeros((1, 1), dtype=torch.int64),
+    order = torch.arange(t, dtype=torch.int64)
+    choice = torch.zeros(t, dtype=torch.int32)
+    unit = torch.ones(1, dtype=torch.float64)
+    eps = torch.zeros(1, dtype=torch.int32)
+    for idle, took in ((2.0**40, 33_554), (64_000.0 * 20_000 + 1, 20_000)):
+        acc = tk.resolve_prefix(order, choice, req, torch.zeros(t, dtype=torch.bool),
+                                torch.tensor([[idle]], dtype=torch.float64), unit, eps,
+                                torch.tensor([False]), torch.zeros(1, dtype=torch.int32),
+                                torch.ones(1, dtype=torch.int32), False)
+        assert bool(acc[:took].all()) and not bool(acc[took:].any())
+    ok = tk.queue_budget(torch.ones(t, dtype=torch.bool), torch.arange(t, dtype=torch.int32),
+                         req, torch.arange(t, dtype=torch.int64),
+                         torch.zeros(t, dtype=torch.int32),
+                         torch.zeros((1, 1), dtype=torch.float64), unit,
                          torch.tensor([[(t - 1) * 64_000]], dtype=torch.int64),
                          torch.tensor([False]))
     assert bool(ok[:-1].all()) and not bool(ok[-1])

@@ -1,8 +1,10 @@
 """K7 on a CUDA card: K7a (``rounds_ctl``), K7b (``tail_pass``), K3
-(``round_select``, with K6's ranks) and K7c (``round_commit``) against
-their plain versions, and the graph-replayed solve against the host-driven
-step machine (``loop="host"``), on encodes the port's own session prepares
-and on crafted inputs (volcano_tpu_torch/bench/round_cases.py).
+(``round_select``, with K6's ranks), K4 (``resolve_prefix``), K5
+(``queue_budget``) and K7c (``round_commit``) against their plain
+versions, and the graph-replayed solve against the host-driven step
+machine (``loop="host"``) and against the CPU's solve of the same encode,
+on encodes the port's own session prepares and on crafted inputs
+(volcano_tpu_torch/bench/round_cases.py).
 
 This file imports nothing of JAX, so it runs where the card is:
 
@@ -186,6 +188,98 @@ def test_gpu_round_kernels_equal_plain_on_recorded_rounds(cfg, scale, dtype):
         assert_commit_equal(args, f"cfg{cfg} commit {i}")
     for i, (args, _) in enumerate(seen["rollback"]):
         assert_commit_equal(args, f"cfg{cfg} rollback {i}", rollback=True)
+    assert seen["resolve"] and (seen["budget"] or not spec.use_prop_overused)
+    for i, (args, _) in enumerate(seen["resolve"]):
+        assert_resolve_equal(args, f"cfg{cfg} resolve {i}")
+    for i, (args, _) in enumerate(seen["budget"]):
+        assert_budget_equal(args, f"cfg{cfg} budget {i}")
+
+
+def assert_resolve_equal(args, what):
+    got = RK.resolve_prefix(*args)
+    want = RK.resolve_prefix_plain(*args)
+    assert torch.equal(got, want), (what, int((got != want).sum()))
+
+
+def assert_budget_equal(args, what):
+    got = RK.queue_budget(*args)
+    want = RK.queue_budget_plain(*args)
+    assert torch.equal(got, want), (what, int((got != want).sum()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_gpu_resolve_prefix_equals_plain_on_crafted_inputs(dtype):
+    """K4 on a segment over several tiles (tiles with no segment start),
+    every task on one node, the infeasible tail from inside a tile, sums
+    past 2^31, a rejection then rows that fit through the scalar skip, one
+    and five dimensions; with and without the pod check."""
+    _cuda()
+    cases = RC.resolve_cases("cuda", dtype)
+    assert len(cases) == 2 * len(RC.RESOLVE_CASES)
+    for label, args in cases:
+        assert_resolve_equal(args, label)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_gpu_queue_budget_equals_plain_on_crafted_inputs(dtype):
+    """K5 on one queue of 8,192 jobs, ten queues, padding tasks and jobs,
+    70,000 64-core jobs past 2^31, the scalar skip edge, one and five
+    dimensions."""
+    _cuda()
+    for label, args in RC.budget_cases("cuda", dtype):
+        assert_budget_equal(args, label)
+
+
+@pytest.mark.gpu
+def test_gpu_resolve_and_budget_repeat_and_replay_in_a_graph():
+    """K4's tile status and K5's job rows are reused launch after launch
+    with no memset between (K4 stamps its status with the launch's epoch,
+    K5's last CTA zeroes what it summed): eager launches in a row, then a
+    CUDA graph of both replayed on inputs copied in, each equal to the
+    plain version."""
+    _cuda()
+    r_args = RC.resolve_args(RC.resolve_inputs(**dict(RC.RESOLVE_CASES)["multi-tile segment"]),
+                             True, "cuda", torch.float32)
+    b_args = RC.budget_args(RC.budget_inputs(**dict(RC.BUDGET_CASES)["ten queues"]),
+                            "cuda", torch.float32)
+    for _ in range(3):
+        assert_resolve_equal(r_args, "eager")
+        assert_budget_equal(b_args, "eager")
+    r_in = [x.clone() if isinstance(x, torch.Tensor) else x for x in r_args]
+    b_in = [x.clone() for x in b_args]
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        with torch.cuda.graph(graph, stream=stream):
+            r_out = RK.resolve_prefix(*r_in)
+            b_out = RK.queue_budget(*b_in)
+    torch.cuda.current_stream().wait_stream(stream)
+    g = torch.Generator().manual_seed(5)
+    for i in range(3):
+        # new idle and new acceptances each replay
+        r_in[4].copy_(r_args[4] * (0.5 + i * 0.25))
+        b_in[0].copy_((torch.rand(b_in[0].shape, generator=g) < 0.6).cuda())
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(r_out, RK.resolve_prefix_plain(*r_in)), i
+        assert torch.equal(b_out, RK.queue_budget_plain(*b_in)), i
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cfg,scale", [(2, 0.2), (3, 0.1)])
+def test_gpu_rounds_solve_equals_cpu_copies(cfg, scale):
+    """A float64 rounds solve on the card, by graph and by the host-driven
+    machine, gives the same result as the CPU's solve (every plain version)
+    of the same encode."""
+    _cuda()
+    spec, enc = prepared(cfg, scale, device="cuda", dtype="float64")
+    want = trounds.solve_rounds_packed(spec, {k: v.cpu() for k, v in enc.items()})
+    for loop in (None, "host"):
+        got = trounds.solve_rounds_packed(spec, enc, loop=loop)
+        assert torch.equal(got.cpu(), want), loop
 
 
 @pytest.mark.gpu
@@ -229,6 +323,14 @@ def test_gpu_round_kernels_raise_instead_of_falling_back():
         device="cuda", dtype=torch.float32, **dict(RC.COMMIT_CASES)["random"])
     with pytest.raises(TypeError):
         RK.round_commit(spec, tc, st, choice.to(torch.int64), accept, did_full, ctl)
+    r_args = list(RC.resolve_cases("cuda", torch.float32)[0][1])
+    r_args[1] = r_args[1].to(torch.int64)     # choice
+    with pytest.raises(TypeError):
+        RK.resolve_prefix(*r_args)
+    b_args = list(RC.budget_cases("cuda", torch.float32)[0][1])
+    b_args[3] = b_args[3].to(torch.int32)     # jq
+    with pytest.raises(TypeError):
+        RK.queue_budget(*b_args)
 
 
 @pytest.mark.gpu

@@ -1,4 +1,5 @@
-"""Inputs of the round's select (K3, ``round_select``) and of K7c, the
+"""Inputs of the round's select (K3, ``round_select``), of its acceptance
+scans (K4 ``resolve_prefix``, K5 ``queue_budget``) and of K7c, the
 round's commit (``round_commit``) and the rollback's undo
 (``round_rollback``): those a solve hands them, recorded, and crafted
 ones.
@@ -18,6 +19,18 @@ commit cases (``commit_cases``): every task accepted onto one node, one
 queue and one namespace taking every task, no task accepted, exclusion
 occupancy, rows of -0.0 and padding tasks; each also gives a rollback
 case (``rollback_case``) that retires a job with placed tasks, or none.
+Crafted K4 cases (``resolve_cases``, with and without the pod check): a
+node segment over several of K4's tiles (so a tile with no segment
+start), every task on one node, the infeasible tail starting inside a
+tile, 64-core requests whose sums pass 2^31, a rejection followed by rows
+that fit only through the scalar skip, one and five dimensions. Crafted K5
+cases (``budget_cases``): one queue of 8,192 jobs, ten queues with their
+jobs' ranks interleaved, padding tasks and jobs, 70,000 64-core jobs past
+2^31, a scalar dimension at the skip edge, one and five dimensions. Both
+are built at the level of the round's arrays (``resolve_inputs``,
+``budget_inputs``: numpy, so tests/test_torch_resolve_budget.py feeds the
+same ones to the JAX package) and turned into the kernels' arguments as
+the round does (``resolve_args``, ``budget_args``).
 """
 
 from __future__ import annotations
@@ -49,14 +62,20 @@ def bit_equal(a, b) -> bool:
     return not a.is_floating_point() or torch.equal(torch.signbit(a), torch.signbit(b))
 
 
+# the recorded kernels of the rounds module, by kind
+RECORDED = {"select": "round_select", "commit": "round_commit",
+            "rollback": "round_rollback", "resolve": "resolve_prefix",
+            "budget": "queue_budget"}
+
+
 @contextlib.contextmanager
-def recording(limit=None):
-    """While open, every ``round_select``, ``round_commit`` and
-    ``round_rollback`` call of the rounds module keeps a copy of its inputs
-    (at most ``limit`` of each): yields {"select": [(args, kwargs)],
-    "commit": [...], "rollback": [...]}."""
-    names = {"select": "round_select", "commit": "round_commit",
-             "rollback": "round_rollback"}
+def recording(limit=None, kinds=tuple(RECORDED)):
+    """While open, every call of the rounds module's ``round_select``,
+    ``round_commit``, ``round_rollback``, ``resolve_prefix`` and
+    ``queue_budget`` (those of ``kinds``) keeps a copy of its inputs (at
+    most ``limit`` of each): yields {"select": [(args, kwargs)], "commit":
+    [...], "rollback": [...], "resolve": [...], "budget": [...]}."""
+    names = {kind: RECORDED[kind] for kind in kinds}
     seen = {kind: [] for kind in names}
     real = {kind: getattr(R, name) for kind, name in names.items()}
 
@@ -76,11 +95,11 @@ def recording(limit=None):
             setattr(R, name, real[kind])
 
 
-def record_solve(spec, enc, limit=None):
-    """The select, commit and rollback inputs of one solve of the step
-    machine driven from the host (the CPU's plain machine, or ``loop="host"`` on the
-    card, where the wrappers launch the kernels)."""
-    with recording(limit) as seen:
+def record_solve(spec, enc, limit=None, kinds=tuple(RECORDED)):
+    """The recorded kernels' inputs of one solve of the step machine
+    driven from the host (the CPU's plain machine, or ``loop="host"`` on
+    the card, where the wrappers launch the kernels)."""
+    with recording(limit, kinds) as seen:
         R.solve(spec, enc, loop="host")
     return seen
 
@@ -289,3 +308,189 @@ def rollback_cases(device="cpu", dtype=torch.float64):
     out.append((label + "-no-candidate",
                 rollback_case(roll=False, device=device, dtype=dtype, **kw)))
     return out
+
+
+# -- K4 and K5 ----------------------------------------------------------------
+
+MI = 1024.0 * 1024.0
+
+
+def _dims(g, r):
+    """(res_unit, eps, is_scalar) of ``r`` dimensions: milli-cpu, memory
+    in MiB, then scalar dimensions."""
+    unit = np.array([1.0, MI] + [1.0] * (r - 2))[:r]
+    eps = np.array([10.0, 10.0 * MI] + [10.0] * (r - 2))[:r]
+    is_scalar = np.array([False, False] + [True] * (r - 2))[:r]
+    return unit, eps, is_scalar
+
+
+def _requests(g, t, r, big=False):
+    """[t, r] requests in the dimensions' units, non-integral so the
+    quantization's ceil shows; ``big``: 64 cores each."""
+    if big:
+        req = np.zeros((t, r))
+        req[:, 0] = 64_000.0
+        return req
+    cols = [g.choice([0.0, 100.0, 250.0, 999.5, 2000.0], t),
+            g.choice([0.0, 256.0, 511.3, 2048.0], t) * MI]
+    cols += [g.choice([0.0, 0.0, 0.0, 5.0, 10.0, 11.0, 50.0, 1000.0], t)
+             for _ in range(r - 2)]
+    return np.stack(cols[:r], axis=1)
+
+
+def resolve_inputs(seed, t, n, r=3, *, hot=None, p_none=0.2, big=False,
+                   skip=False):
+    """One crafted K4 input at the round's level (numpy): (enc, idle, cnt,
+    choice, task_rank). ``hot`` (node, count): that many tasks choose one
+    node; ``p_none``: the share of tasks with no choice; ``big``: 64-core
+    requests on nodes whose bounds saturate at 2^31 - 1 units; ``skip``:
+    small scalar idle, so scalar rows are rejected and later rows fit only
+    through the scalar skip."""
+    g = np.random.default_rng(seed)
+    unit, eps, is_scalar = _dims(g, r)
+    req = _requests(g, t, r, big)
+    choice = g.integers(0, n, t)
+    if hot is not None:
+        choice[g.permutation(t)[:hot[1]]] = hot[0]
+    choice[g.random(t) < p_none] = -1
+    idle = np.stack([g.choice([3000.0, 16000.5, 64000.0], n),
+                     g.choice([4096.0, 30000.7], n) * MI]
+                    + [g.choice([0.0, 40.0, 8000.0], n) for _ in range(r - 2)],
+                    axis=1)[:, :r]
+    if hot is not None:
+        # room for about half the hot node's tasks, in every dimension
+        idle[hot[0]] = req[choice == hot[0]].sum(axis=0) * 0.5 + 1.0
+    if big:
+        idle[:, 0] = 2.0 ** 40
+        eps[0] = 0.0
+    if skip:
+        idle[:, 2:] = 20.0
+        idle[:, :2] *= 50.0
+    idle[0] = -5.0 if n > 2 and not big else idle[0]  # an over-committed node
+    enc = {"is_scalar": is_scalar, "res_unit": unit, "eps": eps, "task_req": req,
+           "task_has_pod": g.random(t) < 0.9,
+           "node_max_tasks": g.integers(2, max(3, 2 * t // n), n).astype(np.int32)}
+    return (enc, idle, g.integers(0, 5, n).astype(np.int32),
+            choice.astype(np.int32), g.permutation(t).astype(np.int32))
+
+
+# (label, resolve_inputs keyword arguments): the crafted K4 cases
+RESOLVE_CASES = (
+    ("multi-tile segment", dict(seed=1, t=5000, n=20, hot=(3, 3000))),
+    ("one node", dict(seed=2, t=4000, n=1, hot=(0, 4000), p_none=0.0)),
+    ("infeasible tail mid-tile", dict(seed=3, t=3000, n=50, p_none=0.37)),
+    ("64-core past int32", dict(seed=4, t=70_000, n=2, r=2, big=True, p_none=0.0)),
+    ("rejection then scalar skip", dict(seed=5, t=900, n=6, skip=True)),
+    ("one dimension", dict(seed=6, t=2000, n=30, r=1)),
+    ("five dimensions", dict(seed=7, t=2500, n=40, r=5)),
+)
+
+
+def resolve_args(inp, check_pod, device="cpu", dtype=torch.float64):
+    """K4's arguments for a ``resolve_inputs`` input, made as the round
+    makes them (``rounds._resolve``)."""
+    enc, idle, cnt, choice, rank = inp
+    dev = torch.device(device)
+    te = R.quantize({k: torch.tensor(v, device=dev, dtype=dtype
+                                     if v.dtype == np.float64 else None)
+                     for k, v in enc.items()})
+    ch = torch.tensor(choice, device=dev)
+    key = torch.where(ch >= 0, ch, torch.full_like(ch, RK.INT32_MAX))
+    order = R._pair_order(key, torch.tensor(rank, device=dev))
+    return (order, ch, te["task_req_i"], te["task_has_pod"],
+            torch.tensor(idle, dtype=dtype, device=dev), te["res_unit"], te["eps_i"],
+            te["is_scalar"], torch.tensor(cnt, device=dev), te["node_max_tasks"],
+            check_pod)
+
+
+def resolve_cases(device="cpu", dtype=torch.float64):
+    """[(label, args)] of RESOLVE_CASES on ``device``, with and without the
+    pod check."""
+    return [(f"{label}{' pods' if pod else ''}",
+             resolve_args(resolve_inputs(**kw), pod, device, dtype))
+            for label, kw in RESOLVE_CASES for pod in (False, True)]
+
+
+def budget_inputs(seed, j, q, r=3, *, per=3, pad_tasks=0, pad_jobs=0,
+                  big=False, edge=False, p_accept=0.7):
+    """One crafted K5 input at the round's level (numpy): (enc, queue_alloc,
+    accept, task_rank, task_queue, task_job, job_queue, job_order). Jobs
+    own contiguous task ranges (1 .. 2 x per tasks each), as the encoder
+    lays them out, in queues drawn at random, so the queues' jobs
+    interleave in rank; a task's rank is its job's rank x T + its place in
+    the job, as the round makes it. ``pad_jobs`` jobs hold no task;
+    ``pad_tasks`` tasks follow the jobs' (job 0, never accepted), as the
+    solver's buckets pad. ``big``: one-task jobs of 64 cores whose sums
+    pass 2^31; ``edge``: a scalar dimension whose budget ends at the skip
+    edge (tot 10 passes, 11 does not)."""
+    g = np.random.default_rng(seed)
+    unit, eps, is_scalar = _dims(g, r)
+    counts = (np.ones(j, np.int64) if big or edge else g.integers(1, 2 * per + 1, j))
+    counts[j - pad_jobs:] = 0
+    task_job = np.repeat(np.arange(j), counts)
+    t_real = task_job.shape[0]
+    t = t_real + pad_tasks
+    task_job = np.concatenate([task_job, np.zeros(pad_tasks, np.int64)]).astype(np.int32)
+    in_job = np.concatenate([np.arange(t_real) - np.repeat(np.cumsum(counts) - counts,
+                                                           counts),
+                             t_real + np.arange(pad_tasks)])
+    job_queue = g.integers(0, q, j).astype(np.int32)
+    job_order = g.permutation(j)
+    job_rank = np.empty(j, np.int64)
+    job_rank[job_order] = np.arange(j)
+    task_rank = (job_rank[task_job] * t + in_job).astype(np.int32)
+    req = _requests(g, t, r, big)
+    accept = g.random(t) < p_accept
+    accept[t_real:] = False
+    # each queue deserves a share of what its accepted tasks ask for
+    asked = np.zeros((q, r))
+    np.add.at(asked, job_queue[task_job][accept], req[accept])
+    deserved = asked * g.choice([0.2, 0.5, 0.8], (q, 1)) + 1.0
+    queue_alloc = g.choice([0.0, 1e4, 3e4], (q, r)) * np.array([1.0, MI] + [0.0] * (r - 2))[:r]
+    if big:
+        deserved[:, 0] = 2.0 ** 40
+        eps[0] = 0.0
+        queue_alloc[:] = 0.0
+    if edge:
+        # one unit of the scalar dimension a task, its budget 0 + eps 10
+        req[:, 2] = 1.0
+        deserved[:, 2] = 0.0
+        deserved[:, :2] *= 100.0
+    enc = {"is_scalar": is_scalar, "res_unit": unit, "eps": eps, "task_req": req,
+           "queue_deserved": deserved, "job_queue": job_queue}
+    return (enc, queue_alloc, accept, task_rank, job_queue[task_job], task_job,
+            job_queue, job_order)
+
+
+# (label, budget_inputs keyword arguments): the crafted K5 cases
+BUDGET_CASES = (
+    ("one queue, 8192 jobs", dict(seed=1, j=8192, q=1, per=2)),
+    ("ten queues", dict(seed=2, j=3000, q=10)),
+    ("padded tasks and jobs", dict(seed=3, j=500, q=3, pad_tasks=300, pad_jobs=40)),
+    ("64-core past int32", dict(seed=4, j=70_000, q=1, r=2, big=True, p_accept=1.0)),
+    ("scalar skip edge", dict(seed=5, j=300, q=2, edge=True, p_accept=1.0)),
+    ("one dimension", dict(seed=6, j=700, q=4, r=1)),
+    ("five dimensions", dict(seed=7, j=900, q=3, r=5)),
+)
+
+
+def budget_args(inp, device="cpu", dtype=torch.float64):
+    """K5's arguments for a ``budget_inputs`` input, made as the round
+    makes them (``rounds._queue_budget`` with the round's job order)."""
+    enc, queue_alloc, accept, task_rank, task_queue, task_job, _, job_order = inp
+    dev = torch.device(device)
+    te = R.quantize({k: torch.tensor(v, device=dev, dtype=dtype
+                                     if v.dtype == np.float64 else None)
+                     for k, v in enc.items()})
+    jq, jqueue = R._budget_order(
+        te, torch.tensor(task_rank, device=dev), torch.tensor(task_queue, device=dev),
+        torch.tensor(task_job, device=dev), torch.tensor(job_order, device=dev))
+    return (torch.tensor(accept, device=dev), torch.tensor(task_job, device=dev),
+            te["task_req_i"], jq, jqueue, torch.tensor(queue_alloc, dtype=dtype, device=dev),
+            te["res_unit"], te["queue_bound_i"], te["is_scalar"])
+
+
+def budget_cases(device="cpu", dtype=torch.float64):
+    """[(label, args)] of BUDGET_CASES on ``device``."""
+    return [(label, budget_args(budget_inputs(**kw), device, dtype))
+            for label, kw in BUDGET_CASES]

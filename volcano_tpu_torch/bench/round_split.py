@@ -22,11 +22,22 @@ solver's own encode:
    and the clones after it, and the kernels a round.
 3. Warm graph solves timed with CUDA events, the captured graph's per-body
    launch counts (``utils/devprof``: hand-written kernels only), and K4 and
-   K5 timed on the first inputs the cfg2 run gave them (CUDA events, 20
-   calls after 3), beside their bytes bounds and plain versions.
+   K5 timed on the first inputs the run gave them (CUDA events, 20 calls
+   after 3, and the wrapper's host time a call), beside their bytes bounds
+   (every tensor argument read once, the flags written) and plain
+   versions.
+
+Each group's kernels are also split by kind (``*_split``): the sorts (CUB's
+radix passes, torch's sort kernels), the hand-written kernels, and the
+other torch ops (gathers, copies, the elementwise ops).
 
 Where the profiler records no device time (its CUPTI tracing is untried on
 the machine), the lines say so and carry the CUDA-event numbers only.
+
+``python -m volcano_tpu_torch.bench.round_split --compare A1 B1 B2 A2``
+reads the JSON lines of runs of this split and of ``chip_smoke.py`` (its
+``k7`` and ``k4_k5`` lines), each run's output in a file, and prints the
+numbers side by side: the two trees of an ABBA call in turns.
 """
 
 from __future__ import annotations
@@ -62,6 +73,29 @@ KERNEL_NAMES = (
     ("queue_budget", "queue budget + K5"), ("round_select", "select (K3)"),
 )
 CFGS = (2, 5)
+# a kernel's kind within its group, by a substring of its name
+HANDWRITTEN = ("resolve_prefix", "queue_budget", "round_select", "round_commit",
+               "score_block", "window_topk", "rounds_ctl", "tail_pass")
+SORTS = ("sort", "Sort", "radix", "Radix")
+
+
+def kind_of(name: str) -> str:
+    if any(k in name for k in HANDWRITTEN):
+        return "kernel"
+    if any(k in name for k in SORTS):
+        return "sort"
+    return "torch"
+
+
+def _split(rows, rounds):
+    """{group: {kind: [kernels a round, device ms a round]}} of (name,
+    label, dur us) rows."""
+    out = {}
+    for name, lab, dur in rows:
+        k = out.setdefault(lab, {}).setdefault(kind_of(name), [0.0, 0.0])
+        k[0] += 1 / rounds
+        k[1] += dur / 1e3 / rounds
+    return out
 
 
 def smi_line() -> str:
@@ -347,6 +381,8 @@ def split_config(cfg, scale, card):
         "host_run_ms_a_round": {lab: v["device_ms"] / rounds for lab, v in host_groups.items()},
         "host_run": host_groups,
         "host_run_top_kernels": host_top,
+        "host_run_split": _split(host_seq, rounds),
+        "graph_split": _split([(k["name"], lab, k["dur"]) for k, lab in labelled], rounds),
         "body_launches": {"head": graph.head_counts, **graph.body_counts},
     }
     print(json.dumps(rec), flush=True)
@@ -360,6 +396,11 @@ def split_config(cfg, scale, card):
         torch.cuda.synchronize()
         ms = _events_ms(lambda: fn(*args), reps=20, warmup=3)
         t0 = time.perf_counter()
+        for _ in range(20):
+            fn(*args)
+        host_ms = (time.perf_counter() - t0) * 1e3 / 20
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         plain(*args)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
@@ -368,10 +409,63 @@ def split_config(cfg, scale, card):
         print(json.dumps({"kernel_profile": "k7", "config": cfg, "kernel": name,
                           "card": card, "T": args[0].shape[0],
                           "equal_plain": bool(torch.equal(got, want)), "ms": ms,
-                          "plain_ms": plain_ms, "bound_ms": byts / MEM_BPS * 1e3,
+                          "host_ms": host_ms, "plain_ms": plain_ms, "bound_ms": byts / MEM_BPS * 1e3,
                           "launches_a_solve": int(raw[1])}), flush=True)
     devmod.reset_launches()
     return rec
+
+
+def _lines(path):
+    out = []
+    with open(path) as fh:
+        for line in fh:
+            line = line.strip()
+            if line.startswith("{"):
+                try:
+                    out.append(json.loads(line))
+                except ValueError:
+                    pass
+    return out
+
+
+def compare(paths) -> int:
+    """Print the runs' numbers side by side (one column a run)."""
+    rows = {}
+    for col, path in enumerate(paths):
+        for rec in _lines(path):
+            keys = []
+            if rec.get("kernel_profile") == "k7" and "graph" in rec:
+                c = f"cfg{rec['config']}"
+                keys.append((f"{c} warm graph solve ms", rec["warm_solve_ms"]))
+                keys.append((f"{c} graph kernels a round", rec["graph_round_kernels_a_round"]))
+                keys.append((f"{c} replay idle share", rec["replay_idle_share"]))
+                for lab, v in rec["graph_ms_a_round"].items():
+                    keys.append((f"{c} graph ms a round: {lab}", v))
+                for lab in ("resolve + K4", "queue budget + K5"):
+                    for kind, (n, ms) in rec.get("host_run_split", {}).get(lab, {}).items():
+                        keys.append((f"{c} host run {lab}: {kind} ms (kernels)",
+                                     f"{ms:.4f} ({n:.1f})"))
+            elif rec.get("kernel_profile") == "k7" and "kernel" in rec:
+                for f in ("ms", "host_ms", "bound_ms"):
+                    if f in rec:
+                        keys.append((f"cfg{rec['config']} {rec['kernel']} {f}", rec[f]))
+            elif "k7" in rec and "graph_solve_ms_warm" in rec:
+                keys.append((f"chip_smoke {rec['k7']} warm graph solve ms",
+                             rec["graph_solve_ms_warm"]))
+            elif "k4_k5" in rec:
+                x = rec["k4_k5"]
+                for f in ("ms", "wrapper_ms", "host_ms", "mask_ms", "bound_ms"):
+                    if f in x:
+                        keys.append((f"chip_smoke {x['kernel']} {x['call']} {f}", x[f]))
+            for key, v in keys:
+                rows.setdefault(key, [None] * len(paths))[col] = v
+    print("| | " + " | ".join(os.path.basename(p) for p in paths) + " |")
+    print("|---" * (len(paths) + 1) + "|")
+    for key, vals in rows.items():
+        cells = [("%.4f" % v) if isinstance(v, float) else ("—" if v is None else str(v))
+                 for v in vals]
+        print(f"| {key} | " + " | ".join(cells) + " |")
+    return 0
 
 
 def main(scale: float = 1.0) -> int:
@@ -382,3 +476,11 @@ def main(scale: float = 1.0) -> int:
     for cfg in CFGS:
         split_config(cfg, scale, card)
     return 0
+
+
+if __name__ == "__main__":
+    import sys
+
+    if sys.argv[1:2] == ["--compare"]:
+        sys.exit(compare(sys.argv[2:]))
+    sys.exit(main(float(sys.argv[1]) if len(sys.argv) > 1 else 1.0))

@@ -2,114 +2,242 @@
 // Hopper (sm_90a).
 //
 // Replaces: volcano_tpu/ops/rounds.py _resolve (:442) with _seg_limbs (:399)
-// and _limbs_lt (:433) — the segmented scans after the (node, rank) sort.
+// and _limbs_lt (:433): the segmented scans after the (node, rank) sort, the
+// gathers through the sort's order and the scatter back. Plain version:
+// volcano_tpu_torch/ops/rounds_kernels.py `resolve_prefix_plain`, equal bit
+// for bit (integer arithmetic, and the bound's float ops as torch does them).
 //
-// Input rows are sorted by (node key, task rank); key INT32_MAX is the
-// infeasible pseudo-node segment at the end. For a row i of node n whose
-// segment starts at s:
-//   fits  = for every r: sum(req[s..i, r]) < max(bound[n, r], 0)
+// Row i of the sorted axis is task order[i]; its key is its choice, or
+// INT32_MAX when it has none (the infeasible segment, last). For a row of
+// node n whose segment starts at s:
+//   bound = int32(floor(idle[n] / unit) saturated + eps_i), widened
+//   fits  = for every r: sum(req[s..i, r]) < max(bound[r], 0)
 //           or (r is a scalar dim and req[i, r] <= MIN_MILLI_SCALAR)
 //   pods  = !pod[i] or cnt[n] + count(pod[s..i]) <= nmax[n]   (check_pod)
-//   accept[i] = fits and pods for every row s..i (no rejection before it)
-// with bound = floor(idle / unit) + eps / unit. The sums are exact int64.
+//   accept[order[i]] = fits and pods for every row s..i
+// The sums are exact int64.
 //
-// Design: one block of 512 threads walks the rows in chunks with a
-// block-wide segmented scan (segscan.cuh) of the request sums and the pod
-// count, then a second one of the rejection count, carrying both across
-// chunks. The block stops at the first chunk that opens on the infeasible
-// segment; the caller zeroes the output, so those rows stay rejected.
+// Design. One CTA a tile of kTile rows, taken by a ticket in launch order
+// (an atomic counter, so a tile's predecessors are running or done), each
+// thread kItems consecutive rows. Two single-pass look-back scans chain
+// the tiles: the first carries (segment start, R request sums, pod count),
+// the second the "a row before me in my segment was rejected" flag, which
+// needs the first's result (fits is not monotone in a segment: the scalar
+// skip). A look-back stops at the first tile before it with a segment
+// start, one tile on the solve's inputs. The tile status words carry the
+// launch's epoch (ticket / tiles + 1), so no memset runs between launches,
+// inside a CUDA graph or out. The scan shuffles the live request lanes
+// only (templated R: 1-4, or 8). A tile that opens on the infeasible
+// segment writes rejections and stops.
 //
-// Bound: bytes (T x (R + 1) int64 + keys in, T flags out, under 3 MB at
-// cfg5); a single block leaves most of the card idle, which is the simple
-// design's price and the first thing a later PR would change.
+// Bound: bytes (the order, and through it each task's choice, request row
+// and pod flag, the nodes' idle rows, cnt and nmax, in; T flags out); the
+// look-back's chain of L2 round trips and two block scans a tile are the
+// latency it pays.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "segscan.cuh"
 
+// the launch's arguments (external linkage: the C entry points take it)
+struct ResolveArgs {
+  const long long* order;     // [T] rows sorted by (node key, rank)
+  const int32_t* choice;      // [T] node or -1, by task
+  const long long* req;       // [T, R] quantized requests, by task
+  const uint8_t* has_pod;     // [T] by task
+  const void* idle;           // [N, R] float or double
+  const void* unit;           // [R] float or double
+  const int32_t* eps;         // [R] eps / unit, truncated
+  const uint8_t* is_scalar;   // [R]
+  const int32_t* cnt;         // [N]
+  const int32_t* nmax;        // [N]
+  uint8_t* accept;            // [T] out, by task
+  unsigned long long* ctr;    // tile tickets
+  unsigned long long* st1;    // [G] status of the sums scan
+  unsigned long long* st2;    // [G] status of the rejection scan
+  long long* agg;             // [G, kStride]
+  long long* inc;             // [G, kStride]
+  int T, R, G, check_pod;
+};
+
 namespace {
 
-constexpr int kMaxR = 8;
-constexpr int kW = kMaxR + 1;  // request sums + pod count
-constexpr int kThreads = 512;
+constexpr int kThreads = 256;
+constexpr int kItems = 4;
+constexpr int kTile = kThreads * kItems;
+constexpr int kStride = 9;  // payload lanes a tile: R <= 8 sums + pods
 constexpr long long kMinMilliScalar = 10;
 
-__global__ void resolve_prefix_kernel(
-    int T, int R, const int32_t* __restrict__ key,
-    const long long* __restrict__ req, const uint8_t* __restrict__ pod,
-    const long long* __restrict__ bound, const uint8_t* __restrict__ is_scalar,
-    const int32_t* __restrict__ cnt, const int32_t* __restrict__ nmax,
-    int check_pod, uint8_t* __restrict__ accept) {
-  __shared__ int sf[32];
-  __shared__ long long sv[32][kW];
-  __shared__ long long sv1[32][1];
-  __shared__ long long carry[kW];
-  __shared__ long long carry_rej;
-  for (int base = 0; base < T; base += blockDim.x) {
-    if (key[base] == INT32_MAX) break;  // the rest is the infeasible segment
-    int i = base + threadIdx.x;
-    bool valid = i < T;
-    int kk = valid ? key[i] : INT32_MAX;
-    int head = (!valid || i == 0 || key[i - 1] != kk) ? 1 : 0;
-    long long v[kW];
+// XLA's float -> int32 convert as the plain version's torch ops do it:
+// NaN -> 0, then the clamp to [-2^31, 2^31 - 1] in the float type, then
+// truncation (which saturates on the card)
+template <typename F>
+__device__ __forceinline__ int to_i32(F x) {
+  if (x != x) return 0;
+  const F lo = (F)-2147483648.0, hi = (F)2147483647.0;
+  x = x < lo ? lo : (x > hi ? hi : x);
+  return (int)x;
+}
+
+template <int kR, typename F>
+__global__ void __launch_bounds__(kThreads) resolve_prefix_kernel(ResolveArgs a) {
+  constexpr int W = kR + 1;  // request sums, then the pod count
+  using S = segscan::Seg<W>;
+  __shared__ int s_key[kTile];
+  __shared__ S sw[32];
+  __shared__ int sw2[32];
+  __shared__ S s_carry;
+  __shared__ int s_carry2;
+  __shared__ unsigned long long s_ticket;
+
+  if (threadIdx.x == 0) s_ticket = atomicAdd(a.ctr, 1ULL);
+  __syncthreads();
+  const unsigned long long epoch = s_ticket / (unsigned)a.G + 1;
+  const int tile = (int)(s_ticket % (unsigned)a.G);
+  const int R = a.R;
+  const int first = tile * kTile + threadIdx.x * kItems;
+
+  long long o[kItems];
+  int key[kItems];
 #pragma unroll
-    for (int w = 0; w < kW; ++w) v[w] = 0;
+  for (int k = 0; k < kItems; ++k) {
+    const int i = first + k;
+    o[k] = i < a.T ? a.order[i] : -1;
+    int c = o[k] >= 0 ? a.choice[o[k]] : -1;
+    key[k] = c >= 0 ? c : INT32_MAX;
+    s_key[threadIdx.x * kItems + k] = key[k];
+  }
+  __syncthreads();
+  if (s_key[0] == INT32_MAX) {  // the tile lies in the infeasible segment
 #pragma unroll
-    for (int r = 0; r < kMaxR; ++r)
-      if (valid && r < R) v[r] = req[(size_t)i * R + r];
-    v[kMaxR] = (valid && pod[i]) ? 1 : 0;
-    int f = head;
-    segscan::block_scan<kW>(f, v, sf, sv);
-    if (!f) {
+    for (int k = 0; k < kItems; ++k)
+      if (o[k] >= 0) a.accept[o[k]] = 0;
+    return;
+  }
+
+  // each row's segment start, requests and pod flag
+  int head[kItems];
+  S x[kItems];
 #pragma unroll
-      for (int w = 0; w < kW; ++w) v[w] += carry[w];
+  for (int k = 0; k < kItems; ++k) {
+    const int j = threadIdx.x * kItems + k, i = first + k;
+    int prev;
+    if (j > 0) {
+      prev = s_key[j - 1];
+    } else {
+      int c = i > 0 ? a.choice[a.order[i - 1]] : -1;
+      prev = i > 0 ? (c >= 0 ? c : INT32_MAX) : -1;
     }
-    bool cond = false;
-    if (valid && kk != INT32_MAX) {
-      bool fits = true;
+    head[k] = (i == 0 || prev != key[k]) ? 1 : 0;
+    x[k].f = head[k];
+    const bool feas = key[k] != INT32_MAX;
 #pragma unroll
-      for (int r = 0; r < kMaxR; ++r) {
+    for (int r = 0; r < kR; ++r)
+      x[k].v[r] = (feas && r < R) ? a.req[(size_t)o[k] * R + r] : 0;
+    x[k].v[kR] = (feas && a.has_pod[o[k]]) ? 1 : 0;
+  }
+
+  // scan 1: the sums, within the tile, then across tiles
+  S agg = segscan::ident<W>();
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) agg = segscan::cat(agg, x[k]);
+  S total;
+  S run = segscan::block_exclusive<S>(agg, segscan::ident<W>(), sw, &total);
+  if (threadIdx.x == 0) {
+    S carry = segscan::ident<W>();
+    if (tile > 0) {
+      segscan::publish<W, kStride>(a.st1, a.agg, tile, total, total.f, epoch, 0);
+      carry = segscan::look_back<W, kStride>(a.st1, a.agg, a.inc, tile, epoch);
+    }
+    segscan::publish<W, kStride>(a.st1, a.inc, tile, segscan::cat(carry, total),
+                                 total.f, epoch, segscan::kPre);
+    s_carry = carry;
+  }
+  __syncthreads();
+  run = segscan::cat(s_carry, run);
+
+  // each row's condition: fits and the pod room
+  const F* idle = (const F*)a.idle;
+  const F* unit = (const F*)a.unit;
+  int cond[kItems];
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    run = segscan::cat(run, x[k]);
+    const int n = key[k];
+    bool ok = n != INT32_MAX;
+    if (ok) {
+#pragma unroll
+      for (int r = 0; r < kR; ++r) {
         if (r < R) {
-          long long b = bound[(size_t)kk * R + r];
-          bool le = v[r] < (b > 0 ? b : 0);
-          bool skip = is_scalar[r] && req[(size_t)i * R + r] <= kMinMilliScalar;
-          fits = fits && (le || skip);
+          const F q = floor(idle[(size_t)n * R + r] / unit[r]);
+          const long long b = (long long)(int)((unsigned)to_i32(q) + (unsigned)a.eps[r]);
+          const bool le = run.v[r] < (b > 0 ? b : 0);
+          const bool skip = a.is_scalar[r] && x[k].v[r] <= kMinMilliScalar;
+          ok = ok && (le || skip);
         }
       }
-      cond = fits;
-      if (check_pod)
-        cond = cond && (!pod[i] || (long long)cnt[kk] + v[kMaxR] <= (long long)nmax[kk]);
+      if (a.check_pod && x[k].v[kR])
+        ok = ok && (long long)a.cnt[n] + run.v[kR] <= (long long)a.nmax[n];
     }
-    int last = min(base + (int)blockDim.x, T) - 1 - base;
-    __syncthreads();
-    if ((int)threadIdx.x == last) {
-#pragma unroll
-      for (int w = 0; w < kW; ++w) carry[w] = v[w];
-    }
-    long long rej[1] = {(valid && !cond) ? 1 : 0};
-    int f2 = head;
-    segscan::block_scan<1>(f2, rej, sf, sv1);
-    if (!f2) rej[0] += carry_rej;
-    if (valid) accept[i] = (cond && rej[0] == 0) ? 1 : 0;
-    __syncthreads();
-    if ((int)threadIdx.x == last) carry_rej = rej[0];
-    __syncthreads();
+    cond[k] = ok ? 1 : 0;
   }
+
+  // scan 2: a rejection earlier in the segment, within the tile and across
+  int agg2 = 0;
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) agg2 = segscan::cat(agg2, head[k] | (cond[k] ? 0 : 2));
+  int total2;
+  int run2 = segscan::block_exclusive<int>(agg2, 0, sw2, &total2);
+  if (threadIdx.x == 0) {
+    int carry2 = 0;
+    const unsigned long long hb = (total2 & 1) ? segscan::kHead : 0;
+    if (tile > 0) {
+      segscan::st_release(a.st2 + tile, (epoch << 8) | segscan::kAgg | hb
+                                            | ((total2 & 2) ? segscan::kBitA : 0));
+      carry2 = segscan::look_back_flag(a.st2, tile, epoch);
+    }
+    const int inc2 = segscan::cat(carry2, total2);
+    segscan::st_release(a.st2 + tile, (epoch << 8) | segscan::kAgg | segscan::kPre
+                                          | hb | ((inc2 & 2) ? segscan::kBitP : 0));
+    s_carry2 = carry2;
+  }
+  __syncthreads();
+  run2 = segscan::cat(s_carry2, run2);
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    const bool before = !head[k] && (run2 & 2);
+    if (o[k] >= 0) a.accept[o[k]] = (cond[k] && !before) ? 1 : 0;
+    run2 = segscan::cat(run2, head[k] | (cond[k] ? 0 : 2));
+  }
+}
+
+template <typename F>
+int launch(const ResolveArgs& a, cudaStream_t s) {
+  const int grid = a.G;
+  switch (a.R) {
+    case 1: resolve_prefix_kernel<1, F><<<grid, kThreads, 0, s>>>(a); break;
+    case 2: resolve_prefix_kernel<2, F><<<grid, kThreads, 0, s>>>(a); break;
+    case 3: resolve_prefix_kernel<3, F><<<grid, kThreads, 0, s>>>(a); break;
+    case 4: resolve_prefix_kernel<4, F><<<grid, kThreads, 0, s>>>(a); break;
+    default: resolve_prefix_kernel<8, F><<<grid, kThreads, 0, s>>>(a); break;
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int resolve_prefix(int T, int R, const void* key, const void* req,
-                              const void* pod, const void* bound,
-                              const void* is_scalar, const void* cnt,
-                              const void* nmax, int check_pod, void* accept,
-                              void* stream) {
-  if (T <= 0 || R <= 0 || R > kMaxR) return (int)cudaErrorInvalidValue;
-  resolve_prefix_kernel<<<1, kThreads, 0, (cudaStream_t)stream>>>(
-      T, R, (const int32_t*)key, (const long long*)req, (const uint8_t*)pod,
-      (const long long*)bound, (const uint8_t*)is_scalar,
-      (const int32_t*)cnt, (const int32_t*)nmax, check_pod,
-      (uint8_t*)accept);
-  return (int)cudaGetLastError();
+extern "C" int resolve_prefix_tile() { return kTile; }
+extern "C" int resolve_prefix_stride() { return kStride; }
+
+extern "C" int resolve_prefix_f32(const ResolveArgs* a, cudaStream_t s) {
+  if (a->T <= 0 || a->R <= 0 || a->R > 8 || a->G != (a->T + kTile - 1) / kTile)
+    return (int)cudaErrorInvalidValue;
+  return launch<float>(*a, s);
+}
+
+extern "C" int resolve_prefix_f64(const ResolveArgs* a, cudaStream_t s) {
+  if (a->T <= 0 || a->R <= 0 || a->R > 8 || a->G != (a->T + kTile - 1) / kTile)
+    return (int)cudaErrorInvalidValue;
+  return launch<double>(*a, s);
 }

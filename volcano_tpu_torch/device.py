@@ -33,6 +33,7 @@ LAUNCHES: Dict[str, int] = {
     "window_topk": 0,
     "resolve_prefix": 0,
     "queue_budget": 0,
+    "queue_budget_mask": 0,
     "evict_preempt": 0,
     "evict_reclaim": 0,
     "evict_backfill": 0,

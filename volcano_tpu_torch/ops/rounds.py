@@ -56,6 +56,7 @@ from volcano_tpu_torch.ops.rounds_kernels import (
     round_commit,
     round_rollback,
     round_select,
+    to_i32 as _to_i32,
     window_topk,
 )
 from volcano_tpu_torch.utils import devprof
@@ -96,15 +97,9 @@ def _pair_order(primary: torch.Tensor, secondary: torch.Tensor):
     return torch.argsort(key, stable=True)
 
 
-def _to_i32(x):
-    """XLA's float -> int32 convert: truncation, saturating at the int32
-    range, NaN -> 0."""
-    x = torch.nan_to_num(x, nan=0.0)
-    return torch.clamp(x, -2.0**31, 2.0**31 - 1).to(torch.int32)
-
-
 def _job_rank(spec: SolveSpec, enc, job_placed, job_alloc):
-    """[J] dense rank from the tiered job-order keys (low = first)."""
+    """([J] dense rank from the tiered job-order keys (low = first), [J]
+    the jobs in that order)."""
     keys = [enc["job_tie_rank"]]
     for name in reversed(spec.job_order_keys):
         if name == "priority":
@@ -115,7 +110,8 @@ def _job_rank(spec: SolveSpec, enc, job_placed, job_alloc):
         elif name == "drf":
             keys.append(_share(job_alloc, enc["drf_total"][None, :],
                                enc["drf_present"][None, :]))
-    return _inverse(_lexsort(keys))
+    order = _lexsort(keys)
+    return _inverse(order), order
 
 
 def _dirty_cols(dirty, n_dirty, dirty_k: int):
@@ -214,55 +210,112 @@ def _nominate_full(spec: SolveSpec, enc, scores, idle, cnt, cls_frac, t_cap):
     return tuple(torch.cat([o[i] for o in outs], dim=0) for i in range(5))
 
 
-def _quantize(enc):
-    """Integer units of the exact acceptance scans: ceil(task_req / unit)
-    as int64, and eps / unit truncated to int32 (as the reference)."""
+def quantize(enc):
+    """``enc`` with the integer units of the exact acceptance scans, fixed
+    for a solve: task_req_i = ceil(task_req / unit) (int64, saturated at
+    the int32 range as the reference's convert), eps_i = eps / unit
+    truncated (int32) and, where the encode has queues, queue_bound_i =
+    floor(deserved / unit) + eps_i (an int32 add, widened). The solve's
+    head computes them once."""
     unit = enc["res_unit"]
-    req_i = _to_i32(torch.ceil(enc["task_req"] / unit[None, :])).to(torch.int64)
     eps_i = _to_i32(enc["eps"] / unit)
-    return unit, req_i, eps_i
-
-
-def _resolve(spec: SolveSpec, enc, idle, cnt, choice, task_rank):
-    """Per-node prefix acceptance: sort by (node, rank), accept the longest
-    priority-prefix whose cumulative request fits (K4). Returns accept [T]
-    bool."""
-    t_total = choice.shape[0]
-    unit, req_i, eps_i = _quantize(enc)
-    idle_i = _to_i32(torch.floor(idle / unit[None, :]))
-    bound = (idle_i + eps_i[None, :]).to(torch.int64)  # int32 add, widened
-    node_key = torch.where(choice >= 0, choice,
-                           torch.full_like(choice, INT32_MAX))
-    order = _pair_order(node_key, task_rank)
-    ch_s = node_key[order].contiguous()
-    pod_s = (enc["task_has_pod"][order] & (ch_s != INT32_MAX)).contiguous()
-    accept_s = resolve_prefix(
-        ch_s, req_i[order].contiguous(), pod_s, bound.contiguous(),
-        enc["is_scalar"], cnt, enc["node_max_tasks"], spec.check_pod_count)
-    accept = torch.empty(t_total, dtype=torch.bool, device=choice.device)
-    accept[order] = accept_s
-    return accept
-
-
-def _queue_budget(enc, queue_alloc, accept, task_rank, task_queue, task_job):
-    """Job-granular queue fair-share cap inside a round (K5): for accepted
-    tasks ordered (queue, rank), a job's tasks survive iff queue_alloc +
-    contributions of higher-ranked jobs in the same queue fit under
-    deserved with the epsilon comparison."""
-    t_total = accept.shape[0]
-    unit, req_i, eps_i = _quantize(enc)
-    req = torch.where(accept[:, None], req_i, torch.zeros_like(req_i))
-    order = _pair_order(task_queue, task_rank)
-    alloc_i = _to_i32(torch.ceil(queue_alloc / unit[None, :])).to(torch.int64)
-    deserved_i = _to_i32(torch.floor(enc["queue_deserved"] / unit[None, :]))
-    bound = (deserved_i + eps_i[None, :]).to(torch.int64)
-    ok_s = queue_budget(
-        task_queue[order].contiguous(), task_job[order].contiguous(),
-        req[order].contiguous(), accept[order].contiguous(),
-        alloc_i.contiguous(), bound.contiguous(), enc["is_scalar"])
-    out = torch.empty(t_total, dtype=torch.bool, device=accept.device)
-    out[order] = ok_s
+    out = dict(enc, eps_i=eps_i, task_req_i=_to_i32(
+        torch.ceil(enc["task_req"] / unit[None, :])).to(torch.int64))
+    if "queue_deserved" in enc:
+        out["queue_bound_i"] = (_to_i32(torch.floor(enc["queue_deserved"]
+                                                    / unit[None, :]))
+                                + eps_i[None, :]).to(torch.int64)
     return out
+
+
+def _node_rank_order(enc, choice, task_rank, job_order=None):
+    """The tasks sorted by (node, rank), the tasks with no choice last (one
+    stable torch sort). With the round's job order, where (N + 1) x T and
+    J x T stay under 2^31, the key is int32: node x T + the task's place in
+    rank order (its job's offset in the job order + its place in the job;
+    the tasks with no choice all N x T), half the radix passes of the
+    int64 (node, rank) key. Both give the same order of the tasks with a
+    choice, which are valid tasks."""
+    t_total = choice.shape[0]
+    n_total = enc["node_max_tasks"].shape[0]
+    j_total = enc["job_task_count"].shape[0] if "job_task_count" in enc else 0
+    if (job_order is None or (n_total + 1) * t_total >= 2**31
+            or j_total * t_total >= 2**31):
+        node_key = torch.where(choice >= 0, choice,
+                               torch.full_like(choice, INT32_MAX))
+        return _pair_order(node_key, task_rank)
+    count = enc["job_task_count"][job_order]
+    off = torch.empty_like(count).scatter_(
+        0, job_order, torch.cumsum(count, 0, dtype=torch.int32) - count)
+    pos = off[enc["task_job"].long()] + enc["task_in_job"]
+    key = torch.where(choice >= 0, choice * t_total + pos,
+                      torch.full_like(choice, n_total * t_total))
+    return torch.argsort(key, stable=True)
+
+
+def _resolve(spec: SolveSpec, enc, idle, cnt, choice, task_rank, job_order=None):
+    """Per-node prefix acceptance: sort by (node, rank), accept the longest
+    priority-prefix whose cumulative request fits (K4, which reads the
+    tasks through the sort's order and writes accept by task). Returns
+    accept [T] bool. ``job_order``: the round's (``_job_rank``), for the
+    narrow sort key (``_node_rank_order``)."""
+    if "task_req_i" not in enc:
+        enc = quantize(enc)
+    order = _node_rank_order(enc, choice, task_rank, job_order)
+    return resolve_prefix(order, choice, enc["task_req_i"], enc["task_has_pod"],
+                          idle, enc["res_unit"], enc["eps_i"], enc["is_scalar"],
+                          cnt, enc["node_max_tasks"], spec.check_pod_count)
+
+
+def _budget_order(enc, task_rank, task_queue, task_job, job_order=None):
+    """(K5's job order: the jobs by queue, then rank; each job's queue).
+
+    ``job_order`` is the round's (the jobs in rank order, ``_job_rank``).
+    A task's rank is its job's rank x T + its place in the job, in int32
+    as the reference computes it; where J x T passes 2^31 those ranks wrap,
+    and the reference's order is the wrapped one. Then, and without
+    ``job_order``, the order is read off the task axis: a job's key is its
+    lowest task rank (T is a power of two, so no job's block of ranks
+    straddles the wrap), and the task ranks must keep each job's tasks
+    together within its queue."""
+    t_total = task_rank.shape[0]
+    if "job_queue" in enc:
+        job_queue = enc["job_queue"]
+        j_total = job_queue.shape[0]
+    else:
+        j_total = int(task_job.max()) + 1
+        job_queue = None
+    if job_order is None or j_total * t_total >= 2**31:
+        jl = task_job.long()
+        if job_queue is None:
+            job_queue = torch.zeros(j_total, dtype=torch.int32,
+                                    device=task_job.device).scatter_(0, jl, task_queue)
+        first = torch.full((j_total,), 2**62, dtype=torch.int64,
+                           device=task_job.device).scatter_reduce(
+            0, jl, task_rank.to(torch.int64), "amin")
+        job_order = torch.argsort(first, stable=True)
+    if enc["queue_deserved"].shape[0] > 1:
+        job_order = job_order[torch.argsort(job_queue[job_order], stable=True)]
+    return job_order, job_queue
+
+
+def _queue_budget(enc, queue_alloc, accept, task_rank, task_queue, task_job,
+                  job_order=None):
+    """Job-granular queue fair-share cap inside a round (K5): a job's tasks
+    survive iff queue_alloc + contributions of higher-ranked jobs in the
+    same queue fit under deserved with the epsilon comparison.
+
+    The reference orders the tasks by (queue, rank); a task's rank is its
+    job's rank x T + its place in the job, so a job's tasks are contiguous
+    there and the answer is the job's: K5 sums each job's accepted
+    requests and scans the jobs by (queue, rank) (``_budget_order``), with
+    no task-axis sort."""
+    if "task_req_i" not in enc:
+        enc = quantize(enc)
+    jq, job_queue = _budget_order(enc, task_rank, task_queue, task_job, job_order)
+    return queue_budget(accept, task_job, enc["task_req_i"], jq, job_queue,
+                        queue_alloc, enc["res_unit"], enc["queue_bound_i"],
+                        enc["is_scalar"])
 
 
 def unpack_layout(layout, bufs):
@@ -431,12 +484,15 @@ class StepMachine:
 
     def head(self) -> None:
         spec = self.spec
-        enc = dict(
+        # the task columns and the acceptance scans' integer units (K4, K5),
+        # once a solve
+        enc = quantize(dict(
             self.enc_in,
             task_req=self.enc_in["cls_req"][self.enc_in["task_cls"].long()],
             task_has_pod=self.enc_in["cls_has_pod"][self.enc_in["task_cls"].long()],
-        )
+        ))
         d = _Dims(enc)
+        enc["task_in_job"] = d.task_in_job
         self.enc, self.d = enc, d
         # the class order of the round's select, once a solve (K3), and the
         # task columns of its commit and of the rollback (K7c)
@@ -511,7 +567,7 @@ class StepMachine:
         spec, enc, d, st = self.spec, self.enc, self.d, self.st
         t_cap = d.t + 1  # capacity clamp: ranks never reach it
         cons = self.pred[RK.P_CONS]
-        job_rank = _job_rank(spec, enc, st["job_placed"], st["job_alloc"])
+        job_rank, job_order = _job_rank(spec, enc, st["job_placed"], st["job_alloc"])
         task_rank = job_rank[d.task_job_l] * d.t + d.task_in_job  # int32, as ref
         active = st["active"]
         if spec.use_prop_overused:
@@ -594,10 +650,10 @@ class StepMachine:
                 0, flat, torch.where(isx, task_rank, big), "amin")
             keepm = ~isx | (task_rank == winner[flat])
             choice = torch.where(keepm, choice, torch.full_like(choice, -1))
-        accept = _resolve(spec, enc, idle, cnt, choice, task_rank)
+        accept = _resolve(spec, enc, idle, cnt, choice, task_rank, job_order)
         if spec.use_prop_overused:
             accept = _queue_budget(enc, st["queue_alloc"], accept, task_rank,
-                                   d.task_queue, d.task_job)
+                                   d.task_queue, d.task_job, job_order)
 
         # the commit (K7c): state updated in place, the counters into
         # ctl[C_PLACED .. C_DID_FULL]
@@ -612,7 +668,7 @@ class StepMachine:
         short = (enc["job_ready_base"] + st["job_placed"]) \
             < enc["job_ready_threshold"]
         cand = short & (st["job_placed"] > 0)
-        job_rank = _job_rank(spec, enc, st["job_placed"], st["job_alloc"])
+        job_rank = _job_rank(spec, enc, st["job_placed"], st["job_alloc"])[0]
         worst = torch.argmax(torch.where(cand, job_rank,
                                          torch.full_like(job_rank, -1)))
         roll_job = cand & (torch.arange(d.j, device=d.dev) == worst)

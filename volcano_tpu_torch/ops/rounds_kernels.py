@@ -349,23 +349,64 @@ def _seg_cumsum(x: torch.Tensor, start_idx: torch.Tensor) -> torch.Tensor:
     return cs - torch.where(has, base, torch.zeros_like(base))
 
 
-def _heads(*keys: torch.Tensor) -> torch.Tensor:
-    head = torch.zeros(keys[0].shape[0], dtype=torch.bool, device=keys[0].device)
-    head[0] = True
-    for key in keys:
-        head[1:] |= key[1:] != key[:-1]
+def _heads(key: torch.Tensor) -> torch.Tensor:
+    head = torch.ones(key.shape[0], dtype=torch.bool, device=key.device)
+    head[1:] = key[1:] != key[:-1]
     return head
+
+
+# -- the integer units of K4 and K5 -------------------------------------------
+
+def to_i32(x):
+    """XLA's float -> int32 convert: truncation, saturating at the int32
+    range, NaN -> 0."""
+    x = torch.nan_to_num(x, nan=0.0)
+    return torch.clamp(x, -2.0**31, 2.0**31 - 1).to(torch.int32)
+
+
+# scratch of K4 and K5 a (kind, device, sizes), allocated zeroed once and
+# never freed: a captured solve graph keeps its pointers. Every launch of
+# one scratch runs in order on the caller's stream; each leaves it ready
+# for the next (K4's status words carry the launch's epoch, K5's last CTA
+# zeroes what it summed)
+_SCRATCH: dict = {}
+
+
+def _scratch(kind, dev, n_i64):
+    key = (kind, dev, n_i64)
+    buf = _SCRATCH.get(key)
+    if buf is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"{kind}: scratch first asked for inside a graph "
+                               "capture (its eager warm-up pass must plan it)")
+        buf = _SCRATCH[key] = torch.zeros(n_i64, dtype=torch.int64, device=dev)
+    return buf
+
+
+def _check_all(ref, checks):
+    for name, t, dtype, shape in checks:
+        if t.device != ref.device:
+            raise ValueError(f"{name}: on {t.device}, expected {ref.device}")
+        _check(t, name, dtype, shape)
 
 
 # -- K4: per-node prefix acceptance -------------------------------------------
 
-def resolve_prefix_plain(key_s, req_s, pod_s, bound, is_scalar, cnt, nmax,
-                         check_pod: bool):
-    """Plain version of K4 over rows sorted by (node key, rank): the row
-    is accepted iff it and every earlier row of its node segment fit —
-    cumulative int64 request < max(bound, 0) per dim (scalar dims at or
-    under MIN_MILLI_SCALAR skipped) and, with check_pod, the node's pod
-    room. Key INT32_MAX is the infeasible segment (all rejected)."""
+def resolve_prefix_plain(order, choice, req_i, has_pod, idle, unit, eps_i,
+                         is_scalar, cnt, nmax, check_pod: bool):
+    """Plain version of K4. Row i of the sorted axis is task order[i]
+    (tasks sorted by (node key, rank), the key a task's choice or
+    INT32_MAX without one, last); a row is accepted iff it and every
+    earlier row of its node segment fit: cumulative int64 request <
+    max(bound, 0) per dim, bound = int32(floor(idle / unit)) + eps_i (an
+    int32 add, widened), scalar dims at or under MIN_MILLI_SCALAR of the
+    row's own request skipped, and with check_pod the node's pod room. The
+    infeasible segment is all rejected. Returns accept [T] bool by task."""
+    key = torch.where(choice >= 0, choice, torch.full_like(choice, INT32_MAX))
+    key_s = key[order]
+    req_s = req_i[order]
+    pod_s = has_pod[order] & (key_s != INT32_MAX)
+    bound = (to_i32(torch.floor(idle / unit[None, :])) + eps_i[None, :]).to(torch.int64)
     head = _heads(key_s)
     start_idx = _seg_start_idx(head)
     seg = _seg_cumsum(req_s, start_idx)
@@ -380,39 +421,66 @@ def resolve_prefix_plain(key_s, req_s, pod_s, bound, is_scalar, cnt, nmax,
                             <= nmax[node].to(torch.int64))
         cond = cond & pods_ok
     rej = _seg_cumsum((~cond).to(torch.int64), start_idx)
-    return cond & (rej == 0)
+    accept = torch.empty(order.shape[0], dtype=torch.bool, device=order.device)
+    accept[order] = cond & (rej == 0)
+    return accept
 
 
-def resolve_prefix(key_s, req_s, pod_s, bound, is_scalar, cnt, nmax,
-                   check_pod: bool):
-    """K4 (csrc/resolve_prefix.cu) on CUDA, the plain version on the CPU.
-    key_s int32 [T], req_s int64 [T, R], pod_s bool [T], bound int64
-    [N, R], is_scalar bool [R], cnt/nmax int32 [N]. Returns bool [T]."""
-    if not devmod.on_cuda(key_s, req_s, bound):
-        return resolve_prefix_plain(key_s, req_s, pod_s, bound, is_scalar,
-                                    cnt, nmax, check_pod)
-    from volcano_tpu_torch import _build
+class _ResolveArgs(ctypes.Structure):
+    _fields_ = ([(name, ctypes.c_void_p) for name in (
+        "order", "choice", "req", "has_pod", "idle", "unit", "eps",
+        "is_scalar", "cnt", "nmax", "accept", "ctr", "st1", "st2", "agg",
+        "inc")]
+        + [(name, ctypes.c_int) for name in ("T", "R", "G", "check_pod")])
 
-    t, r = req_s.shape
-    n = bound.shape[0]
-    _same_device(key_s, req_s=req_s, pod_s=pod_s, bound=bound,
-                 is_scalar=is_scalar, cnt=cnt, nmax=nmax)
-    _check(key_s, "key_s", torch.int32, (t,))
-    _check(req_s, "req_s", torch.int64, (t, r))
-    _check(pod_s, "pod_s", torch.bool, (t,))
-    _check(bound, "bound", torch.int64, (n, r))
-    _check(is_scalar, "is_scalar", torch.bool, (r,))
-    _check(cnt, "cnt", torch.int32, (n,))
-    _check(nmax, "nmax", torch.int32, (n,))
-    out = torch.zeros(t, dtype=torch.bool, device=key_s.device)
-    lib = _build.library("resolve_prefix")
-    fn = lib.resolve_prefix
-    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 7 \
-        + [ctypes.c_int] + [ctypes.c_void_p] * 2
-    fn.restype = ctypes.c_int
-    rc = fn(t, r, _ptr(key_s), _ptr(req_s), _ptr(pod_s), _ptr(bound),
-            _ptr(is_scalar), _ptr(cnt), _ptr(nmax), int(check_pod),
-            _ptr(out), _stream(key_s))
+
+def resolve_layout():
+    """(rows a CTA of K4 takes, payload lanes a tile status holds)."""
+    fn_tile, fn_stride = _entry("resolve_prefix", "resolve_prefix_tile",
+                                "resolve_prefix_stride", argtypes=[])
+    return fn_tile(), fn_stride()
+
+
+def resolve_prefix(order, choice, req_i, has_pod, idle, unit, eps_i,
+                   is_scalar, cnt, nmax, check_pod: bool):
+    """K4 (csrc/resolve_prefix.cu, a CTA a tile of rows chained by a
+    look-back) on CUDA, the plain version on the CPU; the same arguments
+    and result as ``resolve_prefix_plain``. order int64 [T]; choice int32
+    [T]; req_i int64 [T, R]; has_pod bool [T]; idle [N, R] and unit [R] of
+    one float dtype; eps_i int32 [R]; is_scalar bool [R]; cnt, nmax int32
+    [N]. Its only memory is its output (from the graph's pool while a
+    solve is captured) and its tile status, planned once a size."""
+    if not devmod.on_cuda(order, choice, idle):
+        return resolve_prefix_plain(order, choice, req_i, has_pod, idle, unit,
+                                    eps_i, is_scalar, cnt, nmax, check_pod)
+    t = order.shape[0]
+    n, r = idle.shape
+    dt = idle.dtype
+    if dt not in (torch.float32, torch.float64):
+        raise TypeError(f"idle: dtype {dt}")
+    _check_all(order, (
+        ("order", order, torch.int64, (t,)), ("choice", choice, torch.int32, (t,)),
+        ("req_i", req_i, torch.int64, (t, r)), ("has_pod", has_pod, torch.bool, (t,)),
+        ("idle", idle, dt, (n, r)), ("unit", unit, dt, (r,)),
+        ("eps_i", eps_i, torch.int32, (r,)), ("is_scalar", is_scalar, torch.bool, (r,)),
+        ("cnt", cnt, torch.int32, (n,)), ("nmax", nmax, torch.int32, (n,))))
+    tile, stride = resolve_layout()
+    g = (t + tile - 1) // tile
+    buf = _scratch("resolve_prefix", order.device, 1 + 2 * g + 2 * g * stride)
+    base = buf.data_ptr()
+    out = torch.empty(t, dtype=torch.bool, device=order.device)
+    a = _ResolveArgs(
+        order=order.data_ptr(), choice=choice.data_ptr(), req=req_i.data_ptr(),
+        has_pod=has_pod.data_ptr(), idle=idle.data_ptr(), unit=unit.data_ptr(),
+        eps=eps_i.data_ptr(), is_scalar=is_scalar.data_ptr(), cnt=cnt.data_ptr(),
+        nmax=nmax.data_ptr(), accept=out.data_ptr(), ctr=base, st1=base + 8,
+        st2=base + 8 * (1 + g), agg=base + 8 * (1 + 2 * g),
+        inc=base + 8 * (1 + 2 * g + g * stride),
+        T=t, R=r, G=g, check_pod=int(check_pod))
+    f32, f64 = _entry("resolve_prefix", "resolve_prefix_f32", "resolve_prefix_f64",
+                      argtypes=[ctypes.POINTER(_ResolveArgs), ctypes.c_void_p])
+    rc = (f64 if dt == torch.float64 else f32)(
+        ctypes.byref(a), devmod.raw_stream(order.device))
     if rc != 0:
         raise RuntimeError(f"resolve_prefix kernel launch failed: CUDA error {rc}")
     devmod.count_launch("resolve_prefix")
@@ -421,53 +489,86 @@ def resolve_prefix(key_s, req_s, pod_s, bound, is_scalar, cnt, nmax,
 
 # -- K5: job-granular queue budget ---------------------------------------------
 
-def queue_budget_plain(q_s, job_s, req_s, acc_s, alloc_i, bound, is_scalar):
-    """Plain version of K5 over rows sorted by (queue, rank): a row
-    survives iff it was accepted and its queue's allocation plus what the
-    higher-ranked jobs of the queue took fits under max(bound, 0) per dim
-    (scalar dims at or under MIN_MILLI_SCALAR skipped). Exact int64."""
-    q_head = _heads(q_s)
-    j_head = _heads(q_s, job_s)
-    qsum = _seg_cumsum(req_s, _seg_start_idx(q_head))
-    jsum = _seg_cumsum(req_s, _seg_start_idx(j_head))
-    q = q_s.long()
-    tot = alloc_i[q] + (qsum - jsum)
-    le = tot < torch.clamp(bound[q], min=0)
+def queue_budget_plain(accept, task_job, req_i, jq, job_queue, queue_alloc,
+                       unit, bound, is_scalar):
+    """Plain version of K5, on the job axis: each job's accepted requests
+    summed (int64), their exclusive sums over the jobs of each queue in the
+    order ``jq`` (jobs by queue, then rank), and a task survives iff it was
+    accepted and its queue's allocation, int32(ceil(queue_alloc / unit))
+    widened, plus what the jobs of its queue before its job took fits under
+    max(bound, 0) per dim (scalar dims at or under MIN_MILLI_SCALAR
+    skipped). Returns bool [T]."""
+    j_total = job_queue.shape[0]
+    req = torch.where(accept[:, None], req_i, torch.zeros_like(req_i))
+    jsum = torch.zeros((j_total, req_i.shape[1]), dtype=torch.int64,
+                       device=req_i.device).index_add_(0, task_job.long(), req)
+    s = jsum[jq]
+    q_s = job_queue[jq].long()
+    before = _seg_cumsum(s, _seg_start_idx(_heads(q_s))) - s
+    alloc_i = to_i32(torch.ceil(queue_alloc / unit[None, :])).to(torch.int64)
+    tot = alloc_i[q_s] + before
+    le = tot < torch.clamp(bound[q_s], min=0)
     skip = is_scalar[None, :] & (tot <= MIN_MILLI_SCALAR)
-    return acc_s & torch.all(le | skip, dim=-1)
+    job_ok = torch.empty(j_total, dtype=torch.bool, device=req_i.device)
+    job_ok[jq] = torch.all(le | skip, dim=-1)
+    return accept & job_ok[task_job.long()]
 
 
-def queue_budget(q_s, job_s, req_s, acc_s, alloc_i, bound, is_scalar):
-    """K5 (csrc/queue_budget.cu) on CUDA, the plain version on the CPU.
-    q_s/job_s int32 [T], req_s int64 [T, R], acc_s bool [T], alloc_i and
-    bound int64 [Q, R], is_scalar bool [R]. Returns bool [T]."""
-    if not devmod.on_cuda(q_s, req_s, alloc_i):
-        return queue_budget_plain(q_s, job_s, req_s, acc_s, alloc_i, bound,
-                                  is_scalar)
-    from volcano_tpu_torch import _build
+class _BudgetArgs(ctypes.Structure):
+    _fields_ = ([(name, ctypes.c_void_p) for name in (
+        "accept", "task_job", "req", "jq", "job_queue", "queue_alloc", "unit",
+        "bound", "is_scalar", "out", "jsum", "arrived", "job_ok")]
+        + [(name, ctypes.c_int) for name in ("T", "R", "J")])
 
-    t, r = req_s.shape
-    nq = alloc_i.shape[0]
-    _same_device(q_s, job_s=job_s, req_s=req_s, acc_s=acc_s, alloc_i=alloc_i,
-                 bound=bound, is_scalar=is_scalar)
-    _check(q_s, "q_s", torch.int32, (t,))
-    _check(job_s, "job_s", torch.int32, (t,))
-    _check(req_s, "req_s", torch.int64, (t, r))
-    _check(acc_s, "acc_s", torch.bool, (t,))
-    _check(alloc_i, "alloc_i", torch.int64, (nq, r))
-    _check(bound, "bound", torch.int64, (nq, r))
-    _check(is_scalar, "is_scalar", torch.bool, (r,))
-    out = torch.empty(t, dtype=torch.bool, device=q_s.device)
-    lib = _build.library("queue_budget")
-    fn = lib.queue_budget
-    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 9
-    fn.restype = ctypes.c_int
-    rc = fn(t, r, _ptr(q_s), _ptr(job_s), _ptr(req_s), _ptr(acc_s),
-            _ptr(alloc_i), _ptr(bound), _ptr(is_scalar), _ptr(out),
-            _stream(q_s))
-    if rc != 0:
-        raise RuntimeError(f"queue_budget kernel launch failed: CUDA error {rc}")
-    devmod.count_launch("queue_budget")
+
+def queue_budget(accept, task_job, req_i, jq, job_queue, queue_alloc, unit,
+                 bound, is_scalar, parts=("sums", "mask")):
+    """K5 (csrc/queue_budget.cu: ``queue_budget``, the per-job sums and the
+    queue scan, then ``queue_budget_mask``) on CUDA, the plain version on
+    the CPU; the same arguments and result as ``queue_budget_plain``.
+    accept bool [T]; task_job int32 [T]; req_i int64 [T, R]; jq int64 [J];
+    job_queue int32 [J]; queue_alloc [Q, R] and unit [R] of one float
+    dtype; bound int64 [Q, R]; is_scalar bool [R]. Its only memory is its
+    output and its job rows, planned once a size. ``parts`` names the
+    launches to make (a measurement times the mask alone after a whole
+    call: the job decisions stay in the scratch)."""
+    if not devmod.on_cuda(accept, req_i, queue_alloc):
+        return queue_budget_plain(accept, task_job, req_i, jq, job_queue,
+                                  queue_alloc, unit, bound, is_scalar)
+    t, r = req_i.shape
+    j_total = job_queue.shape[0]
+    nq = queue_alloc.shape[0]
+    dt = queue_alloc.dtype
+    if dt not in (torch.float32, torch.float64):
+        raise TypeError(f"queue_alloc: dtype {dt}")
+    _check_all(accept, (
+        ("accept", accept, torch.bool, (t,)), ("task_job", task_job, torch.int32, (t,)),
+        ("req_i", req_i, torch.int64, (t, r)), ("jq", jq, torch.int64, (j_total,)),
+        ("job_queue", job_queue, torch.int32, (j_total,)),
+        ("queue_alloc", queue_alloc, dt, (nq, r)), ("unit", unit, dt, (r,)),
+        ("bound", bound, torch.int64, (nq, r)), ("is_scalar", is_scalar, torch.bool, (r,))))
+    # the job rows, the arrival counter, then ok a job (bytes)
+    buf = _scratch("queue_budget", accept.device, j_total * r + 1 + (j_total + 7) // 8)
+    base = buf.data_ptr()
+    out = torch.empty(t, dtype=torch.bool, device=accept.device)
+    a = _BudgetArgs(
+        accept=accept.data_ptr(), task_job=task_job.data_ptr(), req=req_i.data_ptr(),
+        jq=jq.data_ptr(), job_queue=job_queue.data_ptr(),
+        queue_alloc=queue_alloc.data_ptr(), unit=unit.data_ptr(),
+        bound=bound.data_ptr(), is_scalar=is_scalar.data_ptr(), out=out.data_ptr(),
+        jsum=base, arrived=base + 8 * j_total * r,
+        job_ok=base + 8 * (j_total * r + 1), T=t, R=r, J=j_total)
+    f32, f64, mask = _entry("queue_budget", "queue_budget_f32", "queue_budget_f64",
+                            "queue_budget_mask",
+                            argtypes=[ctypes.POINTER(_BudgetArgs), ctypes.c_void_p])
+    stream = devmod.raw_stream(accept.device)
+    for part, name, fn in (("sums", "queue_budget", f64 if dt == torch.float64 else f32),
+                           ("mask", "queue_budget_mask", mask)):
+        if part in parts:
+            rc = fn(ctypes.byref(a), stream)
+            if rc != 0:
+                raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+            devmod.count_launch(name)
     return out
 
 
@@ -601,10 +702,7 @@ def _commit_launch(spec, tc, st, node, mask, roll_job, flag, ctl, mode) -> None:
         checks += [("task_excl", tc["task_excl"], i32, (t,)),
                    ("excl_occ", st["excl_occ"], torch.bool,
                     (st["excl_occ"].shape[0], n))]
-    for name, x, want, shape in checks:
-        if x.device != idle.device:
-            raise ValueError(f"{name}: on {x.device}, expected {idle.device}")
-        _check(x, name, want, shape)
+    _check_all(idle, checks)
     key_s, perm_s = torch.sort(torch.where(mask, node, torch.full_like(node, n)),
                                stable=True)
     ptrs = dict(node=node, mask=mask, task_req=tc["task_req"],
