@@ -26,8 +26,10 @@ Phases, each failing the run on any error:
    full and dirty-column, K2 window_topk); each kernel is then held
    against its plain PyTorch version on those inputs with torch.equal
    (exact), and both are timed
-   with CUDA events; the same session times the rounds solver's torch-op
-   parts (K2b, K6's job ranks) with CUDA events around each call. These sessions
+   with CUDA events; the same session times the rounds solver's K2b and
+   K6 groups (``_cap_walk``/``_nominate_full`` and ``_job_rank``: each
+   kernel's wrapper with the sorts and gathers around it) with CUDA
+   events around each call. These sessions
    run the step machine from the host (loop="host"), so each call is an
    eager launch. K2 is also held against its plain version (bits equal)
    on crafted rows (signed zeros either way round, all tied, all -inf,
@@ -60,8 +62,13 @@ Phases, each failing the run on any error:
    queue scan, then queue_budget_mask) on every call of those host runs
    (cfg2's rounds, R = 3; cfg3's ten queues) and on crafted inputs in
    float32 and float64, timed with their host time and recounted bytes
-   bound on cfg2's first and a later round, cfg3's and cfg5's; solve ms of
-   the graph beside the host loop, the capture ms and the graphs cached
+   bound on cfg2's first and a later round, cfg3's and cfg5's; K2b
+   cap_walk and K6 (two launches: the tile sorts job_rank, then
+   job_rank_count) on every call of those host runs (the window and the full-width
+   cover; the round's and the rollback's ranks) and on crafted inputs in
+   float32 and float64 (bench/round_cases.py walk_cases, rank_cases), timed
+   the same way on each config's first call (``k2b_k6`` lines); solve ms
+   of the graph beside the host loop, the capture ms and the graphs cached
    are printed;
 4. session phase: cfg2 (5k x 1k), cfg3 (20k x 5k), cfg5 (50k x 10k) and
    cfg6 (cfg2 with anti-affinity groups, always at full scale: it caps
@@ -76,8 +83,9 @@ Phases, each failing the run on any error:
    the fused session chain and once more on the per-action path
    (VOLCANO_TPU_FUSE=0), each on a fresh cache with tpuscore on cuda.
    Launch counters are zeroed just before each run and read just after:
-   every kernel of the path must have launched (K1/K2/K3/K4/K5 and K5's
-   mask, K7a and K7c everywhere, K7b exactly once on cfg6;
+   every kernel of the path must have launched (K1/K2/K2b/K3/K4/K5, K5's
+   mask, K6's job_rank and job_rank_count, K7a and K7c everywhere, K7b exactly once on
+   cfg6;
    on a fused run K13 fuse_heaps twice, the fused K9 and K10 once each and
    K11 once where backfill has work, and no per-action K9/K10; on the
    per-action run K9 and K11 on cfg4, K9 and K10 on the reclaim path, and
@@ -457,10 +465,11 @@ def capture_inputs():
     return seen, restore
 
 
-# the rounds solver's parts that stay torch ops (ROADMAP Queue 2 K2b and
-# K6's job ranks), timed call by call on a cfg5 session of the host-driven
-# machine; inside the solve's graph they run as captured nodes
-TORCH_OP_ROWS = {
+# the rounds solver's K2b and K6 groups (their kernels' wrappers, K2b's
+# with the cover's torch argsort and gather), timed call by call on a cfg5
+# session of the host-driven machine; inside the solve's graph they run
+# as captured nodes
+GROUP_ROWS = {
     "K2b": ("_cap_walk", "_nominate_full"),
     "K6": ("_job_rank",),
 }
@@ -474,8 +483,8 @@ def tensor_bytes(x):
     return 0
 
 
-def count_torch_ops():
-    """Wrap the torch-op rows' functions: calls per session, CUDA events
+def count_group_calls():
+    """Wrap the group rows' functions: calls per session, CUDA events
     around each call (the span on the stream from its first launch to its
     last), and the bytes of the first call's tensor arguments and results
     (without the encoded fields they read, so their bound is a lower
@@ -483,7 +492,7 @@ def count_torch_ops():
     from volcano_tpu_torch.ops import rounds
 
     calls, first, events = {}, {}, {}
-    real = {n: getattr(rounds, n) for ns in TORCH_OP_ROWS.values() for n in ns}
+    real = {n: getattr(rounds, n) for ns in GROUP_ROWS.values() for n in ns}
 
     def wrap(name):
         def fn(*args, **kw):
@@ -518,10 +527,11 @@ def kernel_phase(scale):
 
     # these sessions run the step machine from the host (loop="host"), so
     # every wrapper call is an eager launch whose inputs can be copied and
-    # whose torch ops can be timed one call at a time (inside the graph a
+    # whose groups can be timed one call at a time (inside the graph a
     # wrapper is called once, at the capture)
-    graph_solve = rounds.solve
-    rounds.solve = lambda spec, enc, loop=None: graph_solve(spec, enc, "host")
+    graph_solve, graph_dispatch = rounds.solve, rounds.dispatch_packed
+    rounds.solve = lambda spec, enc, loop=None, raw=True: graph_solve(spec, enc, "host", raw)
+    rounds.dispatch_packed = lambda spec, enc, bound=None: graph_solve(spec, enc, "host")[1]
     seen, restore = capture_inputs()
     try:
         run_session(5, scale, "cuda", "float32")
@@ -532,17 +542,17 @@ def kernel_phase(scale):
             run_session(2, scale, "cuda", "float32")
     finally:
         restore()
-    # the torch-op rows on a second, warm cfg5 session (the first one pays
+    # the group rows on a second, warm cfg5 session (the first one pays
     # the process's lazy CUDA set-up inside its first calls)
-    calls, first, events, restore_ops = count_torch_ops()
+    calls, first, events, restore_ops = count_group_calls()
     try:
         run_session(5, scale, "cuda", "float32")
     finally:
         restore_ops()
-        rounds.solve = graph_solve
+        rounds.solve, rounds.dispatch_packed = graph_solve, graph_dispatch
     torch.cuda.synchronize()
     rows = {}
-    for row, names in TORCH_OP_ROWS.items():
+    for row, names in GROUP_ROWS.items():
         byts = sum(first.get(n, 0) for n in names)
         spans = [a.elapsed_time(b) for n in names for a, b in events.get(n, ())]
         rows[row] = {"functions": list(names),
@@ -551,7 +561,7 @@ def kernel_phase(scale):
                      "ms_per_call": sum(spans) / max(len(spans), 1),
                      "bytes": byts, "bound_ms": byts / MEM_BPS * 1e3,
                      "bound_by": "bytes"}
-    print(json.dumps({"torch_op_rows": rows, "session": "cfg5 (warm)"}), flush=True)
+    print(json.dumps({"group_rows": rows, "session": "cfg5 (warm)"}), flush=True)
     missing = {"score_block", "window_topk"} - set(seen)
     if missing:
         raise AssertionError(f"cfg5 path never called {sorted(missing)}")
@@ -1126,7 +1136,8 @@ def reference_check():
 
 
 ALLOC_KERNELS = ("score_block", "window_topk", "resolve_prefix", "queue_budget",
-                 "queue_budget_mask", "rounds_ctl", "round_select", "round_commit")
+                 "queue_budget_mask", "rounds_ctl", "round_select", "round_commit",
+                 "cap_walk", "job_rank", "job_rank_count")
 EVICT_KERNELS = ("evict_preempt", "evict_reclaim", "evict_backfill")
 FUSED_KERNELS = ("fuse_heaps_preempt", "fuse_heaps_reclaim", "evict_preempt_fused",
                  "evict_reclaim_fused")
@@ -1709,6 +1720,7 @@ def round_kernel_records(recorded):
               f"{held['rollback']} recorded rollbacks and "
               f"{2 * len(round_cases.COMMIT_CASES) + 1} crafted held equal (plain on the CPU)"))
     recs += acceptance_records(recorded)
+    recs += walk_rank_records(recorded)
     for rec in recs:
         finish_record(rec)
     return recs
@@ -1825,6 +1837,144 @@ def acceptance_records(recorded):
              shape=f"cfg5, the mask alone (plain: the whole of K5): T={b_args[0].shape[0]}"),
     ]
     return recs
+
+
+def walk_bytes(args):
+    """The bytes one K2b call must move: each position's node and score,
+    the rows' requests and flags, the idle rows (and with the pod check the
+    pod counts) of the distinct nodes the positions name, read once; four
+    int32 a position written."""
+    spec, order, score_ord, req, exl, has_pod, frac, idle, cnt, nmax, eps, _ = args
+    rows, w = order.shape
+    nodes = int(torch.unique(order).numel())
+    per_node = idle.shape[1] * idle.element_size() + (8 if spec.check_pod_count else 0)
+    return (nbytes(order, score_ord, req, eps, exl if spec.use_exclusion else None,
+                   frac if spec.use_binpack else None,
+                   has_pod if spec.check_pod_count else None)
+            + nodes * per_node + 16 * rows * w)
+
+
+def rank_bytes(args):
+    """The bytes one K6 call must move: the tie ranks and the columns of
+    the job-order keys the spec names (priorities; the gang columns and
+    placed counts; the allocation rows and drf totals), read once; rank
+    (int32) and order (int64) written."""
+    spec, cols, placed, alloc = args
+    keys = set(spec.job_order_keys)
+    read = [cols["job_tie_rank"]]
+    if "priority" in keys:
+        read.append(cols["job_priority"])
+    if "gang" in keys:
+        read += [cols["job_ready_base"], cols["job_min_available"], placed]
+    if "drf" in keys:
+        read += [alloc, cols["drf_total"], cols["drf_present"]]
+    return nbytes(*read) + 12 * placed.shape[0]
+
+
+def walk_rank_records(recorded):
+    """K2b cap_walk and K6 job_rank held against their plain versions
+    (torch.equal) on every call the recorded host-driven solves made
+    (cfg2's window, cfg3, cfg5's window and its full-width cover, cfg6's
+    exclusion classes; the round's and the rollback's ranks) and on the
+    crafted inputs of bench/round_cases.py in float32 and float64; each
+    timed on the first call of cfg2, cfg3, cfg5 and cfg6 (K2b: of the
+    window and of the full width): device ms (20 calls in a CUDA graph), the wrapper a
+    call under CUDA events, its host time, the plain version, the bytes
+    bound. Returns the records of K2b (cfg5's window) and K6 (cfg5)."""
+    from volcano_tpu_torch.bench import round_cases
+    from volcano_tpu_torch.ops import rounds_kernels as RK
+
+    def hold_walk(args, what):
+        for name, a, b in zip(("ccap", "g_start", "g_size", "ccap_before"),
+                              RK.cap_walk(*args), RK.cap_walk_plain(*args)):
+            same(a, b, f"cap_walk {what} {name}")
+
+    def hold_rank(args, what):
+        for name, a, b in zip(("rank", "order"), RK.job_rank(*args), RK.job_rank_plain(*args)):
+            same(a, b, f"job_rank {what} {name}")
+
+    held = {"walk": 0, "ranks": 0}
+    for cfg, seen in recorded.items():
+        for kind, hold in (("walk", hold_walk), ("ranks", hold_rank)):
+            if not seen[kind]:
+                raise AssertionError(f"K7 cfg{cfg}: no {kind} call recorded")
+            for i, (args, _) in enumerate(seen[kind]):
+                hold(args, f"cfg{cfg} call {i}")
+                held[kind] += 1
+    crafted = 0
+    for dt in (torch.float32, torch.float64):
+        for label, args in round_cases.walk_cases("cuda", dt):
+            hold_walk(args, f"crafted {label} {dt}")
+            crafted += 1
+        for label, args in round_cases.rank_cases("cuda", dt):
+            hold_rank(args, f"crafted {label} {dt}")
+            crafted += 1
+    # each config's first walk of the window and of the full width (the
+    # cover, or every round without a window), and its first ranks
+    calls = {}
+    for cfg, seen in recorded.items():
+        for args, _ in seen["walk"]:
+            part = "full width" if args[1].shape[1] == args[7].shape[0] else "window"
+            calls.setdefault(("walk", cfg, part), args)
+        calls[("ranks", cfg, "")] = seen["ranks"][0][0]
+    lines = {}
+    for key, args in sorted(calls.items(), key=str):
+        kind, cfg, part = key
+        kernel, plain = ((RK.cap_walk, RK.cap_walk_plain) if kind == "walk"
+                         else (RK.job_rank, RK.job_rank_plain))
+        line = {"kernel": "cap_walk" if kind == "walk" else "job_rank", "card": CARD,
+                "call": f"cfg{cfg} {part}".strip(),
+                "ms": graph_ms(lambda: kernel(*args)),
+                "wrapper_ms": time_ms(lambda: kernel(*args)),
+                "host_ms": host_ms(lambda: kernel(*args)),
+                "plain_ms": timed_plain(lambda: plain(*args))[1]}
+        if kind == "walk":
+            line["shape"] = (f"rows={args[1].shape[0]} W={args[1].shape[1]} "
+                             f"N={args[7].shape[0]} R={args[7].shape[1]}")
+            line["bound_ms"] = walk_bytes(args) / MEM_BPS * 1e3
+        else:
+            line["shape"] = f"J={args[2].shape[0]} keys={'/'.join(args[0].job_order_keys)}"
+            line["bound_ms"] = rank_bytes(args) / MEM_BPS * 1e3
+            # the count alone: the call less its tile sorts (a count needs
+            # the sorts just before it)
+            line["tiles_ms"] = graph_ms(lambda: RK.job_rank(*args, count=False))
+            line["count_ms"] = line["ms"] - line["tiles_ms"]
+        lines[key] = line
+        print(json.dumps({"k2b_k6": line}), flush=True)
+    note = (f"{held['walk']} recorded K2b calls and {held['ranks']} K6 calls of "
+            f"cfg{tuple(recorded)}, {crafted} crafted held equal")
+    w_args, w5 = calls[("walk", 5, "window")], lines[("walk", 5, "window")]
+    cover = lines.get(("walk", 5, "full width"))
+    r_args, r5 = calls[("ranks", 5, "")], lines[("ranks", 5, "")]
+    rows, w = w_args[1].shape
+    j = r_args[2].shape[0]
+    words = RK.rank_words(r_args[0], j, r_args[3].dtype)
+    tiles = -(-j // 512)
+    return [
+        dict(name="cap_walk", kernel="cap_walk", route="cuda",
+             source="volcano_tpu_torch/csrc/cap_walk.cu",
+             replaces="volcano_tpu/ops/rounds.py:190", max_abs_err=0.0,
+             ms=w5["ms"], host_ms=w5["host_ms"], plain_ms=w5["plain_ms"], library_ms=None,
+             bytes=walk_bytes(w_args), ops=rows * w * (2 * w_args[7].shape[1] + 12),
+             dtype=w_args[7].dtype, launch_path=5,
+             shape=f"cfg5 window: {w5['shape']}"
+                   + (f"; its cover ({cover['shape']}) {cover['ms']:.4f} ms" if cover else "")
+                   + f"; {note}"),
+        dict(name="job_rank", kernel="job_rank", route="cuda",
+             source="volcano_tpu_torch/csrc/job_rank.cu",
+             replaces="volcano_tpu/ops/rounds.py:91", max_abs_err=0.0,
+             ms=r5["ms"], host_ms=r5["host_ms"], plain_ms=r5["plain_ms"], library_ms=None,
+             bytes=rank_bytes(r_args), ops=j * max(1, (j - 1).bit_length()) * 6,
+             dtype=torch.int64, launch_path=5, shape=f"cfg5 (both launches): {r5['shape']}"),
+        dict(name="job_rank_count", kernel="job_rank_count", route="cuda",
+             source="volcano_tpu_torch/csrc/job_rank.cu",
+             replaces="volcano_tpu/ops/rounds.py:91", max_abs_err=0.0,
+             ms=r5["count_ms"], plain_ms=r5["plain_ms"], library_ms=None,
+             bytes=2 * 8 * words * j + 12 * j, ops=j * tiles * 9 * words,
+             dtype=torch.int64, launch_path=5,
+             shape=f"cfg5, the count alone (both launches less the tile sorts' "
+                   f"{r5['tiles_ms']:.4f} ms; plain: the whole of K6): J={j}"),
+    ]
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,10 @@
 """K7 on a CUDA card: K7a (``rounds_ctl``), K7b (``tail_pass``), K3
-(``round_select``, with K6's ranks), K4 (``resolve_prefix``), K5
-(``queue_budget``) and K7c (``round_commit``) against their plain
-versions, and the graph-replayed solve against the host-driven step
-machine (``loop="host"``) and against the CPU's solve of the same encode,
-on encodes the port's own session prepares and on crafted inputs
-(volcano_tpu_torch/bench/round_cases.py).
+(``round_select``, with K6's ranks), K2b (``cap_walk``), K6's job ranks
+(``job_rank``), K4 (``resolve_prefix``), K5 (``queue_budget``) and K7c
+(``round_commit``) against their plain versions, and the graph-replayed
+solve against the host-driven step machine (``loop="host"``) and against
+the CPU's solve of the same encode, on encodes the port's own session
+prepares and on crafted inputs (volcano_tpu_torch/bench/round_cases.py).
 
 This file imports nothing of JAX, so it runs where the card is:
 
@@ -193,6 +193,25 @@ def test_gpu_round_kernels_equal_plain_on_recorded_rounds(cfg, scale, dtype):
         assert_resolve_equal(args, f"cfg{cfg} resolve {i}")
     for i, (args, _) in enumerate(seen["budget"]):
         assert_budget_equal(args, f"cfg{cfg} budget {i}")
+    assert seen["walk"] and seen["ranks"]
+    for i, (args, _) in enumerate(seen["walk"]):
+        assert_walk_equal(args, f"cfg{cfg} walk {i}")
+    for i, (args, _) in enumerate(seen["ranks"]):
+        assert_rank_equal(args, f"cfg{cfg} ranks {i}")
+
+
+def assert_walk_equal(args, what):
+    got = RK.cap_walk(*args)
+    want = RK.cap_walk_plain(*args)
+    for name, a, b in zip(("ccap", "g_start", "g_size", "ccap_before"), got, want):
+        assert torch.equal(a, b), (what, name, int((a != b).sum()))
+
+
+def assert_rank_equal(args, what):
+    got = RK.job_rank(*args)
+    want = RK.job_rank_plain(*args)
+    for name, a, b in zip(("rank", "order"), got, want):
+        assert torch.equal(a, b), (what, name, int((a != b).sum()))
 
 
 def assert_resolve_equal(args, what):
@@ -266,6 +285,52 @@ def test_gpu_resolve_and_budget_repeat_and_replay_in_a_graph():
         torch.cuda.synchronize()
         assert torch.equal(r_out, RK.resolve_prefix_plain(*r_in)), i
         assert torch.equal(b_out, RK.queue_budget_plain(*b_in)), i
+
+
+@pytest.mark.gpu
+def test_gpu_dispatch_fetches_what_the_solve_gives():
+    """The scheduler's dispatch (rounds.dispatch_packed: the result's copy
+    to the host started, no device copy of it kept; with the encode bound
+    ahead by bind_packed, one call) fetches what the host-driven solve
+    gives: two encodes of one bucket in flight at once each read their
+    own result, a dispatch dropped unread gives its pinned block back to
+    later ones, and the step counts are added once a fetch."""
+    import gc
+
+    import numpy as np
+
+    from volcano_tpu_torch import device as devmod
+    from volcano_tpu_torch.ops import rounds_graph
+    from volcano_tpu_torch.utils import devprof
+
+    _cuda()
+    spec, enc = prepared(2, 0.2, device="cuda", dtype="float32")
+    spec2, enc2 = prepared(2, 0.2, extra_pods=3, device="cuda", dtype="float32")
+    assert rounds_graph.graph_key(spec, enc) == rounds_graph.graph_key(spec2, enc2)
+    want = trounds.solve_rounds_packed(spec, enc, loop="host").cpu().numpy()
+    want2 = trounds.solve_rounds_packed(spec2, enc2, loop="host").cpu().numpy()
+    assert not np.array_equal(want, want2)
+    first = trounds.dispatch_packed(spec, enc)        # captures the bucket's graph
+    assert np.array_equal(devprof.fetch(first), want)
+    bound, bound2 = trounds.bind_packed(spec, enc), trounds.bind_packed(spec2, enc2)
+    assert bound is not None and bound2 is not None
+    devmod.reset_launches()
+    a = trounds.dispatch_packed(spec, enc, bound)
+    b = trounds.dispatch_packed(spec2, enc2, bound2)
+    assert not isinstance(a, torch.Tensor)
+    assert np.array_equal(devprof.fetch(b), want2)
+    assert np.array_equal(devprof.fetch(a), want)
+    twice = devmod.launches()
+    assert twice["rounds_ctl"] > 0
+    dropped = trounds.dispatch_packed(spec2, enc2, bound2)
+    del dropped
+    gc.collect()
+    for _ in range(3):
+        assert np.array_equal(devprof.fetch(trounds.dispatch_packed(spec, enc, bound)), want)
+    devmod.reset_launches()
+    devprof.fetch(trounds.dispatch_packed(spec, enc, bound))
+    devprof.fetch(trounds.dispatch_packed(spec2, enc2))
+    assert devmod.launches() == twice
 
 
 @pytest.mark.gpu
@@ -363,3 +428,84 @@ def test_gpu_index_put_sums_duplicates_first_unlike_the_commit():
     RK.round_commit(spec, tc, st, choice, accept, did_full, ctl)
     assert st["used"][0].tolist() == [0.0, 0.0]
     assert st["queue_alloc"][0].tolist() == [0.0, 0.0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_gpu_cap_walk_equals_plain_on_crafted_inputs(dtype):
+    """K2b on rows of signed-zero ties, all -inf, -inf ahead of a feasible
+    tail, zero requests, binpack, exclusion, pod room zero or negative,
+    saturating prefixes, W = 1, odd W, W past a chunk, one and five
+    dimensions, and at the window's and the cover's widths of cfg5, cfg2
+    and cfg6."""
+    _cuda()
+    cases = RC.walk_cases("cuda", dtype)
+    assert len(cases) == len(RC.WALK_CASES) + len(RC.WALK_SHAPES)
+    for label, args in cases:
+        assert_walk_equal(args, label)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_gpu_job_rank_equals_plain_on_crafted_inputs(dtype):
+    """K6 under every order of the tiers over ties, signed-zero shares,
+    zero totals, absent dimensions and all-equal keys, and at the job
+    counts of cfg5, cfg2 and cfg6."""
+    _cuda()
+    for label, args in RC.rank_cases("cuda", dtype):
+        assert_rank_equal(args, label)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_gpu_walk_and_ranks_replay_in_a_graph(dtype):
+    """K2b (at cfg5's cover width) and K6 (at cfg5's job count) captured
+    into one CUDA graph and replayed 20 times on inputs copied in before
+    each replay (new scores and idle, new placed counts and allocations),
+    each replay equal to the plain version, as an eager call is."""
+    _cuda()
+    w_args = RC.walk_args(RC.walk_inputs(21, 16, 10000, 10000, binpack=True), "cuda", dtype)
+    r_args = RC.rank_args(RC.rank_inputs(40, 8192), RC.RANK_KEY_ORDERS[0], "cuda", dtype)
+    assert_walk_equal(w_args, "eager")
+    assert_rank_equal(r_args, "eager")
+    w_in = RC._clone(w_args)
+    r_in = RC._clone(r_args)
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        with torch.cuda.graph(graph, stream=stream):
+            w_out = RK.cap_walk(*w_in)
+            r_out = RK.job_rank(*r_in)
+    torch.cuda.current_stream().wait_stream(stream)
+    g = torch.Generator().manual_seed(9)
+    for i in range(20):
+        # the score rows stay sorted: a random shift keeps their ties
+        w_in[2].copy_(w_args[2] + float(i % 3) - 1.0)
+        w_in[7].copy_(w_args[7] * (0.25 + 0.125 * i))
+        r_in[2].copy_(torch.randint(0, 4, r_in[2].shape, generator=g,
+                                    dtype=torch.int32).cuda())
+        r_in[3].copy_((torch.rand(r_in[3].shape, generator=g, dtype=torch.float64)
+                       .round(decimals=1) * 1000.0).to(dtype).cuda())
+        graph.replay()
+        torch.cuda.synchronize()
+        for name, a, b in zip(("ccap", "g_start", "g_size", "ccap_before"), w_out,
+                              RK.cap_walk_plain(*w_in)):
+            assert torch.equal(a, b), (i, name)
+        for name, a, b in zip(("rank", "order"), r_out, RK.job_rank_plain(*r_in)):
+            assert torch.equal(a, b), (i, name)
+
+
+@pytest.mark.gpu
+def test_gpu_walk_and_ranks_raise_instead_of_falling_back():
+    """A CUDA tensor K2b or K6 does not take raises; nothing runs the plain
+    version instead."""
+    _cuda()
+    w_args = list(RC.walk_cases("cuda", torch.float32)[0][1])
+    w_args[1] = w_args[1].to(torch.int64)     # order
+    with pytest.raises(TypeError):
+        RK.cap_walk(*w_args)
+    r_args = list(RC.rank_cases("cuda", torch.float32)[0][1])
+    r_args[2] = r_args[2].to(torch.int64)     # job_placed
+    with pytest.raises(TypeError):
+        RK.job_rank(*r_args)

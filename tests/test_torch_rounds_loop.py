@@ -299,3 +299,16 @@ def test_graph_key_is_stable_under_same_bucket_churn():
     assert rounds_graph.graph_key(spec, enc) != rounds_graph.graph_key(spec, wide)
     f32 = dict(enc, cls_req=enc["cls_req"].to(torch.float32))
     assert rounds_graph.graph_key(spec, enc) != rounds_graph.graph_key(spec, f32)
+
+
+def test_dispatch_on_the_cpu_is_the_packed_solve():
+    """On the CPU the scheduler's dispatch binds nothing ahead and gives the
+    packed solve's tensor, which the one fetch reads as it is."""
+    from volcano_tpu_torch.utils import devprof
+
+    spec, enc = prepared(5, 0.01)
+    assert trounds.bind_packed(spec, enc) is None
+    got = trounds.dispatch_packed(spec, enc)
+    want = trounds.solve_rounds_packed(spec, enc)
+    assert isinstance(got, torch.Tensor) and torch.equal(got, want)
+    assert np.array_equal(devprof.fetch(got), want.numpy())

@@ -36,7 +36,8 @@ BUILD = os.path.join(CSRC, "build")
 KERNELS = ("score_block", "window_topk", "resolve_prefix", "queue_budget",
            "evict_preempt", "evict_reclaim", "evict_backfill", "fuse_heaps",
            "scatter_rows", "express_place", "parity_scan", "rounds_ctl",
-           "tail_pass", "probe_evict_fold", "round_select", "round_commit")
+           "tail_pass", "probe_evict_fold", "round_select", "round_commit",
+           "cap_walk", "job_rank")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

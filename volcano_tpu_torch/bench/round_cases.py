@@ -1,4 +1,5 @@
-"""Inputs of the round's select (K3, ``round_select``), of its acceptance
+"""Inputs of the round's select (K3, ``round_select``), its capacity walk
+(K2b, ``cap_walk``), its job ranks (K6, ``job_rank``), its acceptance
 scans (K4 ``resolve_prefix``, K5 ``queue_budget``) and of K7c, the
 round's commit (``round_commit``) and the rollback's undo
 (``round_rollback``): those a solve hands them, recorded, and crafted
@@ -30,7 +31,19 @@ jobs' ranks interleaved, padding tasks and jobs, 70,000 64-core jobs past
 are built at the level of the round's arrays (``resolve_inputs``,
 ``budget_inputs``: numpy, so tests/test_torch_resolve_budget.py feeds the
 same ones to the JAX package) and turned into the kernels' arguments as
-the round does (``resolve_args``, ``budget_args``).
+the round does (``resolve_args``, ``budget_args``). Crafted K2b cases
+(``walk_cases``): rows of ties with +0.0 and -0.0 and a -inf tail, all
+-inf, -inf ahead of a feasible tail, one tied group; requests zero in
+some dimensions, binpack shares, exclusion classes, pod room zero or
+negative, prefixes that saturate at t_cap, W = 1, odd W, W past one of
+the kernel's chunks, one and five dimensions, and random rows at the
+window's and the cover's widths of cfg5, cfg2 and cfg6. Crafted K6 cases
+(``rank_cases``): every order of the priority, gang and drf tiers (and
+shorter ones) over ties, shares of both signs of zero, zero totals under
+allocations, absent dimensions and all-equal keys, and the job counts of
+cfg5, cfg2 and cfg6. Both are numpy first (``walk_inputs``,
+``rank_inputs``), so tests/test_torch_walk_ranks.py feeds the same arrays
+to the JAX package.
 """
 
 from __future__ import annotations
@@ -65,16 +78,17 @@ def bit_equal(a, b) -> bool:
 # the recorded kernels of the rounds module, by kind
 RECORDED = {"select": "round_select", "commit": "round_commit",
             "rollback": "round_rollback", "resolve": "resolve_prefix",
-            "budget": "queue_budget"}
+            "budget": "queue_budget", "walk": "cap_walk", "ranks": "job_rank"}
 
 
 @contextlib.contextmanager
 def recording(limit=None, kinds=tuple(RECORDED)):
     """While open, every call of the rounds module's ``round_select``,
-    ``round_commit``, ``round_rollback``, ``resolve_prefix`` and
-    ``queue_budget`` (those of ``kinds``) keeps a copy of its inputs (at
-    most ``limit`` of each): yields {"select": [(args, kwargs)], "commit":
-    [...], "rollback": [...], "resolve": [...], "budget": [...]}."""
+    ``round_commit``, ``round_rollback``, ``resolve_prefix``,
+    ``queue_budget``, ``cap_walk`` and ``job_rank`` (those of ``kinds``)
+    keeps a copy of its inputs (at most ``limit`` of each): yields
+    {"select": [(args, kwargs)], "commit": [...], ..., "walk": [...],
+    "ranks": [...]}."""
     names = {kind: RECORDED[kind] for kind in kinds}
     seen = {kind: [] for kind in names}
     real = {kind: getattr(R, name) for kind, name in names.items()}
@@ -118,7 +132,7 @@ def select_case(seed, t, k, w, *, binpack=False, excl=False, coverage=False,
                 dtype=torch.float64):
     """One crafted select call: ((spec, corder, active, n_feas, order,
     walk), {"coverage": coverage}), the walk made by the capacity
-    walk (``rounds._cap_walk``, plain) from rows of tied and signed-zero
+    walk (``rounds._cap_walk``) from rows of tied and signed-zero
     scores. ``layout``: "random" classes, "one" (every task in class 0),
     "singletons" (class c holds task c, the rest in the last class)."""
     g = np.random.default_rng(seed)
@@ -494,3 +508,180 @@ def budget_cases(device="cpu", dtype=torch.float64):
     """[(label, args)] of BUDGET_CASES on ``device``."""
     return [(label, budget_args(budget_inputs(**kw), device, dtype))
             for label, kw in BUDGET_CASES]
+
+
+# -- K2b and K6 -------------------------------------------------------------------
+
+# the rows of a crafted walk, by kind: sorted with ties and signed zeros and
+# a -inf tail; all -inf; -inf ahead of a feasible tail; one tied group;
+# distinct values
+WALK_ROWS = ("ties", "all -inf", "-inf first", "one group", "distinct")
+
+
+def _walk_row(g, kind, w):
+    if kind == "all -inf":
+        return np.full(w, -np.inf)
+    if kind == "one group":
+        return np.full(w, g.choice([0.0, -0.0, 2.5]))
+    if kind == "distinct":
+        return np.sort(g.random(w) * 100.0)[::-1].copy()
+    row = np.sort(g.choice([9.0, 4.5, 4.5, 1.0, 0.0, -0.0, -2.0], w))[::-1].copy()
+    # +0.0 and -0.0 in place in the sorted row (they tie as floats)
+    zeros = row == 0.0
+    row[zeros] = g.choice([0.0, -0.0], int(zeros.sum()))
+    row[w - w // 5:] = -np.inf
+    if kind == "-inf first":
+        row = np.concatenate([np.full(w // 3, -np.inf), row[:w - w // 3]])
+    return row
+
+
+def walk_inputs(seed, rows, w, n, r=3, *, binpack=False, excl=False, pod=True,
+                t_cap=None):
+    """One crafted K2b input (numpy): (flags, arrays, t_cap). The rows
+    cycle through WALK_ROWS; requests are zero in some dims (a row asks for
+    nothing at all); idle holds negative (over-committed), zero and large
+    rows; pod room is zero or negative on some nodes; ``t_cap`` small
+    makes the prefixes saturate."""
+    g = np.random.default_rng(seed)
+    score = np.stack([_walk_row(g, WALK_ROWS[i % len(WALK_ROWS)], w) for i in range(rows)])
+    order = np.stack([g.permutation(n)[:w] for _ in range(rows)]).astype(np.int32)
+    req = g.choice([0.0, 0.0, 100.0, 250.0, 999.5, 4000.0], (rows, r))
+    req[0] = 0.0
+    idle = g.choice([-500.0, 0.0, 99.0, 1000.0, 16000.0, 1e9], (n, r))
+    nmax = g.integers(0, 8, n).astype(np.int32)
+    cnt = np.minimum(g.integers(0, 10, n), nmax + 1).astype(np.int32)
+    arrays = {"order": order, "score_ord": score, "req": req,
+              "exl": g.integers(-1, 3, rows).astype(np.int32),
+              "has_pod": g.random(rows) < 0.7, "frac": g.choice([0.0, 0.125, 0.3, 1.0], rows),
+              "idle": idle, "cnt": cnt, "node_max_tasks": nmax,
+              "eps": np.array([10.0] * r)}
+    if t_cap is None:
+        t_cap = 4 * n + 1
+    return dict(binpack=binpack, excl=excl, pod=pod), arrays, int(t_cap)
+
+
+# (label, walk_inputs keyword arguments): the crafted K2b cases
+WALK_CASES = (
+    ("ties and signed zeros", dict(seed=1, rows=15, w=64, n=200)),
+    ("binpack", dict(seed=2, rows=10, w=100, n=150, binpack=True)),
+    ("exclusion", dict(seed=3, rows=10, w=64, n=64, excl=True)),
+    ("binpack exclusion, no pod check", dict(seed=4, rows=10, w=50, n=80, binpack=True,
+                                             excl=True, pod=False)),
+    ("saturating at t_cap", dict(seed=5, rows=6, w=300, n=400, t_cap=37)),
+    ("width 1", dict(seed=6, rows=5, w=1, n=10)),
+    ("odd width", dict(seed=7, rows=7, w=333, n=1001)),
+    ("past one chunk", dict(seed=8, rows=5, w=5001, n=6000)),
+    ("one dimension", dict(seed=9, rows=5, w=40, n=60, r=1)),
+    ("five dimensions", dict(seed=10, rows=5, w=40, n=60, r=5)),
+)
+# the widths the main path gives K2b: (label, rows, W, N) of the window and
+# the full-width cover at cfg5, cfg2 and cfg6
+WALK_SHAPES = (
+    ("cfg5 window", 16, 1024, 10000), ("cfg5 cover", 16, 10000, 10000),
+    ("cfg2 window", 64, 128, 1000), ("cfg2 cover", 64, 1000, 1000),
+    ("cfg6 window", 512, 128, 1000), ("cfg6 cover", 512, 1000, 1000),
+)
+
+
+def walk_args(inp, device="cpu", dtype=torch.float64):
+    """K2b's arguments for a ``walk_inputs`` input: (spec, order, score_ord,
+    req, exl, has_pod, frac, idle, cnt, nmax, eps, t_cap)."""
+    flags, a, t_cap = inp
+    dev = torch.device(device)
+    ft = lambda x: torch.tensor(x, dtype=dtype, device=dev)  # noqa: E731
+    it = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)  # noqa: E731
+    spec = _spec(flags["binpack"], flags["excl"], flags["pod"])
+    return (spec, it(a["order"]), ft(a["score_ord"]), ft(a["req"]),
+            it(a["exl"]) if spec.use_exclusion else None,
+            torch.tensor(a["has_pod"], device=dev),
+            ft(a["frac"]) if spec.use_binpack else None, ft(a["idle"]), it(a["cnt"]),
+            it(a["node_max_tasks"]), ft(a["eps"]), t_cap)
+
+
+def walk_cases(device="cpu", dtype=torch.float64):
+    """[(label, args)] of WALK_CASES and of random rows at WALK_SHAPES (with
+    binpack, exclusion and the pod check), on ``device``."""
+    out = [(label, walk_args(walk_inputs(**kw), device, dtype)) for label, kw in WALK_CASES]
+    for i, (label, rows, w, n) in enumerate(WALK_SHAPES):
+        inp = walk_inputs(20 + i, rows, w, n, binpack=i % 2 == 0, excl=i >= 4)
+        out.append((label, walk_args(inp, device, dtype)))
+    return out
+
+
+# the job-order key orders the crafted ranks run under: every order of the
+# three tiers, and shorter ones
+RANK_KEY_ORDERS = (
+    ("priority", "gang", "drf"), ("priority", "drf", "gang"), ("gang", "priority", "drf"),
+    ("gang", "drf", "priority"), ("drf", "priority", "gang"), ("drf", "gang", "priority"),
+    ("priority", "gang"), ("drf",), (),
+)
+# the kinds of crafted job columns
+RANK_KINDS = ("random", "signed-zero shares", "zero totals", "absent dims", "all equal")
+
+
+def rank_inputs(seed, j, kind="random", r=3):
+    """One crafted K6 input (numpy): the job columns (rounds_kernels.
+    JOB_COLS), job_placed and job_alloc. ``kind``: "random" (few distinct
+    values, so every tier ties often), "signed-zero shares" (allocations of
+    +0.0 and -0.0, so shares of both signs tie), "zero totals" (a total of 0
+    under allocations that are not: share 1), "absent dims" (only one dim
+    present, or none), "all equal" (every key and the tie rank equal: the
+    index decides)."""
+    g = np.random.default_rng(seed)
+    cols = {"job_priority": g.integers(-2, 3, j), "job_ready_base": g.integers(0, 3, j),
+            "job_min_available": g.integers(0, 6, j), "job_tie_rank": g.permutation(j),
+            "drf_total": np.array([1000.0, 4096.0, 8.0][:r] + [0.0] * (r - 3))}
+    present = np.ones(r, bool)
+    placed = g.integers(0, 4, j)
+    alloc = g.choice([0.0, 100.0, 250.0, 1000.0], (j, r))
+    if kind == "random":
+        cols["job_tie_rank"] = g.integers(0, 5, j)
+    elif kind == "signed-zero shares":
+        alloc = g.choice([0.0, -0.0], (j, r))
+        alloc[::7, 0] = 500.0
+    elif kind == "zero totals":
+        cols["drf_total"][1:] = 0.0
+        alloc[:, 1:] = g.choice([0.0, -0.0, 3.0], (j, r - 1))
+    elif kind == "absent dims":
+        present[1:] = False
+        if seed % 2:
+            present[:] = False
+    else:  # all equal
+        for name in ("job_priority", "job_ready_base", "job_min_available", "job_tie_rank"):
+            cols[name] = np.full(j, 1)
+        placed = np.zeros(j)
+        alloc = np.full((j, r), 100.0)
+    cols = {k: (v.astype(np.int32) if v.dtype.kind in "iu" else v) for k, v in cols.items()}
+    cols["drf_present"] = present
+    return cols, placed.astype(np.int32), alloc
+
+
+# the job counts the main path gives K6: cfg5, cfg2 and cfg6's padded J
+RANK_SHAPES = (("cfg5", 8192), ("cfg2", 2048), ("cfg6", 4096))
+
+
+def rank_args(inp, keys, device="cpu", dtype=torch.float64):
+    """K6's arguments (spec, cols, job_placed, job_alloc) for a
+    ``rank_inputs`` input under the job-order ``keys``."""
+    cols, placed, alloc = inp
+    dev = torch.device(device)
+    spec = _spec(False, False)._replace(job_order_keys=tuple(keys))
+    tc = {k: torch.tensor(v, device=dev, dtype=dtype if v.dtype == np.float64 else None)
+          for k, v in cols.items()}
+    return (spec, tc, torch.tensor(placed, device=dev),
+            torch.tensor(alloc, dtype=dtype, device=dev))
+
+
+def rank_cases(device="cpu", dtype=torch.float64):
+    """[(label, args)]: every RANK_KIND under every RANK_KEY_ORDER at 700
+    jobs (two tiles of K6's sort), then RANK_SHAPES' job counts under the
+    three tiers."""
+    out = []
+    for i, kind in enumerate(RANK_KINDS):
+        for keys in RANK_KEY_ORDERS:
+            out.append((f"{kind} {'/'.join(keys) or 'tie rank only'}",
+                        rank_args(rank_inputs(30 + i, 700, kind), keys, device, dtype)))
+    for i, (label, j) in enumerate(RANK_SHAPES):
+        out.append((label, rank_args(rank_inputs(40 + i, j), RANK_KEY_ORDERS[0], device,
+                                     dtype)))
+    return out

@@ -8,24 +8,26 @@ solver's own encode:
 1. A solve by the host-driven step machine (``loop="host"``: the same round
    body, launched eagerly) under ``torch.profiler``, with a range around
    each node group: K1 (``score_block``, ``_rescore_dirty``), K2
-   (``window_topk``), the ranks (K6), the capacity walk (K2b), the select
-   (K3), ``_resolve`` (its sort and K4), ``_queue_budget`` (its sort and
-   K5), and around the round, the rollback, the tail, the head and the
+   (``window_topk``), the ranks (K6 ``job_rank``), the capacity walk (K2b
+   ``cap_walk``, with the cover's argsort and gather), the select (K3),
+   ``_resolve`` (its sort and K4), ``_queue_budget`` (its sort and K5),
+   and around the round, the rollback, the tail, the head and the
    finish. A kernel belongs to the range its launch was issued in; the
    round's kernels outside every group range are its commit. Each group's
    kernel count and device time a round come from this run.
 2. A warm graph solve under the profiler. Its kernels, in the order the
-   card ran them, are matched against the host run's labelled launches by
-   name (same body code, same order; the graph adds K7a and the condition
-   kernels); the device time of each group inside the graph, the replay's
-   span, its busy time and idle share, the input copies before the replay
-   and the clones after it, and the kernels a round.
+   card ran them, are aligned with the host run's labelled launches by
+   name (same body code, same order; a longest common subsequence, since
+   the graph adds K7a, the condition kernels and the body counters); the
+   device time of each group inside the graph, the replay's span, its
+   busy time and idle share, the input copies before the replay and the
+   clones after it, and the kernels a round.
 3. Warm graph solves timed with CUDA events, the captured graph's per-body
-   launch counts (``utils/devprof``: hand-written kernels only), and K4 and
-   K5 timed on the first inputs the run gave them (CUDA events, 20 calls
-   after 3, and the wrapper's host time a call), beside their bytes bounds
-   (every tensor argument read once, the flags written) and plain
-   versions.
+   launch counts (``utils/devprof``: hand-written kernels only), and K4,
+   K5, K2b and K6 timed on the first inputs the run gave them (CUDA
+   events, 20 calls after 3, and the wrapper's host time a call), beside
+   their bytes bounds (every tensor argument read once, the outputs
+   written) and plain versions.
 
 Each group's kernels are also split by kind (``*_split``): the sorts (CUB's
 radix passes, torch's sort kernels), the hand-written kernels, and the
@@ -36,7 +38,7 @@ the machine), the lines say so and carry the CUDA-event numbers only.
 
 ``python -m volcano_tpu_torch.bench.round_split --compare A1 B1 B2 A2``
 reads the JSON lines of runs of this split and of ``chip_smoke.py`` (its
-``k7`` and ``k4_k5`` lines), each run's output in a file, and prints the
+``k7``, ``k4_k5`` and ``k2b_k6`` lines), each run's output in a file, and prints the
 numbers side by side: the two trees of an ABBA call in turns.
 """
 
@@ -48,6 +50,7 @@ import os
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 MEM_BPS = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
@@ -71,12 +74,29 @@ KERNEL_NAMES = (
     ("rounds_ctl", "K7a"), ("set_cond", "K7a"), ("tail_pass", "tail"),
     ("score_block", "K1"), ("window_topk", "K2"), ("resolve_prefix", "resolve + K4"),
     ("queue_budget", "queue budget + K5"), ("round_select", "select (K3)"),
+    ("cap_walk", "capacity walk (K2b)"), ("job_rank", "ranks (K6)"),
 )
 CFGS = (2, 5)
 # a kernel's kind within its group, by a substring of its name
 HANDWRITTEN = ("resolve_prefix", "queue_budget", "round_select", "round_commit",
-               "score_block", "window_topk", "rounds_ctl", "tail_pass")
+               "score_block", "window_topk", "rounds_ctl", "tail_pass", "cap_walk",
+               "job_rank")
 SORTS = ("sort", "Sort", "radix", "Radix")
+
+
+# the kernel wrappers whose first inputs a split keeps and times
+KEPT = ("resolve_prefix", "queue_budget", "cap_walk", "job_rank")
+
+
+def _bytes(x):
+    """The bytes of every tensor in ``x`` (tensors, tuples, lists, dicts)."""
+    if isinstance(x, torch.Tensor):
+        return x.numel() * x.element_size()
+    if isinstance(x, dict):
+        x = list(x.values())
+    if isinstance(x, (tuple, list)):
+        return sum(_bytes(v) for v in x)
+    return 0
 
 
 def kind_of(name: str) -> str:
@@ -130,11 +150,37 @@ def solve_inputs(cfg, scale):
 
 
 @contextlib.contextmanager
-def group_ranges(keep_inputs=None):
+def keeping(kept):
+    """Wrap the rounds module's KEPT kernel wrappers (those the tree has) so
+    that ``kept`` takes each one's first inputs. Used on the split's warm-up
+    run, outside the profile: the copies would add kernels to the profiled
+    run that its graph lacks."""
+    from volcano_tpu_torch.bench.round_cases import _clone
+    from volcano_tpu_torch.ops import rounds as R
+
+    real = {name: getattr(R, name) for name in KEPT if hasattr(R, name)}
+
+    def keep(fn, name):
+        def inner(*a, **kw):
+            if name not in kept:
+                kept[name] = [_clone(x) for x in a]
+            return fn(*a, **kw)
+        return inner
+
+    for name, fn in real.items():
+        setattr(R, name, keep(fn, name))
+    try:
+        yield
+    finally:
+        for name, fn in real.items():
+            setattr(R, name, fn)
+
+
+@contextlib.contextmanager
+def group_ranges():
     """Wrap the rounds module's group functions and the machine's bodies in
     profiler ranges named ``group:<name>`` and ``body:<name>``. A group
-    call inside another group's range is not wrapped again.
-    ``keep_inputs`` (a dict) takes the first inputs of K4 and K5."""
+    call inside another group's range is not wrapped again."""
     from torch.autograd.profiler import record_function
 
     from volcano_tpu_torch.ops import rounds as R
@@ -159,22 +205,11 @@ def group_ranges(keep_inputs=None):
                 return fn(*a, **kw)
         return inner
 
-    def keep(fn, name):
-        def inner(*a, **kw):
-            if keep_inputs is not None and name not in keep_inputs:
-                keep_inputs[name] = [x.clone() if isinstance(x, torch.Tensor) else x
-                                     for x in a]
-            return fn(*a, **kw)
-        return inner
-
     for group, names in GROUPS:
         for name in names:
             if hasattr(R, name):
                 real[(R, name)] = getattr(R, name)
                 setattr(R, name, wrap(real[(R, name)], f"group:{group}"))
-    for name in ("resolve_prefix", "queue_budget"):
-        real[(R, name)] = getattr(R, name)
-        setattr(R, name, keep(real[(R, name)], name))
     for name in BODIES:
         real[(R.StepMachine, name)] = getattr(R.StepMachine, name)
         setattr(R.StepMachine, name, body(real[(R.StepMachine, name)], f"body:{name}"))
@@ -242,21 +277,42 @@ def _by_name(name):
     return next((lab for key, lab in KERNEL_NAMES if key in name), None)
 
 
-def _label_graph(graph_kernels, host_seq, window=64):
-    """Label the graph's kernels by matching them, in order, with the host
-    run's labelled sequence: the next host kernel of the same name within
-    ``window`` positions; else by the kernel's own name; else unattributed."""
-    out, p = [], 0
-    for k in graph_kernels:
-        lab = None
-        for q in range(p, min(p + window, len(host_seq))):
-            if host_seq[q][0] == k["name"]:
-                lab, p = host_seq[q][1], q + 1
-                break
-        if lab is None:
-            lab = _by_name(k["name"]) or "unattributed"
-        out.append((k, lab))
-    return out
+def _align(a, b):
+    """The pairs (i, j) of a longest common subsequence of the name lists
+    ``a`` and ``b``: a row of the LCS table at a time, S[i][j] the running
+    max over j of max(S[i-1][j], S[i-1][j-1] + 1 where a[i-1] == b[j-1])."""
+    ids = {}
+    ai = np.array([ids.setdefault(x, len(ids)) for x in a], dtype=np.int64)
+    bi = np.array([ids.setdefault(x, len(ids)) for x in b], dtype=np.int64)
+    n, m = len(ai), len(bi)
+    table = np.zeros((n + 1, m + 1), dtype=np.int32)
+    for i in range(1, n + 1):
+        prev = table[i - 1]
+        t = prev.copy()
+        t[1:] = np.maximum(prev[1:], np.where(bi == ai[i - 1], prev[:-1] + 1, 0))
+        table[i] = np.maximum.accumulate(t)
+    pairs, i, j = [], n, m
+    while i > 0 and j > 0:
+        if ai[i - 1] == bi[j - 1] and table[i, j] == table[i - 1, j - 1] + 1:
+            pairs.append((i - 1, j - 1))
+            i, j = i - 1, j - 1
+        elif table[i - 1, j] >= table[i, j - 1]:
+            i -= 1
+        else:
+            j -= 1
+    return pairs[::-1]
+
+
+def _label_graph(graph_kernels, host_seq):
+    """Label the graph's kernels by aligning their names, in order, with the
+    host run's labelled sequence (a longest common subsequence: the graph
+    adds K7a, the conditions and the body counters, the host run its own
+    sync copies); a kernel left out takes the label of its own name, or
+    none (unattributed)."""
+    pairs = dict(_align([k["name"] for k in graph_kernels], [h[0] for h in host_seq]))
+    return [(k, host_seq[pairs[i]][1] if i in pairs
+             else _by_name(k["name"]) or "unattributed")
+            for i, k in enumerate(graph_kernels)]
 
 
 def _busy(kernels):
@@ -305,11 +361,13 @@ def split_config(cfg, scale, card):
     from volcano_tpu_torch.utils import devprof
 
     spec, enc = solve_inputs(cfg, scale)
-    # the host run, once to warm (kernel builds, lazy set-up), once profiled
+    # the host run, once to warm (kernel builds, lazy set-up; it keeps the
+    # KEPT wrappers' first inputs), once profiled
     kept = {}
-    R.solve(spec, enc, loop="host")
+    with keeping(kept):
+        R.solve(spec, enc, loop="host")
     torch.cuda.synchronize()
-    with group_ranges(kept):
+    with group_ranges():
         (raw, _), prof = _profile(lambda: R.solve(spec, enc, loop="host"))
     rounds = max(int(raw[1]), 1)
     kernels, launches, ranges = _trace(prof)
@@ -351,11 +409,18 @@ def split_config(cfg, scale, card):
             clones.append(k)
     first = replay[0]["ts"] if replay else None
     labelled = _label_graph(replay, host_seq)
-    graph_groups = {}
+    graph_groups, graph_by_name = {}, {}
     for k, lab in labelled:
         g = graph_groups.setdefault(lab, {"kernels": 0, "device_ms": 0.0})
         g["kernels"] += 1
         g["device_ms"] += k["dur"] / 1e3
+        x = graph_by_name.setdefault((lab, k["name"][:80]), [0, 0.0])
+        x[0] += 1
+        x[1] += k["dur"] / 1e3
+    graph_top = {}
+    for (lab, name), (n, ms) in sorted(graph_by_name.items(), key=lambda x: -x[1][1]):
+        if len(graph_top.setdefault(lab, [])) < 4:
+            graph_top[lab].append([name, n, ms])
     graph_groups["copies in"] = {"kernels": len(copies),
                                  "device_ms": sum(k["dur"] for k in copies) / 1e3}
     graph_groups["clones out"] = {"kernels": len(clones),
@@ -381,17 +446,18 @@ def split_config(cfg, scale, card):
         "host_run_ms_a_round": {lab: v["device_ms"] / rounds for lab, v in host_groups.items()},
         "host_run": host_groups,
         "host_run_top_kernels": host_top,
+        "graph_top_kernels": graph_top,
         "host_run_split": _split(host_seq, rounds),
         "graph_split": _split([(k["name"], lab, k["dur"]) for k, lab in labelled], rounds),
         "body_launches": {"head": graph.head_counts, **graph.body_counts},
     }
     print(json.dumps(rec), flush=True)
-    # K4 and K5 on the inputs this config's path gave them
-    for name, plain, fn in (("resolve_prefix", RK.resolve_prefix_plain, RK.resolve_prefix),
-                            ("queue_budget", RK.queue_budget_plain, RK.queue_budget)):
+    # K4, K5, K2b and K6 on the first inputs this config's path gave them
+    for name in KEPT:
         args = kept.get(name)
         if args is None:
             continue
+        fn, plain = getattr(RK, name), getattr(RK, name + "_plain")
         got, want = fn(*args), plain(*args)
         torch.cuda.synchronize()
         ms = _events_ms(lambda: fn(*args), reps=20, warmup=3)
@@ -404,13 +470,15 @@ def split_config(cfg, scale, card):
         plain(*args)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
-        byts = sum(a.numel() * a.element_size() for a in args
-                   if isinstance(a, torch.Tensor)) + args[0].shape[0]
+        byts = _bytes(args) + _bytes(got)
+        if isinstance(got, torch.Tensor):
+            got, want = (got,), (want,)
         print(json.dumps({"kernel_profile": "k7", "config": cfg, "kernel": name,
-                          "card": card, "T": args[0].shape[0],
-                          "equal_plain": bool(torch.equal(got, want)), "ms": ms,
-                          "host_ms": host_ms, "plain_ms": plain_ms, "bound_ms": byts / MEM_BPS * 1e3,
-                          "launches_a_solve": int(raw[1])}), flush=True)
+                          "card": card,
+                          "equal_plain": all(torch.equal(a, b) for a, b in zip(got, want)),
+                          "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
+                          "bound_ms": byts / MEM_BPS * 1e3, "rounds": int(raw[1])}),
+              flush=True)
     devmod.reset_launches()
     return rec
 
@@ -441,7 +509,8 @@ def compare(paths) -> int:
                 keys.append((f"{c} replay idle share", rec["replay_idle_share"]))
                 for lab, v in rec["graph_ms_a_round"].items():
                     keys.append((f"{c} graph ms a round: {lab}", v))
-                for lab in ("resolve + K4", "queue budget + K5"):
+                for lab in ("resolve + K4", "queue budget + K5", "ranks (K6)",
+                            "capacity walk (K2b)"):
                     for kind, (n, ms) in rec.get("host_run_split", {}).get(lab, {}).items():
                         keys.append((f"{c} host run {lab}: {kind} ms (kernels)",
                                      f"{ms:.4f} ({n:.1f})"))
@@ -452,8 +521,8 @@ def compare(paths) -> int:
             elif "k7" in rec and "graph_solve_ms_warm" in rec:
                 keys.append((f"chip_smoke {rec['k7']} warm graph solve ms",
                              rec["graph_solve_ms_warm"]))
-            elif "k4_k5" in rec:
-                x = rec["k4_k5"]
+            elif "k4_k5" in rec or "k2b_k6" in rec:
+                x = rec.get("k4_k5") or rec["k2b_k6"]
                 for f in ("ms", "wrapper_ms", "host_ms", "mask_ms", "bound_ms"):
                     if f in x:
                         keys.append((f"chip_smoke {x['kernel']} {x['call']} {f}", x[f]))

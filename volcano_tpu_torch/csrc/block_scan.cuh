@@ -1,6 +1,7 @@
 // Block-wide exclusive scans and reductions under an associative,
-// commutative operation (sum, max), shared by the round's select (K3,
-// round_select.cu) and its commit (K7c, round_commit.cu).
+// commutative operation (sum, max, min), shared by the round's select (K3,
+// round_select.cu), its commit (K7c, round_commit.cu) and the capacity walk
+// (K2b, cap_walk.cu).
 //
 // A warp shuffle scan, then a scan of the warp aggregates by warp 0, then
 // each warp adds the aggregates before it. Every thread of the block must
@@ -23,6 +24,10 @@ struct Sum {
 struct Max {
   template <typename T>
   __device__ __forceinline__ T operator()(T a, T b) const { return a > b ? a : b; }
+};
+struct Min {
+  template <typename T>
+  __device__ __forceinline__ T operator()(T a, T b) const { return a < b ? a : b; }
 };
 
 // Exclusive scan of v over the block in thread order (``ident`` before

@@ -26,6 +26,15 @@
 // capturing a second stream (one of `vt_stream_create`'s) into the node's
 // body graph.
 //
+// A solve's dispatch is one call here, so that it holds the host as short
+// a time as can be: `vt_launch` copies every input of the solve into the
+// graph's input buffers in one kernel (a CTA column an input, the
+// (source, destination, bytes) list passed by value; `vt_copy_in` alone
+// for the eager pass before the capture), launches the graph, copies the
+// packed result and status block into pinned host memory and records an
+// event behind that copy (`vt_event_create`, `vt_event_sync`,
+// `vt_event_destroy`).
+//
 // Bound: one thread, a few dozen integer operations a step; the cost is
 // the launch inside the graph (a few microseconds), far above its bytes.
 
@@ -246,4 +255,79 @@ extern "C" int vt_stream_create(unsigned long long* out) {
 extern "C" int vt_cond_end(void* body) {
   cudaGraph_t g;
   return (int)cudaStreamEndCapture((cudaStream_t)body, &g);
+}
+
+// -- the dispatch of a solve ---------------------------------------------------
+
+// up to kMaxCopies inputs (the list rides the kernel's parameters, 3 KB)
+constexpr int kMaxCopies = 128;
+
+struct VtCopyList {
+  const void* src[kMaxCopies];
+  void* dst[kMaxCopies];
+  long long bytes[kMaxCopies];
+  int n;
+};
+
+namespace {
+
+template <typename T>
+__device__ __forceinline__ void copy_as(const char* s, char* d, long long n, long long first,
+                                        long long step) {
+  const long long m = n / (long long)sizeof(T);
+  for (long long k = first; k < m; k += step) ((T*)d)[k] = ((const T*)s)[k];
+  for (long long k = m * (long long)sizeof(T) + first; k < n; k += step) d[k] = s[k];
+}
+
+__global__ void __launch_bounds__(256) copy_in_kernel(VtCopyList l) {
+  const int i = blockIdx.y;
+  const char* s = (const char*)l.src[i];
+  char* d = (char*)l.dst[i];
+  const long long n = l.bytes[i];
+  const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long step = (long long)gridDim.x * blockDim.x;
+  const uintptr_t align = (uintptr_t)s | (uintptr_t)d;
+  if ((align & 15) == 0)
+    copy_as<uint4>(s, d, n, first, step);
+  else if ((align & 3) == 0)
+    copy_as<uint32_t>(s, d, n, first, step);
+  else
+    copy_as<char>(s, d, n, first, step);
+}
+
+}  // namespace
+
+extern "C" int vt_copy_in(const VtCopyList* l, void* stream) {
+  if (l->n <= 0 || l->n > kMaxCopies) return (int)cudaErrorInvalidValue;
+  copy_in_kernel<<<dim3(16, l->n), 256, 0, (cudaStream_t)stream>>>(*l);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int vt_launch(const VtCopyList* l, unsigned long long exec, void* host,
+                         const void* block, long long bytes, unsigned long long event,
+                         void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  int rc = vt_copy_in(l, stream);
+  if (rc != 0) return rc;
+  cudaError_t e = cudaGraphLaunch((cudaGraphExec_t)exec, s);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaMemcpyAsync(host, block, bytes, cudaMemcpyDeviceToHost, s);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaEventRecord((cudaEvent_t)event, s);
+}
+
+extern "C" int vt_event_create(unsigned long long* out) {
+  cudaEvent_t ev;
+  cudaError_t e = cudaEventCreateWithFlags(&ev, cudaEventDisableTiming);
+  if (e != cudaSuccess) return (int)e;
+  *out = (unsigned long long)ev;
+  return 0;
+}
+
+extern "C" int vt_event_sync(unsigned long long ev) {
+  return (int)cudaEventSynchronize((cudaEvent_t)ev);
+}
+
+extern "C" int vt_event_destroy(unsigned long long ev) {
+  return (int)cudaEventDestroy((cudaEvent_t)ev);
 }

@@ -11,7 +11,8 @@
 // in one block of 1024 threads; each step:
 //   1. marks the queues over their deserved share (the overused gate),
 //   2. finds the live task of a queue under its share that is first by the
-//      job-order keys in tier order (priority, gang readiness, drf share),
+//      job-order keys in tier order (priority, gang readiness, drf share;
+//      csrc/job_keys.cuh, shared with K6 job_rank),
 //      then the job's tie rank and the task's index in its job, then the
 //      lowest task index: each thread keeps its best candidate under that
 //      comparator and the block reduces (keys compare as doubles: an int32
@@ -41,6 +42,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "job_keys.cuh"
 #include "rounds_ctl.cuh"
 #include "score_common.cuh"
 
@@ -148,20 +150,6 @@ __device__ Best block_best(Best v, Best* sm) {
   return out;
 }
 
-// _share: max over present dims of alloc/total (share(l, 0) = 1 for
-// l != 0), at least 0
-template <typename F>
-__device__ __forceinline__ F drf_share(const F* alloc, const F* total,
-                                       const uint8_t* present, int R) {
-  F m = F(-INFINITY);
-  for (int r = 0; r < R; ++r) {
-    F tot = total[r];
-    F s = tot > F(0) ? alloc[r] / tot : (alloc[r] == F(0) ? F(0) : F(1));
-    if (present[r] && s > m) m = s;
-  }
-  return m < F(0) ? F(0) : m;
-}
-
 template <typename F>
 __global__ void __launch_bounds__(kThreads) tail_kernel(TailParams p) {
   extern __shared__ uint8_t qover[];  // [Q]: queue over its share
@@ -209,6 +197,9 @@ __global__ void __launch_bounds__(kThreads) tail_kernel(TailParams p) {
   uint8_t* occ = (uint8_t*)p.excl_occ;
   uint8_t* tail_failed = (uint8_t*)p.tail_failed;
 
+  const jobkeys::JobCols<F> jcols{job_priority, job_ready_base, job_min_available,
+                                  job_tie_rank, job_placed, job_alloc, drf_total,
+                                  drf_present, R};
   const int keys[3] = {p.key0, p.key1, p.key2};
   const int nk = p.n_job_keys + 2;
   int placed = 0;
@@ -244,16 +235,7 @@ __global__ void __launch_bounds__(kThreads) tail_kernel(TailParams p) {
 #pragma unroll
       for (int i = 0; i < kLevels; ++i) v.k[i] = 0.0;
       int l = 0;
-      for (int kk = 0; kk < p.n_job_keys; ++kk) {
-        if (keys[kk] == 0) {
-          v.k[l++] = (double)(-job_priority[j]);
-        } else if (keys[kk] == 1) {
-          v.k[l++] = (job_ready_base[j] + job_placed[j]) >= job_min_available[j] ? 1.0 : 0.0;
-        } else {
-          v.k[l++] = (double)drf_share<F>(job_alloc + (size_t)j * R, drf_total,
-                                          drf_present, R);
-        }
-      }
+      for (int kk = 0; kk < p.n_job_keys; ++kk) v.k[l++] = jobkeys::key<F>(jcols, keys[kk], j);
       v.k[l++] = (double)job_tie_rank[j];
       v.k[l] = (double)task_in_job[t];
       if (lex_less(v, best, nk)) best = v;

@@ -49,6 +49,9 @@ LAUNCHES: Dict[str, int] = {
     "probe_evict_fold": 0,
     "round_select": 0,
     "round_commit": 0,
+    "cap_walk": 0,
+    "job_rank": 0,
+    "job_rank_count": 0,
 }
 
 _SINKS: List[Dict[str, int]] = []

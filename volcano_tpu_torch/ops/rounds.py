@@ -21,14 +21,16 @@ host with the plain controller and the plain tail.
 
 The kernel-shaped steps run through hand-written CUDA kernels on the card:
 K1 ``score_block`` (ops/kernels.py) for the full and the dirty-column
-score refresh, K2 ``window_topk``, K3 ``round_select`` (the select with K6's
+score refresh, K2 ``window_topk``, K2b ``cap_walk`` (the capacity walk of
+the window and of the full-width cover), K6 ``job_rank`` (the round's and
+the rollback's job ranks), K3 ``round_select`` (the select with K6's
 in-class and exclusion-group ranks and the window's coverage test, on the
 class order the head sorts once a solve), K4 ``resolve_prefix``, K5
 ``queue_budget``, K7a ``rounds_ctl``, K7b ``tail_pass`` (the whole
 sequential tail in one launch) and K7c ``round_commit`` (the scatter-adds
 of a round's commit and of the rollback, each row's updates in task
-order; ops/rounds_kernels.py). Sorts, the job ranks, gathers and
-scatters around them are torch ops. On the CPU the
+order; ops/rounds_kernels.py). Sorts, gathers and scatters around them
+are torch ops. On the CPU the
 scatter-adds of float state use ``index_put_(accumulate=True)``, which
 adds a row's updates one after another in task order, to the row's value,
 as the reference's sequential scatter does; on the card K7c does the same
@@ -42,15 +44,16 @@ import torch
 
 from volcano_tpu_torch import device as devmod
 from volcano_tpu_torch.ops import rounds_kernels as RK
-from volcano_tpu_torch.ops.kernels import (
+from volcano_tpu_torch.ops.kernels import (  # noqa: F401 (CHUNK re-exported)
     CHUNK,
     SolveSpec,
     _le_eps,
-    _share,
     score_block,
 )
 from volcano_tpu_torch.ops.rounds_kernels import (
     INT32_MAX,
+    cap_walk,
+    job_rank,
     queue_budget,
     resolve_prefix,
     round_commit,
@@ -70,25 +73,6 @@ PROF_SLOTS = RK.PROF_SLOTS
 PROF_TAIL = 6 + PROF_SLOTS
 
 
-def _lexsort(keys):
-    """jnp.lexsort: indices sorting by the LAST key first, ties broken by
-    the earlier keys, then by position (chained stable sorts)."""
-    idx = torch.arange(keys[0].shape[0], device=keys[0].device)
-    for k in keys:
-        if k.dtype == torch.bool:
-            k = k.to(torch.int8)
-        idx = idx[torch.argsort(k[idx], stable=True)]
-    return idx
-
-
-def _inverse(order: torch.Tensor) -> torch.Tensor:
-    """zeros.at[order].set(arange) as int32."""
-    inv = torch.empty(order.shape[0], dtype=torch.int32, device=order.device)
-    inv[order] = torch.arange(order.shape[0], dtype=torch.int32,
-                              device=order.device)
-    return inv
-
-
 def _pair_order(primary: torch.Tensor, secondary: torch.Tensor):
     """jnp.lexsort((secondary, primary)) for int32 keys, as one stable sort
     of the injective int64 key (primary, secondary)."""
@@ -99,19 +83,8 @@ def _pair_order(primary: torch.Tensor, secondary: torch.Tensor):
 
 def _job_rank(spec: SolveSpec, enc, job_placed, job_alloc):
     """([J] dense rank from the tiered job-order keys (low = first), [J]
-    the jobs in that order)."""
-    keys = [enc["job_tie_rank"]]
-    for name in reversed(spec.job_order_keys):
-        if name == "priority":
-            keys.append(-enc["job_priority"])
-        elif name == "gang":
-            ready = (enc["job_ready_base"] + job_placed) >= enc["job_min_available"]
-            keys.append(ready.to(torch.int32))
-        elif name == "drf":
-            keys.append(_share(job_alloc, enc["drf_total"][None, :],
-                               enc["drf_present"][None, :]))
-    order = _lexsort(keys)
-    return _inverse(order), order
+    the jobs in that order): K6 ``job_rank`` on the encode's job columns."""
+    return job_rank(spec, {k: enc[k] for k in RK.JOB_COLS}, job_placed, job_alloc)
 
 
 def _dirty_cols(dirty, n_dirty, dirty_k: int):
@@ -141,73 +114,26 @@ def _rescore_dirty(spec, enc, idle, used, cnt, excl_occ, scores, dirty,
 def _cap_walk(spec: SolveSpec, enc, order, score_ord, req, exl, has_pod,
               frac, idle, cnt, t_cap):
     """Capacity estimates and equal-score group structure along an ORDERED
-    candidate axis (the full stable-argsort order or its top-k prefix).
-    order/score_ord: [rows, W]. Returns (ccap, g_start, g_size,
-    ccap_before), all int32 [rows, W]."""
-    rows, width = order.shape
-    dev = order.device
-    feas = score_ord > float("-inf")
-    idle_w = idle[order.long()]                               # [rows, W, R]
-    eps = enc["eps"]
-    safe_req = torch.maximum(req, eps[None, :])
-    cap_dim = idle_w / safe_req[:, None, :]
-    cap = torch.amin(
-        torch.where((req > 0)[:, None, :], cap_dim,
-                    torch.full_like(cap_dim, float("inf"))), dim=-1)
-    big = torch.full_like(cap, float(t_cap))
-    cap = torch.minimum(torch.where(torch.isinf(cap), big, cap), big)
-    if spec.use_binpack:
-        cap = cap * frac[:, None]
-    if spec.use_exclusion:
-        # at most one group member per node, ever
-        cap = torch.where((exl >= 0)[:, None],
-                          torch.clamp(cap, max=1.0), cap)
-    if spec.check_pod_count:
-        pod_room = (enc["node_max_tasks"] - cnt)[order.long()].to(cap.dtype)
-        cap = torch.where(has_pod[:, None], torch.minimum(cap, pod_room), cap)
-    zero = torch.zeros_like(cap)
-    cap = torch.where(feas, torch.floor(cap), zero)
-    cap = torch.maximum(cap, torch.where(feas, torch.ones_like(cap), zero))
-    cap_i = cap.to(torch.int32)
-    # saturating prefix sum at t_cap: for non-negative terms it equals the
-    # exact prefix sum clamped at t_cap
-    ccap = torch.clamp(torch.cumsum(cap_i.to(torch.int64), dim=1),
-                       max=t_cap).to(torch.int32)
-
-    pos = torch.arange(width, dtype=torch.int32, device=dev)[None, :].expand(rows, width)
-    is_start = torch.ones((rows, width), dtype=torch.bool, device=dev)
-    is_start[:, 1:] = score_ord[:, 1:] != score_ord[:, :-1]
-    g_start = torch.cummax(torch.where(is_start, pos, torch.zeros_like(pos)),
-                           dim=1).values
-    starts = torch.where(is_start, pos, torch.full_like(pos, width))
-    sfx = torch.flip(torch.cummin(torch.flip(starts, [1]), dim=1).values, [1])
-    g_end = torch.cat(
-        [sfx[:, 1:], torch.full((rows, 1), width, dtype=torch.int32, device=dev)],
-        dim=1)
-    g_size = g_end - g_start
-    before = torch.gather(ccap, 1, torch.clamp(g_start - 1, min=0).long())
-    ccap_before = torch.where(g_start > 0, before, torch.zeros_like(before))
-    return ccap, g_start, g_size, ccap_before
+    candidate axis (the full stable-argsort order or its top-k prefix):
+    K2b ``cap_walk``. order/score_ord: [rows, W]. Returns (ccap, g_start,
+    g_size, ccap_before), all int32 [rows, W]."""
+    return cap_walk(spec, order, score_ord, req, exl, has_pod, frac, idle, cnt,
+                    enc.get("node_max_tasks"), enc["eps"], t_cap)
 
 
 def _nominate_full(spec: SolveSpec, enc, scores, idle, cnt, cls_frac, t_cap):
-    """Full-width nomination: stable argsort over all N columns plus the
-    capacity walk, chunked over class rows (bounds the [rows, N, R]
-    gather)."""
-    k_total = scores.shape[0]
-    outs = []
-    for lo in range(0, k_total, CHUNK):
-        sl = slice(lo, min(lo + CHUNK, k_total))
-        sc = scores[sl]
-        order = torch.argsort(-sc, dim=-1, stable=True).to(torch.int32)
-        score_ord = torch.gather(sc, 1, order.long())
-        walk = _cap_walk(
-            spec, enc, order, score_ord, enc["cls_req"][sl],
-            enc["cls_excl"][sl] if spec.use_exclusion else None,
-            enc["cls_has_pod"][sl],
-            cls_frac[sl] if spec.use_binpack else None, idle, cnt, t_cap)
-        outs.append((order,) + walk)
-    return tuple(torch.cat([o[i] for o in outs], dim=0) for i in range(5))
+    """Full-width nomination: the stable argsort over all N columns (one
+    torch sort of every class row) plus the capacity walk, one K2b call
+    for every row (the reference chunks its rows to bound a [rows, N, R]
+    gather that the kernel never builds; the rows are independent, so the
+    result is the chunked one)."""
+    order = torch.argsort(-scores, dim=-1, stable=True).to(torch.int32)
+    score_ord = torch.gather(scores, 1, order.long())
+    walk = _cap_walk(
+        spec, enc, order, score_ord, enc["cls_req"],
+        enc["cls_excl"] if spec.use_exclusion else None, enc["cls_has_pod"],
+        cls_frac if spec.use_binpack else None, idle, cnt, t_cap)
+    return (order,) + tuple(walk)
 
 
 def quantize(enc):
@@ -694,12 +620,13 @@ def _loop(loop, enc) -> str:
     return loop or "graph"
 
 
-def solve(spec: SolveSpec, enc: dict, loop: str = None):
+def solve(spec: SolveSpec, enc: dict, loop: str = None, raw: bool = True):
     """One rounds solve: (raw result tuple, packed result).
 
     On CUDA tensors the solve is one replay of the bucket's CUDA graph
     (ops/rounds_graph.py): nothing is read back; the packed result
-    carries the graph's status for the one fetch (utils/devprof.py).
+    carries the graph's status for the one fetch (utils/devprof.py), and
+    the raw tuple is None there unless ``raw``.
     ``loop="host"`` runs the same step machine driven from the host
     instead, the plain side of K7's comparison. On CPU tensors the machine runs from the host with every
     plain version."""
@@ -707,7 +634,7 @@ def solve(spec: SolveSpec, enc: dict, loop: str = None):
     if mode == "graph":
         from volcano_tpu_torch.ops import rounds_graph
 
-        return rounds_graph.solve(spec, enc)
+        return rounds_graph.solve(spec, enc, raw)
     m = StepMachine(spec, enc, mode)
     m.run()
     return m.finish()
@@ -727,4 +654,32 @@ def solve_rounds(spec: SolveSpec, enc: dict, loop: str = None):
 
 def solve_rounds_packed(spec: SolveSpec, enc: dict, loop: str = None):
     """The packed single-fetch result of one solve (pack_result)."""
-    return solve(spec, enc, loop)[1]
+    return solve(spec, enc, loop, raw=False)[1]
+
+
+def bind_packed(spec: SolveSpec, enc: dict):
+    """The host work of a solve that can come before its dispatch: on CUDA
+    tensors whose bucket's graph exists, the encode's copy list into it
+    (rounds_graph.bind); else None (the dispatch then does it, and
+    captures the bucket's graph on its first solve)."""
+    if _loop(None, enc) != "graph":
+        return None
+    from volcano_tpu_torch.ops import rounds_graph
+
+    return rounds_graph.bind(spec, enc)
+
+
+def dispatch_packed(spec: SolveSpec, enc: dict, bound=None):
+    """Launch one solve for the scheduler's single fetch of its packed
+    result (utils/devprof.py fetch or start_fetch): on CUDA tensors the
+    graph's handle of the result's started copy to the host
+    (rounds_graph.Fetch), with no copy of the result kept on the device;
+    elsewhere the packed tensor. ``bound`` is ``bind_packed``'s result for
+    this encode, when the caller made it ahead."""
+    from volcano_tpu_torch.ops import rounds_graph
+
+    if bound is not None:
+        return rounds_graph.dispatch(spec, enc, bound)
+    if _loop(None, enc) != "graph":
+        return solve_rounds_packed(spec, enc)
+    return rounds_graph.dispatch(spec, enc)

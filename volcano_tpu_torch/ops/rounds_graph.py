@@ -26,12 +26,20 @@ routes this thread's allocations there), and the head's and finish's from
 the graph's private pool. Nothing the graph reads is ever freed while it
 exists, so no block is reused under it.
 
-A solve copies its inputs into the graph's input buffers (device to device),
-replays the graph and clones the outputs: nothing is read back. The packed
-result carries the graph's status (the step cap's error bit, the steps,
-how often each body ran) in ``devprof_status``; the one fetch reads it
-beside the result (utils/devprof.py) and only then adds the launches:
-for each body, the kernels captured in it times the times it ran.
+A solve is one call into csrc/rounds_ctl.cu (``vt_launch``): it copies
+the encode's inputs into the graph's input buffers (one kernel over the
+copy list ``sources`` builds), launches the graph, copies the packed
+result and the graph's status (the step cap's error bit, the steps, how
+often each body ran), which share one device block, into a pinned host
+block of the graph's, and records an event behind that copy: nothing is
+read back. The scheduler's dispatch (``dispatch``) returns that copy's
+handle (``Fetch``); its copy list is built ahead in the prepare
+(``bind``) once the bucket's graph exists, so the dispatch holds the
+host for that one call. ``solve`` also clones the packed result on the
+device, and the raw outputs for a caller that asks for them. The one
+fetch waits on the event (utils/devprof.py), and only then are the
+launches added: for each body, the kernels captured in it times the
+times it ran.
 
 Graphs are cached by the solve spec, every input's name, shape and dtype
 (so every padded extent: T, J, K, N, R, the exclusion groups, queues,
@@ -44,7 +52,8 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import time
-from typing import Dict, Tuple
+import weakref
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -74,7 +83,75 @@ def _lib():
     lib.vt_cond_end.restype = ctypes.c_int
     lib.vt_stream_create.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
     lib.vt_stream_create.restype = ctypes.c_int
+    lib.vt_copy_in.argtypes = [ctypes.POINTER(_CopyList), ctypes.c_void_p]
+    lib.vt_launch.argtypes = [ctypes.POINTER(_CopyList), ctypes.c_ulonglong, ctypes.c_void_p,
+                              ctypes.c_void_p, ctypes.c_longlong, ctypes.c_ulonglong,
+                              ctypes.c_void_p]
+    lib.vt_event_create.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
+    lib.vt_event_sync.argtypes = lib.vt_event_destroy.argtypes = [ctypes.c_ulonglong]
+    for fn in (lib.vt_copy_in, lib.vt_launch, lib.vt_event_create, lib.vt_event_sync,
+               lib.vt_event_destroy):
+        fn.restype = ctypes.c_int
     return lib
+
+
+# the most inputs a solve's copy list holds (csrc/rounds_ctl.cu kMaxCopies)
+_MAX_COPIES = 128
+
+
+class _CopyList(ctypes.Structure):
+    _fields_ = [("src", ctypes.c_void_p * _MAX_COPIES),
+                ("dst", ctypes.c_void_p * _MAX_COPIES),
+                ("bytes", ctypes.c_longlong * _MAX_COPIES), ("n", ctypes.c_int)]
+
+
+class _Done:
+    """An event of the graph's that vt_launch records behind a solve's
+    copy to the host (what devprof waits on); destroyed with this object."""
+
+    __slots__ = ("lib", "ev")
+
+    def __init__(self, lib):
+        ev = ctypes.c_ulonglong()
+        rc = lib.vt_event_create(ctypes.byref(ev))
+        if rc != 0:
+            raise RuntimeError(f"rounds solve: CUDA error {rc} creating an event")
+        self.lib, self.ev = lib, ev.value
+
+    def synchronize(self) -> None:
+        rc = self.lib.vt_event_sync(self.ev)
+        if rc != 0:
+            raise RuntimeError(f"rounds solve: CUDA error {rc} waiting on its result")
+
+    def __del__(self):
+        if getattr(self, "ev", None):
+            self.lib.vt_event_destroy(self.ev)
+
+
+class Fetch:
+    """One solve's packed result on its way to the host: the graph's pinned
+    block its copy goes to and the event behind that copy, in
+    ``devprof_fetch`` for utils/devprof.py's fetch (``read`` gives the
+    packed result as a numpy array, once). A fetch read or dropped unread
+    (a discarded stage) gives its block and event back to the graph; a
+    dropped one's event is waited on before the block is written again."""
+
+    def __init__(self, g: "_Graph", host: torch.Tensor, done: _Done):
+        self.g, self.host, self.done = g, host, done
+        self.fin = weakref.finalize(self, g.free.append, (host, done, True))
+
+    @property
+    def devprof_fetch(self):
+        return self.done, self.read
+
+    def read(self) -> np.ndarray:
+        g, host = self.g, self.host
+        out = host[:g.packed_bytes].view(g.out_packed.dtype).numpy().copy()
+        status = host[g.status_at:].view(torch.int32).numpy().copy()
+        if self.fin.detach() is not None:
+            g.free.append((host, self.done, False))
+        g.on_status(status)
+        return out
 
 
 def _streams():
@@ -92,9 +169,8 @@ def _streams():
 
 def graph_key(spec, enc) -> tuple:
     """The cache key: spec, device and every input's (name, shape, dtype)."""
-    ref = enc["cls_req"]
-    return (spec, str(ref.device), tuple(sorted(
-        (k, tuple(v.shape), str(v.dtype)) for k, v in enc.items())))
+    return (spec, enc["cls_req"].device,
+            tuple((k, enc[k].shape, enc[k].dtype) for k in sorted(enc)))
 
 
 def graphs_cached() -> int:
@@ -148,19 +224,29 @@ class _Graph:
     def __init__(self, spec, enc):
         t0 = time.perf_counter()
         self.pool = torch.cuda.MemPool()
+        self.lib = _lib()
+        self.device = enc["cls_req"].device
         with torch.cuda.use_mem_pool(self.pool):
             self.inp = {k: torch.empty(v.shape, dtype=v.dtype, device=v.device)
                         for k, v in enc.items()}
-        # the inputs by dtype: one multi-tensor copy a group on each solve
-        self.groups: Dict[torch.dtype, list] = {}
-        for k, v in self.inp.items():
-            self.groups.setdefault(v.dtype, []).append(k)
-            m = self.machine = R.StepMachine(spec, self.inp, "warm")
-            self.status = torch.zeros(2 + len(R.BODIES), dtype=torch.int32,
-                                      device=m.ctl.device)
+        # the inputs' copy list (vt_launch): destinations and sizes here,
+        # the sources of each solve's encode in a copy of it (sources())
+        self.names = sorted(self.inp)
+        if len(self.names) > _MAX_COPIES:
+            raise ValueError(f"rounds solve: {len(self.names)} inputs, more than "
+                             f"the graph's copy list holds ({_MAX_COPIES})")
+        self.copies = _CopyList(n=len(self.names))
+        for j, k in enumerate(self.names):
+            self.copies.dst[j] = self.inp[k].data_ptr()
+            self.copies.bytes[j] = self.inp[k].numel() * self.inp[k].element_size()
+        m = self.machine = R.StepMachine(spec, self.inp, "warm")
         # one eager pass over every body: it loads every kernel library and
         # raises on any hidden host sync before the capture would
-        self.copy_in(enc)
+        lst, keep = self.sources(enc)
+        rc = self.lib.vt_copy_in(ctypes.byref(lst), devmod.raw_stream(self.device))
+        if rc != 0:
+            raise RuntimeError(f"rounds solve: copying its inputs in: CUDA error {rc}")
+        del keep
         prev = torch.cuda.get_sync_debug_mode()
         torch.cuda.set_sync_debug_mode("error")
         try:
@@ -169,9 +255,21 @@ class _Graph:
             raw, packed = m.finish()
         finally:
             torch.cuda.set_sync_debug_mode(prev)
+        # the packed result, then (4-byte aligned) the status: one block,
+        # fetched by one copy
+        n_packed = packed.numel() * packed.element_size()
+        at = -(-n_packed // 4) * 4
+        n_status = 2 + len(R.BODIES)
         with torch.cuda.use_mem_pool(self.pool):
             self.out = tuple(torch.empty_like(x) for x in raw)
-            self.out_packed = torch.empty_like(packed)
+            self.block = torch.empty(at + 4 * n_status, dtype=torch.uint8,
+                                     device=packed.device)
+        self.out_packed = self.block[:n_packed].view(packed.dtype)
+        self.status = self.block[at:].view(torch.int32)
+        self.packed_bytes, self.status_at = n_packed, at
+        # pinned host blocks no fetch holds, each with the event of its
+        # last copy when its fetch was dropped unread (else None)
+        self.free: list = []
         del raw, packed
         cond = _Cond()
         self.graph = torch.cuda.CUDAGraph()
@@ -194,13 +292,23 @@ class _Graph:
                 self.status[1] = m.ctl[RK.C_STEPS]
                 self.status[2:] = m.hits
         self.body_counts = cond.counts
+        self.exec = self.graph.raw_cuda_graph_exec()
         STATS["captures"] += 1
         STATS["capture_s"] += time.perf_counter() - t0
 
-    def copy_in(self, enc) -> None:
-        for names in self.groups.values():
-            torch._foreach_copy_([self.inp[k] for k in names],
-                                 [enc[k] for k in names])
+    def sources(self, enc) -> Tuple[_CopyList, list]:
+        """The copy list of ``enc``'s inputs into the graph's, and the
+        contiguous copies of strided inputs it points to (keep them alive
+        until the launch)."""
+        lst = _CopyList.from_buffer_copy(self.copies)
+        keep = []
+        for j, k in enumerate(self.names):
+            v = enc[k]
+            if not v.is_contiguous():
+                v = v.contiguous()
+                keep.append(v)
+            lst.src[j] = v.data_ptr()
+        return lst, keep
 
     def on_status(self, status: np.ndarray) -> None:
         """The fetched status: raise on the step cap, count the launches."""
@@ -212,21 +320,72 @@ class _Graph:
             if body in self.body_counts and status[2 + i]:
                 devmod.add_launches(self.body_counts[body], int(status[2 + i]))
 
-    def run(self, enc) -> Tuple[tuple, torch.Tensor]:
-        self.copy_in(enc)
-        self.graph.replay()
-        raw = tuple(o.clone() for o in self.out)
-        packed = self.out_packed.clone()
-        packed.devprof_status = (self.status.clone(), self.on_status)
+    def launch(self, lst: _CopyList) -> Fetch:
+        """One call (csrc/rounds_ctl.cu vt_launch): copy the sources of
+        ``lst`` in, launch the graph, copy the packed result and status
+        to a pinned host block and record the fetch's event behind it."""
+        if self.free:
+            host, done, dropped = self.free.pop()
+            if dropped:
+                done.synchronize()
+        else:
+            host = torch.empty(self.block.shape, dtype=torch.uint8, pin_memory=True)
+            done = _Done(self.lib)
+        fetch = Fetch(self, host, done)
+        rc = self.lib.vt_launch(ctypes.byref(lst), self.exec, host.data_ptr(),
+                                self.block.data_ptr(), self.block.numel(), done.ev,
+                                devmod.raw_stream(self.device))
+        if rc != 0:
+            raise RuntimeError(f"rounds solve: launching its graph: CUDA error {rc}")
         STATS["solves"] += 1
-        return raw, packed
+        return fetch
+
+    def run(self, enc, raw: bool = True) -> Tuple[tuple, torch.Tensor]:
+        lst, keep = self.sources(enc)
+        fetch = self.launch(lst)
+        del keep
+        packed = self.out_packed.clone()
+        packed.devprof_fetch = fetch.devprof_fetch
+        return (tuple(o.clone() for o in self.out) if raw else None), packed
 
 
-def solve(spec, enc):
-    """(raw, packed) of one solve by the bucket's graph, capturing it on
-    the bucket's first solve."""
+def _graph(spec, enc) -> _Graph:
+    """The bucket's graph, captured on the bucket's first solve."""
     key = graph_key(spec, enc)
     g = _GRAPHS.get(key)
     if g is None:
         g = _GRAPHS[key] = _Graph(spec, enc)
-    return g.run(enc)
+    return g
+
+
+def solve(spec, enc, raw: bool = True):
+    """(raw, packed) of one solve by the bucket's graph; raw is None
+    unless asked for."""
+    return _graph(spec, enc).run(enc, raw)
+
+
+class Bound(NamedTuple):
+    """An encode bound to its bucket's graph (``bind``): the graph, the
+    copy list of the encode's inputs, the copies it points to."""
+    graph: _Graph
+    copies: _CopyList
+    keep: list
+
+
+def bind(spec, enc) -> Optional[Bound]:
+    """``enc``'s copy list into its bucket's graph, when the graph exists
+    (None before the bucket's first solve, which captures it): the host
+    work of a solve that can come before its dispatch."""
+    g = _GRAPHS.get(graph_key(spec, enc))
+    return None if g is None else Bound(g, *g.sources(enc))
+
+
+def dispatch(spec, enc, bound: Optional[Bound] = None) -> Fetch:
+    """One solve with its packed result only on its way to the host (no
+    device copy of it kept): the scheduler's dispatch. With ``bound``
+    (``bind``'s result for this encode) it is one call to the card's
+    runtime."""
+    if bound is None:
+        g = _graph(spec, enc)
+        bound = Bound(g, *g.sources(enc))
+    return bound.graph.launch(bound.copies)

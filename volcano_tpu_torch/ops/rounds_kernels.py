@@ -1,8 +1,8 @@
-"""K2 window_topk, K3 round_select (with K6's in-class and exclusion-group
-ranks), K4 resolve_prefix, K5 queue_budget, K7a rounds_ctl, K7b tail_pass
-and K7c round_commit (the round's commit and the rollback's undo): the
-wrappers of the hand-written CUDA kernels of the rounds solver, each
-beside its plain PyTorch version.
+"""K2 window_topk, K2b cap_walk, K6 job_rank, K3 round_select (with K6's
+in-class and exclusion-group ranks), K4 resolve_prefix, K5 queue_budget,
+K7a rounds_ctl, K7b tail_pass and K7c round_commit (the round's commit and
+the rollback's undo): the wrappers of the hand-written CUDA kernels of the
+rounds solver, each beside its plain PyTorch version.
 
 A wrapper launches its kernel (csrc/<name>.cu) for CUDA tensors, raising
 when it cannot, and runs the plain version for CPU tensors; it never falls
@@ -17,7 +17,7 @@ import ctypes
 import torch
 
 from volcano_tpu_torch import device as devmod
-from volcano_tpu_torch.ops.kernels import MIN_MILLI_SCALAR, _check, _ptr
+from volcano_tpu_torch.ops.kernels import MIN_MILLI_SCALAR, _check, _ptr, _share
 
 INT32_MAX = 2**31 - 1
 
@@ -119,6 +119,243 @@ def _entry(lib_name, *fn_names, argtypes):
             fn.restype = ctypes.c_int
         _FNS[(lib, fn_names)] = fns
     return fns
+
+
+# -- K2b: the capacity walk ----------------------------------------------------
+
+def cap_walk_plain(spec, order, score_ord, req, exl, has_pod, frac, idle, cnt,
+                   nmax, eps, t_cap: int):
+    """Capacity estimates and equal-score group structure along an ORDERED
+    candidate axis (volcano_tpu/ops/rounds.py:190 ``_cap_walk``): the full
+    stable-argsort order or its top-k prefix. order int32 / score_ord
+    [rows, W]; req [rows, R]; exl int32 [rows] (None without exclusion);
+    frac [rows] (None without binpack); idle [N, R]; eps [R]; has_pod bool
+    [rows] and cnt, nmax int32 [N] (read with the pod check). Returns
+    (ccap, g_start, g_size, ccap_before), all int32 [rows, W]."""
+    rows, width = order.shape
+    dev = order.device
+    feas = score_ord > float("-inf")
+    idle_w = idle[order.long()]                               # [rows, W, R]
+    safe_req = torch.maximum(req, eps[None, :])
+    cap_dim = idle_w / safe_req[:, None, :]
+    cap = torch.amin(
+        torch.where((req > 0)[:, None, :], cap_dim,
+                    torch.full_like(cap_dim, float("inf"))), dim=-1)
+    big = torch.full_like(cap, float(t_cap))
+    cap = torch.minimum(torch.where(torch.isinf(cap), big, cap), big)
+    if spec.use_binpack:
+        cap = cap * frac[:, None]
+    if spec.use_exclusion:
+        # at most one group member per node, ever
+        cap = torch.where((exl >= 0)[:, None],
+                          torch.clamp(cap, max=1.0), cap)
+    if spec.check_pod_count:
+        pod_room = (nmax - cnt)[order.long()].to(cap.dtype)
+        cap = torch.where(has_pod[:, None], torch.minimum(cap, pod_room), cap)
+    zero = torch.zeros_like(cap)
+    cap = torch.where(feas, torch.floor(cap), zero)
+    cap = torch.maximum(cap, torch.where(feas, torch.ones_like(cap), zero))
+    cap_i = cap.to(torch.int32)
+    # saturating prefix sum at t_cap: for non-negative terms it equals the
+    # exact prefix sum clamped at t_cap
+    ccap = torch.clamp(torch.cumsum(cap_i.to(torch.int64), dim=1),
+                       max=t_cap).to(torch.int32)
+
+    pos = torch.arange(width, dtype=torch.int32, device=dev)[None, :].expand(rows, width)
+    is_start = torch.ones((rows, width), dtype=torch.bool, device=dev)
+    is_start[:, 1:] = score_ord[:, 1:] != score_ord[:, :-1]
+    g_start = torch.cummax(torch.where(is_start, pos, torch.zeros_like(pos)),
+                           dim=1).values
+    starts = torch.where(is_start, pos, torch.full_like(pos, width))
+    sfx = torch.flip(torch.cummin(torch.flip(starts, [1]), dim=1).values, [1])
+    g_end = torch.cat(
+        [sfx[:, 1:], torch.full((rows, 1), width, dtype=torch.int32, device=dev)],
+        dim=1)
+    g_size = g_end - g_start
+    before = torch.gather(ccap, 1, torch.clamp(g_start - 1, min=0).long())
+    ccap_before = torch.where(g_start > 0, before, torch.zeros_like(before))
+    return ccap, g_start, g_size, ccap_before
+
+
+class _WalkArgs(ctypes.Structure):
+    _fields_ = ([(name, ctypes.c_void_p) for name in (
+        "order", "score", "req", "exl", "has_pod", "frac", "idle", "cnt",
+        "nmax", "eps", "ccap", "g_start", "g_size", "ccap_before")]
+        + [(name, ctypes.c_int) for name in ("rows", "W", "N", "R", "t_cap", "flags")])
+
+
+def cap_walk(spec, order, score_ord, req, exl, has_pod, frac, idle, cnt, nmax,
+             eps, t_cap: int):
+    """K2b (csrc/cap_walk.cu, a CTA a row) on CUDA, the plain version on
+    the CPU; the same arguments and results as ``cap_walk_plain``. Its
+    only memory is its output (from the graph's pool while a solve is
+    captured)."""
+    if not devmod.on_cuda(order, score_ord, idle):
+        return cap_walk_plain(spec, order, score_ord, req, exl, has_pod, frac,
+                              idle, cnt, nmax, eps, t_cap)
+    rows, width = order.shape
+    n, r = idle.shape
+    dt = idle.dtype
+    if dt not in (torch.float32, torch.float64):
+        raise TypeError(f"idle: dtype {dt}")
+    if not 0 <= int(t_cap) < 2**31 - 1:
+        raise ValueError(f"cap_walk: t_cap {t_cap} outside the int32 range")
+    i32 = torch.int32
+    checks = [("order", order, i32, (rows, width)),
+              ("score_ord", score_ord, dt, (rows, width)), ("req", req, dt, (rows, r)),
+              ("idle", idle, dt, (n, r)), ("eps", eps, dt, (r,))]
+    if spec.check_pod_count:
+        checks += [("has_pod", has_pod, torch.bool, (rows,)), ("cnt", cnt, i32, (n,)),
+                   ("nmax", nmax, i32, (n,))]
+    if spec.use_exclusion:
+        checks.append(("exl", exl, i32, (rows,)))
+    if spec.use_binpack:
+        checks.append(("frac", frac, dt, (rows,)))
+    _check_all(order, checks)
+    out = torch.empty((4, rows, width), dtype=i32, device=order.device)
+    a = _WalkArgs(
+        order=order.data_ptr(), score=score_ord.data_ptr(), req=req.data_ptr(),
+        exl=exl.data_ptr() if spec.use_exclusion else None,
+        frac=frac.data_ptr() if spec.use_binpack else None, idle=idle.data_ptr(),
+        eps=eps.data_ptr(),
+        ccap=out[0].data_ptr(), g_start=out[1].data_ptr(), g_size=out[2].data_ptr(),
+        ccap_before=out[3].data_ptr(), rows=rows, W=width, N=n, R=r, t_cap=int(t_cap),
+        flags=int(spec.use_binpack) | 2 * int(spec.use_exclusion)
+        | 4 * int(spec.check_pod_count))
+    if spec.check_pod_count:
+        a.has_pod, a.cnt, a.nmax = has_pod.data_ptr(), cnt.data_ptr(), nmax.data_ptr()
+    f32, f64 = _entry("cap_walk", "cap_walk_f32", "cap_walk_f64",
+                      argtypes=[ctypes.POINTER(_WalkArgs), ctypes.c_void_p])
+    rc = (f64 if dt == torch.float64 else f32)(
+        ctypes.byref(a), devmod.raw_stream(order.device))
+    if rc != 0:
+        raise RuntimeError(f"cap_walk kernel launch failed: CUDA error {rc}")
+    devmod.count_launch("cap_walk")
+    return out[0], out[1], out[2], out[3]
+
+
+# -- K6: the job ranks ------------------------------------------------------------
+
+# the job columns the ranks read (beside the state's job_placed, job_alloc)
+JOB_COLS = ("job_priority", "job_ready_base", "job_min_available", "job_tie_rank",
+            "drf_total", "drf_present")
+
+
+def _lexsort(keys):
+    """jnp.lexsort: indices sorting by the LAST key first, ties broken by
+    the earlier keys, then by position (chained stable sorts)."""
+    idx = torch.arange(keys[0].shape[0], device=keys[0].device)
+    for k in keys:
+        if k.dtype == torch.bool:
+            k = k.to(torch.int8)
+        idx = idx[torch.argsort(k[idx], stable=True)]
+    return idx
+
+
+def _inverse(order: torch.Tensor) -> torch.Tensor:
+    """zeros.at[order].set(arange) as int32."""
+    inv = torch.empty(order.shape[0], dtype=torch.int32, device=order.device)
+    inv[order] = torch.arange(order.shape[0], dtype=torch.int32,
+                              device=order.device)
+    return inv
+
+
+def job_rank_plain(spec, cols, job_placed, job_alloc):
+    """Plain version of K6's job ranks (volcano_tpu/ops/rounds.py:91
+    ``_job_rank``): the jobs ordered by the job-order keys in tier order
+    (-priority, gang readiness, the drf share), then the tie rank, then
+    the index, by chained stable sorts. ``cols`` holds JOB_COLS. Returns
+    (rank int32 [J], order int64 [J])."""
+    keys = [cols["job_tie_rank"]]
+    for name in reversed(spec.job_order_keys):
+        if name == "priority":
+            keys.append(-cols["job_priority"])
+        elif name == "gang":
+            ready = (cols["job_ready_base"] + job_placed) >= cols["job_min_available"]
+            keys.append(ready.to(torch.int32))
+        elif name == "drf":
+            keys.append(_share(job_alloc, cols["drf_total"][None, :],
+                               cols["drf_present"][None, :]))
+    order = _lexsort(keys)
+    return _inverse(order), order
+
+
+class _RankArgs(ctypes.Structure):
+    _fields_ = ([(name, ctypes.c_void_p) for name in (
+        "priority", "ready_base", "min_available", "tie_rank", "placed", "alloc",
+        "drf_total", "drf_present", "scratch", "rank", "order")]
+        + [(name, ctypes.c_int) for name in (
+            "J", "R", "n_keys", "key0", "key1", "key2", "idx_bits", "words")])
+
+
+def rank_words(spec, j: int, dtype) -> int:
+    """The 64-bit words of K6's packed job keys: the tiers the spec
+    names, the tie rank and the bits J - 1 needs (two or three)."""
+    codes = [JOB_KEY_CODES[k] for k in spec.job_order_keys if k in JOB_KEY_CODES]
+    width = sum({0: 32, 1: 1, 2: 8 * dtype.itemsize}[c] for c in codes) \
+        + 32 + max(1, (j - 1).bit_length())
+    if len(codes) > 3 or width > 192:
+        raise ValueError(f"job_order_keys {spec.job_order_keys!r}: the keys pass "
+                         "the kernel's 192 bits")
+    return 2 if width <= 128 else 3
+
+
+def job_rank(spec, cols, job_placed, job_alloc, count: bool = True):
+    """K6's job ranks (csrc/job_rank.cu: two launches, the tile sorts
+    ``job_rank`` and the count ``job_rank_count``, each counted) on CUDA,
+    the plain version on the CPU; the same arguments and results as
+    ``job_rank_plain``. ``count=False`` launches the tile sorts alone,
+    to time them apart (rank and order are then not written). Its
+    memory is its outputs (from the graph's pool while a solve is
+    captured) and one scratch block (the kernel's keys, sorted tiles and
+    chunk counters), planned once a size."""
+    if not devmod.on_cuda(job_placed, job_alloc):
+        return job_rank_plain(spec, cols, job_placed, job_alloc)
+    j, r = job_alloc.shape
+    dt = job_alloc.dtype
+    if dt not in (torch.float32, torch.float64):
+        raise TypeError(f"job_alloc: dtype {dt}")
+    i32 = torch.int32
+    _check_all(job_placed, [
+        ("job_priority", cols["job_priority"], i32, (j,)),
+        ("job_ready_base", cols["job_ready_base"], i32, (j,)),
+        ("job_min_available", cols["job_min_available"], i32, (j,)),
+        ("job_tie_rank", cols["job_tie_rank"], i32, (j,)),
+        ("job_placed", job_placed, i32, (j,)), ("job_alloc", job_alloc, dt, (j, r)),
+        ("drf_total", cols["drf_total"], dt, (r,)),
+        ("drf_present", cols["drf_present"], torch.bool, (r,))])
+    words = rank_words(spec, j, dt)
+    codes = [JOB_KEY_CODES[k] for k in spec.job_order_keys if k in JOB_KEY_CODES]
+    idx_bits = max(1, (j - 1).bit_length())
+    size_fn, = _entry("job_rank", "job_rank_scratch_bytes", argtypes=[ctypes.c_int] * 2)
+    size_fn.restype = ctypes.c_longlong
+    buf = _scratch("job_rank", job_placed.device, -(-size_fn(j, words) // 8))
+    rank = torch.empty(j, dtype=i32, device=job_placed.device)
+    order = torch.empty(j, dtype=torch.int64, device=job_placed.device)
+    n_keys = len(codes)
+    codes += [-1] * (3 - n_keys)
+    a = _RankArgs(
+        priority=cols["job_priority"].data_ptr(), ready_base=cols["job_ready_base"].data_ptr(),
+        min_available=cols["job_min_available"].data_ptr(),
+        tie_rank=cols["job_tie_rank"].data_ptr(), placed=job_placed.data_ptr(),
+        alloc=job_alloc.data_ptr(), drf_total=cols["drf_total"].data_ptr(),
+        drf_present=cols["drf_present"].data_ptr(), scratch=buf.data_ptr(),
+        rank=rank.data_ptr(), order=order.data_ptr(), J=j, R=r,
+        n_keys=n_keys, key0=codes[0], key1=codes[1], key2=codes[2], idx_bits=idx_bits,
+        words=words)
+    f32, f64, count_fn = _entry("job_rank", "job_rank_f32", "job_rank_f64",
+                                "job_rank_count",
+                                argtypes=[ctypes.POINTER(_RankArgs), ctypes.c_void_p])
+    stream = devmod.raw_stream(job_placed.device)
+    launches = [("job_rank", f64 if dt == torch.float64 else f32)]
+    if count:
+        launches.append(("job_rank_count", count_fn))
+    for name, fn in launches:
+        rc = fn(ctypes.byref(a), stream)
+        if rc != 0:
+            raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+        devmod.count_launch(name)
+    return rank, order
 
 
 # -- K3 with K6's ranks: the round's task-axis select --------------------------

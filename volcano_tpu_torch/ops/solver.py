@@ -361,7 +361,11 @@ class BatchAllocator:
         t2 = time.perf_counter()
         prep = dict(mode="rounds", enc=enc, spec=spec, staged=staged,
                     arrays=rounds_arrays, t0=t0, t1=t1, h2d_s=t2 - t1,
-                    readset=readset)
+                    readset=readset,
+                    # on the card, once the bucket's graph exists: the
+                    # encode's copy list into it, so that dispatch() only
+                    # launches
+                    bound=rounds_mod.bind_packed(spec, staged))
         if rep is not None:
             # token recomputed AFTER the serve: the serve bumps the
             # replica epoch (a fingerprint component), and the stored
@@ -416,11 +420,13 @@ class BatchAllocator:
         return True
 
     @staticmethod
-    def dispatch(prep: dict) -> torch.Tensor:
+    def dispatch(prep: dict):
         """Launch a rounds prepare's solve; returns the packed result
-        (assign, touched mask, profile tail) on the device, unfetched. On
-        the card this enqueues one graph replay and reads nothing back."""
-        return rounds_mod.solve_rounds_packed(prep["spec"], prep["staged"])
+        (assign, touched mask, profile tail) unfetched, for devprof's fetch.
+        On the card this enqueues one graph replay and the result's copy to
+        the host, and reads nothing back."""
+        return rounds_mod.dispatch_packed(prep["spec"], prep["staged"],
+                                          prep.get("bound"))
 
     def __call__(self, ssn) -> bool:
         from volcano_tpu_torch.utils import devprof

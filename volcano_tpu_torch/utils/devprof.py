@@ -113,7 +113,7 @@ def counters() -> Optional[dict]:
 
 def fetch(x) -> np.ndarray:
     """Copy tensor ``x`` to the host: a counted fetch and sync point."""
-    if getattr(x, "devprof_status", None) is not None:
+    if getattr(x, "devprof_fetch", None) is not None:
         return start_fetch(x)()
     if _active is not None:
         _active["d2h_fetches"] += 1
@@ -128,33 +128,32 @@ def start_fetch(x: torch.Tensor) -> Callable[[], np.ndarray]:
     work that produces ``x`` and ahead of anything launched later, into
     pinned host memory, and a CUDA event marks its end; wait() blocks on
     that event only (the counted sync point), so host work between the two
-    calls overlaps the device. On the CPU wait() is ``x.numpy()``.
+    calls overlaps the device. On the CPU wait() is ``x.numpy()``. A
+    solve by the rounds graph (ops/rounds_graph.py) started its copy
+    itself: ``x`` then carries ``devprof_fetch`` (the event behind the
+    copy, the read of it), and may be the graph's handle of the copy
+    rather than a tensor.
     """
     t0 = time.perf_counter()
     if _active is not None:
         _active["d2h_fetches"] += 1
-    # a graph-replayed solve (ops/rounds_graph.py) carries its status: it
-    # rides the same copy and is handed to its owner after the wait
-    status, on_status = getattr(x, "devprof_status", None) or (None, None)
-    if x.device.type == "cuda":
-        host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
-        host.copy_(x, non_blocking=True)
-        if status is not None:
-            status_host = torch.empty(status.shape, dtype=status.dtype,
-                                      pin_memory=True)
-            status_host.copy_(status, non_blocking=True)
+    started = getattr(x, "devprof_fetch", None)
+    if started is not None:
+        done, read = started
     else:
-        host, status_host = x, status
-    done = _behind(x)
+        if x.device.type == "cuda":
+            host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+            host.copy_(x, non_blocking=True)
+        else:
+            host = x
+        done, read = _behind(x), host.numpy
     _inflight.append((x, done))
 
     def wait() -> np.ndarray:
         t1 = time.perf_counter()
         if done is not None:
             done.synchronize()
-        out = host.numpy()
-        if status is not None:
-            on_status(status_host.numpy())
+        out = read()
         if _active is not None:
             _active["sync_points"] += 1
             _active["overlap_s"] += t1 - t0
