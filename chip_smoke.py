@@ -22,11 +22,13 @@ Phases, each failing the run on any error:
    volcano_tpu_torch/csrc, one nvcc per source, in parallel, and of the
    native host engines (volcano_tpu_torch/_native, cc), which must load;
 2. kernel phase (allocate): one cfg5 allocate session on the card records
-   the first input each kernel wrapper sees on that path (K1 score_block
-   full and dirty-column, K2 window_topk); each kernel is then held
-   against its plain PyTorch version on those inputs with torch.equal
-   (exact), and both are timed
-   with CUDA events; the same session times the rounds solver's K2b and
+   the first input each kernel wrapper sees on that path (K1's round
+   entry score_round on a full round, and on a dirty round, which cfg2's
+   session gives; K2 window_topk); each kernel is then held against its
+   plain PyTorch version on those inputs with torch.equal (exact; K1's
+   scores by their bits, its feasible counts, its scratch left zero; K1's
+   full-refresh entry score_block too, on the full round's inputs), and
+   both are timed with CUDA events (K1 20 calls in a CUDA graph); the same session times the rounds solver's K2b and
    K6 groups (``_cap_walk``/``_nominate_full`` and ``_job_rank``: each
    kernel's wrapper with the sorts and gathers around it) with CUDA
    events around each call. These sessions
@@ -54,7 +56,10 @@ Phases, each failing the run on any error:
    sync point, the fetch; K7a rounds_ctl is held against its plain
    version on every controller input the host runs recorded, K7b
    tail_pass on the capped cfg6 tail's inputs (every state tensor), both
-   timed; K3 round_select and K7c round_commit on every select and commit
+   timed, and the graph runs K7a once a pass of its loop (the host run's
+   controller calls) and K1 once a round; K1's round entry on every
+   round of those host runs (cfg6's K = 512 timed, 20 calls in a CUDA
+   graph); K3 round_select and K7c round_commit on every select and commit
    call the host runs of cfg2, cfg3, cfg5 (window and cover) and cfg6
    (exclusion) made and on crafted inputs (bench/round_cases.py), K7c's
    plain version on CPU copies, both timed on cfg5's calls; K4
@@ -83,7 +88,8 @@ Phases, each failing the run on any error:
    the fused session chain and once more on the per-action path
    (VOLCANO_TPU_FUSE=0), each on a fresh cache with tpuscore on cuda.
    Launch counters are zeroed just before each run and read just after:
-   every kernel of the path must have launched (K1/K2/K2b/K3/K4/K5, K5's
+   every kernel of the path must have launched (K1's round entry,
+   K2/K2b/K3/K4/K5, K5's
    mask, K6's job_rank and job_rank_count, K7a and K7c everywhere, K7b exactly once on
    cfg6;
    on a fused run K13 fuse_heaps twice, the fused K9 and K10 once each and
@@ -437,22 +443,22 @@ def check_evicts(cache, cfg, before):
 
 def capture_inputs():
     """Wrap the rounds solver's kernel wrappers so the first call of each
-    (and the first dirty-column K1 call) keeps a copy of its inputs."""
+    (and K1's first call on a dirty round, "score_round_dirty") keeps a
+    copy of its inputs."""
+    from volcano_tpu_torch.bench.round_cases import _clone
+    from volcano_tpu_torch.ops import kernels as K
     from volcano_tpu_torch.ops import rounds
 
     seen = {}
-    real = {n: getattr(rounds, n) for n in ("score_block", "window_topk")}
-
-    def cl(x):
-        return x.clone() if isinstance(x, torch.Tensor) else x
+    real = {n: getattr(rounds, n) for n in ("score_round", "window_topk")}
 
     def wrap(name):
         def fn(*args, **kw):
             key = name
-            if name == "score_block":
-                key = "score_block_cols" if kw.get("cols") is not None else name
+            if name == "score_round" and not K.round_is_full(args[0], int(args[8])):
+                key = "score_round_dirty"
             if key not in seen:
-                seen[key] = ([cl(a) for a in args], {k: cl(v) for k, v in kw.items()})
+                seen[key] = (list(_clone(tuple(args))), _clone(kw))
             return real[name](*args, **kw)
         return fn
 
@@ -521,6 +527,7 @@ def count_group_calls():
 def kernel_phase(scale):
     """Hold every kernel against its plain version on cfg5 main-path
     inputs; time both. Returns the kernel records (launches filled later)."""
+    from volcano_tpu_torch.bench import round_cases
     from volcano_tpu_torch.ops import kernels as K
     from volcano_tpu_torch.ops import rounds
     from volcano_tpu_torch.ops import rounds_kernels as RK
@@ -536,9 +543,9 @@ def kernel_phase(scale):
     try:
         run_session(5, scale, "cuda", "float32")
         src = {k: "cfg5" for k in seen}
-        if "score_block_cols" not in seen:
-            # cfg5 placed everything before any dirty-column rescore: take
-            # that variant's inputs from cfg2's path, which rescores
+        if "score_round_dirty" not in seen:
+            # cfg5 placed everything before any dirty round: take that
+            # round's inputs from cfg2's path, which rescores
             run_session(2, scale, "cuda", "float32")
     finally:
         restore()
@@ -562,56 +569,22 @@ def kernel_phase(scale):
                      "bytes": byts, "bound_ms": byts / MEM_BPS * 1e3,
                      "bound_by": "bytes"}
     print(json.dumps({"group_rows": rows, "session": "cfg5 (warm)"}), flush=True)
-    missing = {"score_block", "window_topk"} - set(seen)
+    missing = {"score_round", "score_round_dirty", "window_topk"} - set(seen)
     if missing:
-        raise AssertionError(f"cfg5 path never called {sorted(missing)}")
+        raise AssertionError(f"cfg5 and cfg2 paths never called {sorted(missing)}")
     records = []
 
-    # K1, full and (when the path reached it) dirty-column
-    for key in ("score_block", "score_block_cols"):
-        if key not in seen:
-            log(f"kernel phase: {key} not reached on the cfg5 path")
-            continue
-        (spec, enc, idle, used, cnt, occ, out), kw = seen[key]
-        cols = kw.get("cols")
-        k_rows, n = enc["cls_req"].shape[0], idle.shape[0]
-        base = torch.full((k_rows, n), 7.0, dtype=idle.dtype, device=idle.device)
-        got = base.clone()
-        K.score_block(spec, enc, idle, used, cnt, occ, got, cols=cols)
-        block = K.score_block_plain(spec, enc, idle, used, cnt, occ, cols)
-        want = base.clone()
-        if cols is None:
-            want.copy_(block)
-        else:
-            want[:, cols.long()] = block
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            bad = (got != want).sum().item()
-            raise AssertionError(f"{key}: kernel != plain at {bad} cells")
-        m = n if cols is None else cols.shape[0]
-        dt = idle.dtype
-        r = idle.shape[1]
-        col_bytes = m * (3 * r * idle.element_size() + 8
-                         + enc["sig_mask"].shape[0] * (1 + idle.element_size()))
-        byts = nbytes(*(enc[x] for x in ("cls_req", "cls_initreq", "cls_sig",
-                                         "cls_nz_cpu", "cls_nz_mem",
-                                         "cls_has_pod"))) \
-            + col_bytes + k_rows * m * idle.element_size() \
-            + (0 if cols is None else nbytes(cols))
-        ops = k_rows * m * (30 + 12 * r)
-        scratch = base.clone()
-        ms = time_ms(lambda: K.score_block(spec, enc, idle, used, cnt, occ,
-                                           scratch, cols=cols))
-        plain_ms = time_ms(lambda: K.score_block_plain(spec, enc, idle, used,
-                                                       cnt, occ, cols))
-        records.append(dict(
-            name=key, kernel="score_block", route="cuda",
-            source="volcano_tpu_torch/csrc/score_block.cu",
-            replaces="volcano_tpu/ops/rounds.py:108" if cols is None
-            else "volcano_tpu/ops/rounds.py:168",
-            max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-            bytes=byts, ops=ops, dtype=dt, library_ms=None,
-            shape=f"K={k_rows} cols={m} N={n} R={r} ({src.get(key, 'cfg2')})"))
+    # K1's round entry on a full round (cfg5's first) and a dirty one
+    # (cfg2's); its full-refresh entry (K16a's) on the full round's state
+    for key in ("score_round", "score_round_dirty"):
+        args, _ = seen[key]
+        round_cases.hold_score_round(args, f"{key} ({src.get(key, 'cfg2')})")
+        records.append(score_round_record(key, args, src.get(key, "cfg2")))
+    spec, enc, idle, used, cnt, occ = seen["score_round"][0][:6]
+    got = torch.full_like(seen["score_round"][0][6], 7.0)
+    K.score_block(spec, enc, idle, used, cnt, occ, got)
+    same(_bits(got), _bits(K.score_block_plain(spec, enc, idle, used, cnt, occ)),
+         "score_block (full refresh, cfg5)")
 
     # K2, on the cfg5 capture, then on crafted rows and shapes
     (scores, k), _ = seen["window_topk"]
@@ -643,6 +616,61 @@ def kernel_phase(scale):
     for rec in records:
         finish_record(rec)
     return records
+
+
+def score_round_bytes(args):
+    """(bytes, operations, columns rescored) of one K1 round launch: the
+    class rows, eps, is_scalar, binpack_w and the weights read once; a
+    rescored column's idle, used and alloc rows, cnt and nmax, and its
+    sig_mask and affinity entries for the signatures (and occupancy for
+    the exclusion groups) the class rows use, read once, its K scores
+    written; a clean column's dirty flag and K carried scores read; the
+    dirty count read and the K counts written."""
+    from volcano_tpu_torch.ops import kernels as K
+
+    spec, enc, idle, used, cnt, occ, scores, dirty, n_dirty, n_feas = args[:10]
+    k, n = scores.shape
+    r, esz = idle.shape[1], idle.element_size()
+    full = K.round_is_full(spec, int(n_dirty))
+    m = n if full else int(dirty.sum())
+    sigs = int(torch.unique(enc["cls_sig"]).numel())
+    groups = int(torch.unique(enc["cls_excl"][enc["cls_excl"] >= 0]).numel()) \
+        if spec.use_exclusion else 0
+    col = 3 * r * esz + 8 + sigs * (1 + esz) + groups + k * esz
+    rows = nbytes(*(enc[x] for x in ("cls_req", "cls_initreq", "cls_sig", "cls_nz_cpu",
+                                     "cls_nz_mem", "cls_has_pod", "eps", "is_scalar",
+                                     "binpack_w")))
+    rows += 4 * esz + (nbytes(enc["cls_excl"]) if spec.use_exclusion else 0)
+    clean = 0 if full else (n - m) * (1 + k * esz) + m
+    return rows + m * col + clean + 4 + 4 * k, k * m * K1_OPS(r), m
+
+
+def score_round_record(name, args, src):
+    """The kernels-line record of K1's round entry on ``args``: the launch
+    timed 20 calls in a CUDA graph, the plain version once."""
+    from volcano_tpu_torch.ops import kernels as K
+
+    spec, enc, idle, used, cnt, occ, scores, dirty, n_dirty, n_feas = args[:10]
+    s_t, f_t = scores.clone(), n_feas.clone()
+    acc = torch.zeros(n_feas.shape[0] + 1, dtype=torch.int32, device=scores.device)
+    weights = K.score_weights(enc)
+    ms = graph_ms(lambda: K.score_round(spec, enc, idle, used, cnt, occ, s_t, dirty,
+                                        n_dirty, f_t, weights, acc))
+    wrapper_ms = host_ms(lambda: K.score_round(spec, enc, idle, used, cnt, occ, s_t,
+                                               dirty, n_dirty, f_t, weights, acc))
+    s_p, f_p = scores.clone(), n_feas.clone()
+    _, plain_ms = timed_plain(lambda: K.score_round_plain(spec, enc, idle, used, cnt, occ,
+                                                          s_p, dirty, n_dirty, f_p))
+    byts, ops, m = score_round_bytes(args)
+    k, n = scores.shape
+    return dict(
+        name=name, kernel="score_round", route="cuda",
+        source="volcano_tpu_torch/csrc/score_block.cu",
+        replaces="volcano_tpu/ops/rounds.py:708", max_abs_err=0.0,
+        ms=ms, host_ms=wrapper_ms, plain_ms=plain_ms, bytes=byts, ops=ops,
+        dtype=idle.dtype, library_ms=None, launch_path=5,
+        shape=f"{src} {'full' if m == n else 'dirty'} round: K={k} N={n} R={idle.shape[1]}, "
+              f"{m} columns rescored (dirty_k {spec.dirty_k}); 20 calls in a graph")
 
 
 def window_times(scores, k):
@@ -1135,7 +1163,7 @@ def reference_check():
                           "evicts": len(gpu.evictor.evicts)}), flush=True)
 
 
-ALLOC_KERNELS = ("score_block", "window_topk", "resolve_prefix", "queue_budget",
+ALLOC_KERNELS = ("score_round", "window_topk", "resolve_prefix", "queue_budget",
                  "queue_budget_mask", "rounds_ctl", "round_select", "round_commit",
                  "cap_walk", "job_rank", "job_rank_count")
 EVICT_KERNELS = ("evict_preempt", "evict_reclaim", "evict_backfill")
@@ -1439,6 +1467,13 @@ def rounds_loop_phase():
         capped, tail_placed = bool(raw[4]), int(raw[2])
         if launch["rounds_ctl"] < 2 or launch["tail_pass"] != int(capped):
             raise AssertionError(f"K7 cfg{cfg}: launches {launch}")
+        # K7a once a pass of the graph's loop (the steps and the last
+        # pass, as many as the host run's controller calls: the IF nodes
+        # it set ran the host run's steps), K1 once a round
+        if launch["rounds_ctl"] != len(seen["ctl"]) or launch["score_round"] != int(raw[1]):
+            raise AssertionError(f"K7 cfg{cfg}: {launch['rounds_ctl']} K7a launches for "
+                                 f"{len(seen['ctl'])} controller calls, "
+                                 f"{launch['score_round']} K1 for {int(raw[1])} rounds")
         if cfg == 6:
             if not capped or tail_placed <= 0 or seen["tail"] is None:
                 raise AssertionError(f"K7 cfg6: must cap and place in the tail "
@@ -1478,6 +1513,11 @@ def rounds_loop_phase():
     c0, params0 = ctl_inputs[len(ctl_inputs) // 2]
     ctl = torch.tensor(c0, dtype=torch.int32, device=dev)
     pred = torch.zeros(RK.NPRED, dtype=torch.bool, device=dev)
+    # a launch's device time, 20 in a CUDA graph (the fold repeated on the
+    # same vector), beside the eager launch the record keeps
+    print(json.dumps({"kernel": "rounds_ctl", "card": CARD, "graph_ms": graph_ms(
+        lambda: RK.rounds_ctl(ctl, pred, params0))}), flush=True)
+    ctl.copy_(torch.tensor(c0, dtype=torch.int32))
     ctl_rec = dict(
         name="rounds_ctl", kernel="rounds_ctl", route="cuda",
         source="volcano_tpu_torch/csrc/rounds_ctl.cu",
@@ -1626,10 +1666,13 @@ def round_kernel_records(recorded):
     from volcano_tpu_torch.bench import round_cases
     from volcano_tpu_torch.ops import rounds_kernels as RK
 
-    held = {"select": 0, "commit": 0, "rollback": 0}
+    held = {"select": 0, "commit": 0, "rollback": 0, "score": 0}
     for cfg, seen in recorded.items():
-        if not seen["select"] or not seen["commit"]:
-            raise AssertionError(f"K7 cfg{cfg}: no select or commit call recorded")
+        if not seen["select"] or not seen["commit"] or not seen["score"]:
+            raise AssertionError(f"K7 cfg{cfg}: no score, select or commit call recorded")
+        for i, (args, _) in enumerate(seen["score"]):
+            round_cases.hold_score_round(args, f"cfg{cfg} round {i}")
+            held["score"] += 1
         for i, (args, kw) in enumerate(seen["select"]):
             hold_select(args, kw, f"cfg{cfg} call {i}")
             held["select"] += 1
@@ -1719,6 +1762,10 @@ def round_kernel_records(recorded):
               f"{placed} accepted; {held['commit']} recorded commits, "
               f"{held['rollback']} recorded rollbacks and "
               f"{2 * len(round_cases.COMMIT_CASES) + 1} crafted held equal (plain on the CPU)"))
+    # K1's round entry at cfg6's K = 512 (its first round)
+    k512 = score_round_record("score_round_k512", recorded[6]["score"][0][0], "cfg6")
+    k512["shape"] += f"; {held['score']} recorded rounds of cfg{ROUND_KERNEL_CFGS} held equal"
+    recs.append(k512)
     recs += acceptance_records(recorded)
     recs += walk_rank_records(recorded)
     for rec in recs:

@@ -133,9 +133,19 @@ def test_score_block_matches_reference(seed, flags, gathered):
     k = enc["cls_req"].shape[0]
     base = np.full((k, n), 123.0)
     out = torch.from_numpy(base.copy())
-    tkernels.score_block(tspec, te, ts["idle"], ts["used"], ts["cnt"],
-                         ts["occ"], out,
-                         cols=torch.from_numpy(cols) if gathered else None)
+    if gathered:
+        # the round's entry on a dirty round: the columns of the list (the
+        # padding's column 0 among them) marked dirty, within the budget
+        dirty = torch.zeros(n, dtype=torch.bool)
+        dirty[torch.from_numpy(cols).long()] = True
+        n_feas = torch.zeros(k, dtype=torch.int32)
+        tkernels.score_round(tspec._replace(dirty_k=len(cols)), te, ts["idle"],
+                             ts["used"], ts["cnt"], ts["occ"], out, dirty,
+                             dirty.sum().to(torch.int32), n_feas)
+        assert torch.equal(n_feas, (out > float("-inf")).sum(-1).to(torch.int32))
+    else:
+        tkernels.score_block(tspec, te, ts["idle"], ts["used"], ts["cnt"],
+                             ts["occ"], out)
     got = out.numpy()
     np.testing.assert_array_equal(got[:, cols], ref)
     untouched = np.ones(n, bool)

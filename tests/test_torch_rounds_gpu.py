@@ -1,4 +1,5 @@
-"""K7 on a CUDA card: K7a (``rounds_ctl``), K7b (``tail_pass``), K3
+"""K7 on a CUDA card: K1's round entry (``score_round``), K7a
+(``rounds_ctl``, and the graph's layout around it), K7b (``tail_pass``), K3
 (``round_select``, with K6's ranks), K2b (``cap_walk``), K6's job ranks
 (``job_rank``), K4 (``resolve_prefix``), K5 (``queue_budget``) and K7c
 (``round_commit``) against their plain versions, and the graph-replayed
@@ -12,7 +13,7 @@ This file imports nothing of JAX, so it runs where the card is:
 
 Without a card its tests skip. Tolerance: exact equality (torch.equal)
 of every state tensor, the control vector, the predicates and the packed
-result; K7c's float state by its bits (-0.0 is not +0.0). K7c's plain
+result; K7c's and K1's float state by its bits (-0.0 is not +0.0). K7c's plain
 version runs on CPU copies of the inputs, on one thread: its serial CPU
 semantics (each row's float updates added one after another in task
 order, to the row's value, as XLA's scatter adds them) are the ones the
@@ -25,6 +26,7 @@ import pytest
 import torch
 
 from volcano_tpu_torch.bench import round_cases as RC
+from volcano_tpu_torch.ops import kernels as tkernels
 from volcano_tpu_torch.ops import rounds as trounds
 from volcano_tpu_torch.ops import rounds_kernels as RK
 
@@ -116,14 +118,35 @@ def test_gpu_controller_and_tail_kernels_equal_plain(dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("cfg,scale,capped", [(2, 0.2, False), (6, 0.3, True)])
 def test_gpu_graph_replay_equals_host_loop(cfg, scale, capped):
+    """The graph solve (K7a first in each pass of its WHILE body, setting
+    the step kinds' IF nodes) equals the host-driven machine, and runs
+    K7a once a pass (the host run's controller calls) and K1 once a
+    round."""
+    from volcano_tpu_torch import device as devmod
+    from volcano_tpu_torch.utils import devprof
+
     _cuda()
     spec, enc = prepared(cfg, scale, device="cuda", dtype="float32")
     if capped:
         spec = spec._replace(round_min_progress=40, straggler_rounds=2)
-    host = trounds.solve_rounds_packed(spec, enc, loop="host")
-    for _ in range(2):
+    calls = []
+    real = RK._ctl_fold_decide
+    RK._ctl_fold_decide = lambda c, params: calls.append(1) or real(c, params)
+    try:
+        raw_h, host = trounds.solve(spec, enc, loop="host")
+    finally:
+        RK._ctl_fold_decide = real
+    for warm in (False, True):
+        # the first solve captures the graph (its eager pass launches too)
+        devmod.reset_launches()
         got = trounds.solve_rounds_packed(spec, enc)
+        devprof.fetch(got)
         assert torch.equal(got, host)
+        launches = devmod.launches()
+        if warm:
+            assert launches["rounds_ctl"] == len(calls)
+            assert launches["score_round"] == int(raw_h[1])
+            assert launches["score_block"] == 0
 
 
 def _to(x, device):
@@ -198,6 +221,140 @@ def test_gpu_round_kernels_equal_plain_on_recorded_rounds(cfg, scale, dtype):
         assert_walk_equal(args, f"cfg{cfg} walk {i}")
     for i, (args, _) in enumerate(seen["ranks"]):
         assert_rank_equal(args, f"cfg{cfg} ranks {i}")
+
+
+def _crafted_dirty(args, how):
+    """A recorded round's call with its dirty set, dirty count or budget
+    replaced: column 0 clean or dirty, no dirty column, the count at or
+    past the budget, no dirty path (dirty_k 0), every column dirty."""
+    spec, enc, idle, used, cnt, occ, scores, dirty, n_dirty, *rest = RC._clone(args)
+    n = dirty.shape[0]
+    g = torch.Generator().manual_seed(len(how))
+    budget = max(spec.dirty_k, 8)
+    want = {"col0-clean": budget // 2, "col0-dirty": budget // 2, "none": 0,
+            "at-budget": budget, "past-budget": budget + 1, "no-dirty-path": budget // 2,
+            "all": n}[how]
+    pick = torch.randperm(n - 1, generator=g)[:min(want, n - 1)] + 1
+    mask = torch.zeros(n, dtype=torch.bool)
+    mask[pick] = True
+    if how in ("col0-dirty", "all", "no-dirty-path") or want > n - 1:
+        mask[0] = True
+    dirty.copy_(mask)
+    n_dirty.fill_(int(mask.sum()))
+    spec = spec._replace(dirty_k=0 if how == "no-dirty-path" else
+                         (n if how == "all" else budget))
+    return (spec, enc, idle, used, cnt, occ, scores, dirty, n_dirty, *rest)
+
+
+DIRTY_SETS = ("col0-clean", "col0-dirty", "none", "at-budget", "past-budget",
+              "no-dirty-path", "all")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("cfg,scale", [(2, 0.2), (5, 0.05), (6, 0.3)])
+def test_gpu_score_round_equals_plain_on_recorded_rounds(cfg, scale, dtype):
+    """K1's round entry on every round of a host-driven solve (full rounds
+    and dirty ones), then on crafted dirty sets around one of them."""
+    _cuda()
+    spec, enc = prepared(cfg, scale, device="cuda", dtype=dtype)
+    seen = RC.record_solve(spec, enc, limit=24, kinds=("score",))
+    assert seen["score"]
+    for i, (args, _) in enumerate(seen["score"]):
+        RC.hold_score_round(args, f"cfg{cfg} round {i}")
+    args = seen["score"][-1][0]
+    for how in DIRTY_SETS:
+        RC.hold_score_round(_crafted_dirty(args, how), f"cfg{cfg} {how}")
+
+
+@pytest.mark.gpu
+def test_gpu_score_round_repeats_and_replays_in_a_graph():
+    """The count scratch is reused launch after launch with no memset (the
+    last CTA zeroes it): eager launches in a row, then a CUDA graph of one
+    launch replayed on new state and dirty sets copied in, each equal to
+    the plain version."""
+    _cuda()
+    spec, enc = prepared(6, 0.3, device="cuda", dtype="float32")
+    seen = RC.record_solve(spec, enc, limit=3, kinds=("score",))
+    args = _crafted_dirty(seen["score"][-1][0], "col0-dirty")
+    for _ in range(3):
+        RC.hold_score_round(args, "eager")
+    spec, enc, idle, used, cnt, occ, scores, dirty, n_dirty, n_feas = args[:10]
+    ins = RC._clone((idle, used, cnt, scores, dirty, n_dirty))
+    acc = torch.zeros(n_feas.shape[0] + 1, dtype=torch.int32, device="cuda")
+    out_feas = torch.zeros_like(n_feas)
+    weights = tkernels.score_weights(enc)
+    run = ins[3].clone()
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        with torch.cuda.graph(graph, stream=stream):
+            tkernels.score_round(spec, enc, ins[0], ins[1], ins[2], occ, run, ins[4],
+                                 ins[5], out_feas, weights, acc)
+    torch.cuda.current_stream().wait_stream(stream)
+    g = torch.Generator().manual_seed(3)
+    for i in range(4):
+        ins[0].copy_(idle * (0.5 + 0.25 * i))
+        mask = (torch.rand(dirty.shape, generator=g) < (0.05 if i % 2 else 0.5)).cuda()
+        ins[4].copy_(mask)
+        ins[5].fill_(int(mask.sum()))
+        run.copy_(scores)
+        graph.replay()
+        torch.cuda.synchronize()
+        want_s, want_f = scores.clone(), torch.zeros_like(n_feas)
+        tkernels.score_round_plain(spec, enc, ins[0], ins[1], ins[2], occ, want_s,
+                                   ins[4], ins[5], want_f)
+        assert RC.bit_equal(run, want_s), i
+        assert torch.equal(out_feas, want_f), i
+        assert not acc.any(), i
+
+
+@pytest.mark.gpu
+def test_gpu_score_round_raises_instead_of_falling_back():
+    """A CUDA tensor K1's round entry does not take raises; nothing runs
+    the plain version instead."""
+    _cuda()
+    spec, enc = prepared(2, 0.2, device="cuda", dtype="float32")
+    seen = RC.record_solve(spec, enc, limit=1, kinds=("score",))
+    spec, enc, idle, used, cnt, occ, scores, dirty, n_dirty, n_feas = seen["score"][0][0][:10]
+    with pytest.raises(TypeError):
+        tkernels.score_round(spec, enc, idle, used, cnt, occ, scores, dirty, n_dirty,
+                             n_feas.to(torch.int64))
+    with pytest.raises(TypeError):
+        tkernels.score_round(spec, enc, idle, used, cnt, occ, scores, dirty.to(torch.int32),
+                             n_dirty, n_feas)
+    with pytest.raises(ValueError):
+        tkernels.score_round(spec, enc, idle, used, cnt, occ, scores, dirty, n_dirty,
+                             n_feas, scratch=torch.zeros(3, dtype=torch.int32, device="cuda"))
+    with pytest.raises(ValueError):
+        tkernels.score_round(spec, enc, idle, used, cnt, occ, scores[:, :-1].contiguous(),
+                             dirty, n_dirty, n_feas)
+
+
+@pytest.mark.gpu
+def test_gpu_graph_round_has_one_k1_launch_and_two_control_kernels():
+    """A warm cfg2 graph replay under the profiler, as bench/round_split.py
+    reads it: K1's group is its kernel alone, once a round (no sort of the
+    dirty columns, no stack of the weights, no count of the feasible
+    columns beside it), and a round step runs at most two one-thread
+    kernels: K7a, once a pass of the loop, and the coverage fallback's
+    setter."""
+    from volcano_tpu_torch.bench import round_split
+
+    _cuda()
+    rec = round_split.split_config(2, 0.2, "test")
+    assert rec["profiler_device_time"], "the profiler recorded no device time"
+    rounds = rec["rounds"]
+    assert rounds > 1 and rec["graph_equals_host"]
+    for side in ("graph_split", "host_run_split"):
+        k1 = rec[side]["K1"]
+        assert set(k1) == {"kernel"}, (side, k1)
+        assert abs(k1["kernel"][0] - 1.0) < 1e-9, (side, k1)
+    control = rec["graph_control_kernels"]
+    assert set(control) <= {"rounds_ctl", "set_cond"}
+    assert control.get("set_cond", 0) <= rounds, control
+    assert control["rounds_ctl"] > rounds, control
 
 
 def assert_walk_equal(args, what):

@@ -66,6 +66,31 @@ def test_probes_equal_plain_on_the_card(cfg, scale, shards, dtype):
     assert torch.equal(count, shard.probe_evict_fold_plain(*fold))
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("cfg,scale", [(2, 0.2), (5, 0.1), (6, 0.2)])
+def test_full_refresh_equals_plain_on_the_card(cfg, scale, dtype):
+    """K1's full-refresh entry (the one K16a repeats) on one shard's slice:
+    every cell equal to the plain version's, by its bits, with the plugin
+    weights built by the entry and passed in."""
+    from volcano_tpu_torch.bench.round_cases import bit_equal
+    from volcano_tpu_torch.ops import kernels
+
+    _cuda()
+    spec, arrays = _prepared(cfg, scale, dtype)
+    _, enc, _ = shard.stage_probe(arrays, _NODE_AXIS, 3, device="cuda", dtype=dtype)
+    occ = enc.get("excl_occ0") if spec.use_exclusion else None
+    args = (spec, enc, enc["node_idle"], enc["node_used"], enc["node_cnt"], occ)
+    want = kernels.score_block_plain(*args)
+    for weights in (None, kernels.score_weights(enc)):
+        got = torch.full_like(want, 7.0)
+        devmod.reset_launches()
+        kernels.score_block(*args, got, weights=weights)
+        torch.cuda.synchronize()
+        assert devmod.launches()["score_block"] == 1
+        assert bit_equal(got, want), int((got != want).sum())
+
+
 def _fold(w, v, r, seed, dtype):
     rng = np.random.default_rng(seed)
     q = 5

@@ -1,4 +1,5 @@
-"""Inputs of the round's select (K3, ``round_select``), its capacity walk
+"""Inputs of the round's scoring (K1's round entry, ``score_round``, recorded
+only), its select (K3, ``round_select``), its capacity walk
 (K2b, ``cap_walk``), its job ranks (K6, ``job_rank``), its acceptance
 scans (K4 ``resolve_prefix``, K5 ``queue_budget``) and of K7c, the
 round's commit (``round_commit``) and the rollback's undo
@@ -75,20 +76,42 @@ def bit_equal(a, b) -> bool:
     return not a.is_floating_point() or torch.equal(torch.signbit(a), torch.signbit(b))
 
 
+def hold_score_round(args, what: str) -> None:
+    """K1's round entry (``kernels.score_round``) on a recorded call's
+    ``args`` against its plain version, each on its own copy of the
+    carried scores and counts: the scores by their bits, the counts
+    exactly, and the count scratch left zero. Raises AssertionError."""
+    from volcano_tpu_torch.ops import kernels as K
+
+    spec, enc, idle, used, cnt, occ, scores, dirty, n_dirty, n_feas = args[:10]
+    s_k, f_k = scores.clone(), torch.full_like(n_feas, -5)
+    acc = torch.zeros(n_feas.shape[0] + 1, dtype=torch.int32, device=scores.device)
+    K.score_round(spec, enc, idle, used, cnt, occ, s_k, dirty, n_dirty, f_k, scratch=acc)
+    s_p, f_p = scores.clone(), torch.full_like(n_feas, -5)
+    K.score_round_plain(spec, enc, idle, used, cnt, occ, s_p, dirty, n_dirty, f_p)
+    if not bit_equal(s_k, s_p):
+        raise AssertionError(f"score_round scores != plain at {int((s_k != s_p).sum())} "
+                             f"cells: {what}")
+    if not torch.equal(f_k, f_p):
+        raise AssertionError(f"score_round n_feas {f_k.tolist()} != {f_p.tolist()}: {what}")
+    if acc.any():
+        raise AssertionError(f"score_round left its scratch non-zero: {what}")
+
+
 # the recorded kernels of the rounds module, by kind
-RECORDED = {"select": "round_select", "commit": "round_commit",
+RECORDED = {"score": "score_round", "select": "round_select", "commit": "round_commit",
             "rollback": "round_rollback", "resolve": "resolve_prefix",
             "budget": "queue_budget", "walk": "cap_walk", "ranks": "job_rank"}
 
 
 @contextlib.contextmanager
 def recording(limit=None, kinds=tuple(RECORDED)):
-    """While open, every call of the rounds module's ``round_select``,
-    ``round_commit``, ``round_rollback``, ``resolve_prefix``,
-    ``queue_budget``, ``cap_walk`` and ``job_rank`` (those of ``kinds``)
-    keeps a copy of its inputs (at most ``limit`` of each): yields
-    {"select": [(args, kwargs)], "commit": [...], ..., "walk": [...],
-    "ranks": [...]}."""
+    """While open, every call of the rounds module's ``score_round``,
+    ``round_select``, ``round_commit``, ``round_rollback``,
+    ``resolve_prefix``, ``queue_budget``, ``cap_walk`` and ``job_rank``
+    (those of ``kinds``) keeps a copy of its inputs (at most ``limit`` of
+    each): yields {"score": [(args, kwargs)], "select": [...], ...,
+    "walk": [...], "ranks": [...]}."""
     names = {kind: RECORDED[kind] for kind in kinds}
     seen = {kind: [] for kind in names}
     real = {kind: getattr(R, name) for kind, name in names.items()}

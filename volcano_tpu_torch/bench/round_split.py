@@ -7,7 +7,8 @@ solver's own encode:
 
 1. A solve by the host-driven step machine (``loop="host"``: the same round
    body, launched eagerly) under ``torch.profiler``, with a range around
-   each node group: K1 (``score_block``, ``_rescore_dirty``), K2
+   each node group: K1 (``score_round``; the parent's ``score_block``,
+   ``_rescore_dirty``), K2
    (``window_topk``), the ranks (K6 ``job_rank``), the capacity walk (K2b
    ``cap_walk``, with the cover's argsort and gather), the select (K3),
    ``_resolve`` (its sort and K4), ``_queue_budget`` (its sort and K5),
@@ -59,7 +60,7 @@ MEM_BPS = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 # each group owns (the parent's torch-op functions and this tree's kernel
 # wrappers both named, so one profile reads either tree)
 GROUPS = (
-    ("K1", ("score_block", "_rescore_dirty")),
+    ("K1", ("score_round", "score_block", "_rescore_dirty")),
     ("K2", ("window_topk",)),
     ("ranks (K6)", ("_job_rank", "_rank_in_class", "_excl_grank")),
     ("capacity walk (K2b)", ("_cap_walk", "_nominate_full")),
@@ -76,6 +77,8 @@ KERNEL_NAMES = (
     ("queue_budget", "queue budget + K5"), ("round_select", "select (K3)"),
     ("cap_walk", "capacity walk (K2b)"), ("job_rank", "ranks (K6)"),
 )
+# the one-thread control kernels (K7a, the condition setters), by name
+CONTROL = ("rounds_ctl", "set_cond")
 CFGS = (2, 5)
 # a kernel's kind within its group, by a substring of its name
 HANDWRITTEN = ("resolve_prefix", "queue_budget", "round_select", "round_commit",
@@ -315,6 +318,17 @@ def _label_graph(graph_kernels, host_seq):
             for i, k in enumerate(graph_kernels)]
 
 
+def control_kernels(kernels) -> dict:
+    """The one-thread control kernels among ``kernels`` (dicts with a
+    name), counted by the CONTROL substring they carry."""
+    out = {}
+    for k in kernels:
+        key = next((c for c in CONTROL if c in k["name"]), None)
+        if key is not None:
+            out[key] = out.get(key, 0) + 1
+    return out
+
+
 def _busy(kernels):
     """The union of the kernels' intervals (us)."""
     busy, end = 0.0, None
@@ -385,7 +399,12 @@ def split_config(cfg, scale, card):
     for (lab, name), (n, ms) in sorted(by_name.items(), key=lambda x: -x[1][1]):
         if len(host_top.setdefault(lab, [])) < 4:
             host_top[lab].append([name, n, ms])
-    # the graph: capture (cold), warm, then a profiled warm solve
+    # the graph: capture (cold), warm, then a profiled warm solve. The
+    # capture comes after the profiler's first run in this process: on an
+    # H100 under CUDA 12.8 the trace of a graph captured before it lacks
+    # the WHILE body's passes after the first, so a graph this bucket
+    # already had is dropped
+    rounds_graph._GRAPHS.pop(rounds_graph.graph_key(spec, enc), None)
     packed = R.solve(spec, enc)[1]
     devprof.fetch(packed)
     graph = rounds_graph._GRAPHS[rounds_graph.graph_key(spec, enc)]
@@ -429,6 +448,7 @@ def split_config(cfg, scale, card):
     busy = _busy(replay) / 1e3 if replay else None
     round_kernels = sum(v["kernels"] for lab, v in graph_groups.items()
                         if lab in dict(GROUPS) or lab == "commit")
+    control = control_kernels(replay)
     rec = {
         "kernel_profile": "k7", "config": cfg, "scale": scale, "card": card,
         "T": enc["task_cls"].shape[0], "N": enc["node_idle"].shape[0],
@@ -441,6 +461,10 @@ def split_config(cfg, scale, card):
         "replay_idle_share": (1 - busy / span) if span else None,
         "graph_kernels": len(replay),
         "graph_round_kernels_a_round": round_kernels / rounds,
+        # the one-thread control kernels: K7a's (one a pass of the WHILE
+        # body, the steps + 1) and the condition setters
+        "graph_control_kernels": control,
+        "graph_control_kernels_a_pass": sum(control.values()) / max(control.get("rounds_ctl", 0), 1),
         "graph_ms_a_round": {lab: v["device_ms"] / rounds for lab, v in graph_groups.items()},
         "graph": graph_groups,
         "host_run_ms_a_round": {lab: v["device_ms"] / rounds for lab, v in host_groups.items()},
@@ -506,6 +530,9 @@ def compare(paths) -> int:
                 c = f"cfg{rec['config']}"
                 keys.append((f"{c} warm graph solve ms", rec["warm_solve_ms"]))
                 keys.append((f"{c} graph kernels a round", rec["graph_round_kernels_a_round"]))
+                if "graph_control_kernels" in rec:
+                    keys.append((f"{c} graph control kernels a pass",
+                                 rec["graph_control_kernels_a_pass"]))
                 keys.append((f"{c} replay idle share", rec["replay_idle_share"]))
                 for lab, v in rec["graph_ms_a_round"].items():
                     keys.append((f"{c} graph ms a round: {lab}", v))

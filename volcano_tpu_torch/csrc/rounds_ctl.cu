@@ -14,17 +14,26 @@
 // still active, next dirty count, full sweep, rollback candidate) into the
 // loop state, then walks the phases (outer test, inner rounds, straggler set-up
 // and rounds, tail, done) until it picks the next step, and writes the
-// step's predicates. Inside the solve's CUDA graph the steps run under a
-// WHILE node whose body gates each step kind with IF nodes; this kernel's
-// `_while` entry also sets the WHILE node's condition (a step is pending).
+// step's predicates.
 //
-// The conditional nodes are created here too (`vt_cond_begin` /
-// `vt_cond_end`): PyTorch on the card has no conditional-node capture, so
-// the wrapper asks the runtime for the capturing graph of the current
-// stream, adds an IF or WHILE node behind a one-thread kernel that copies a
-// bool predicate from device memory into the node's handle, and starts
+// Inside the solve's CUDA graph the steps run under a WHILE node whose body
+// is this kernel's `_graph` entry followed by three IF nodes, one a kind of
+// step (round, rollback, tail): the kernel folds the previous step (or the
+// head's PH_INIT), decides this one, sets the three IF nodes' conditions
+// (handles of its own body graph, downstream of it) and the WHILE node's
+// (a step was chosen; when none was, the IFs are false and the loop ends
+// after this pass), and bumps the graph's hit counters. The WHILE handle
+// starts each replay at its default, 1. So a pass has one control kernel;
+// a round adds one more, the setter of its coverage fallback's IF node.
+//
+// The conditional nodes are made here too: PyTorch on the card has no
+// conditional-node capture, so the wrapper asks the runtime for the
+// capturing graph of the current stream and creates a handle on it
+// (`vt_cond_handle`), adds an IF or WHILE node on a handle and starts
 // capturing a second stream (one of `vt_stream_create`'s) into the node's
-// body graph.
+// body graph (`vt_cond_node`, ended by `vt_cond_end`); `vt_cond_set`
+// captures a one-thread kernel that copies a bool predicate from device
+// memory into a handle (the coverage fallback's, which K3 decides).
 //
 // A solve's dispatch is one call here, so that it holds the host as short
 // a time as can be: `vt_launch` copies every input of the solve into the
@@ -42,6 +51,13 @@
 #include <stdint.h>
 
 #include "rounds_ctl.cuh"
+
+// the graph's handles and hit counters a K7a pass sets (rounds_kernels.py
+// _GraphCtl); at file scope, so the C entry taking it keeps external linkage
+struct GraphCtl {
+  unsigned long long h_while, h_round, h_rollback, h_tail;
+  int32_t* hits;
+};
 
 namespace {
 
@@ -149,16 +165,33 @@ __global__ void rounds_ctl_kernel(int32_t* ctl, uint8_t* pred, CtlArgs a) {
   ctl_step(ctl, pred, a);
 }
 
-// the same step inside the WHILE node's body: the node runs again while a
-// step is pending
-__global__ void rounds_ctl_while_kernel(int32_t* ctl, uint8_t* pred, CtlArgs a,
-                                        cudaGraphConditionalHandle h) {
+// the graph's hit counters (ops/rounds.py BODIES; rounds_kernels.H_*)
+enum { H_STEP, H_ROUND, H_COVER, H_ROLLBACK, H_TAIL };
+
+
+// the same step as the first node of the WHILE node's body: the step's IF
+// nodes and the WHILE node run on what it decides
+__global__ void rounds_ctl_graph_kernel(int32_t* ctl, uint8_t* pred, CtlArgs a,
+                                        GraphCtl g) {
   ctl_step(ctl, pred, a);
-  cudaGraphSetConditional(h, pred[P_ACTIVE] ? 1u : 0u);
+  cudaGraphSetConditional((cudaGraphConditionalHandle)g.h_round, pred[P_ROUND] ? 1u : 0u);
+  cudaGraphSetConditional((cudaGraphConditionalHandle)g.h_rollback,
+                          pred[P_ROLLBACK] ? 1u : 0u);
+  cudaGraphSetConditional((cudaGraphConditionalHandle)g.h_tail, pred[P_TAIL] ? 1u : 0u);
+  cudaGraphSetConditional((cudaGraphConditionalHandle)g.h_while, pred[P_ACTIVE] ? 1u : 0u);
+  g.hits[H_STEP] += 1;
+  g.hits[H_ROUND] += pred[P_ROUND];
+  g.hits[H_ROLLBACK] += pred[P_ROLLBACK];
+  g.hits[H_TAIL] += pred[P_TAIL];
 }
 
-__global__ void set_cond_kernel(cudaGraphConditionalHandle h, const uint8_t* v) {
-  cudaGraphSetConditional(h, *v ? 1u : 0u);
+// a condition from a bool in device memory; `hits`, when given, counts
+// the times it was true
+__global__ void set_cond_kernel(cudaGraphConditionalHandle h, const uint8_t* v,
+                                int32_t* hits) {
+  const bool on = *v != 0;
+  cudaGraphSetConditional(h, on ? 1u : 0u);
+  if (hits != nullptr && on) *hits += 1;
 }
 
 cudaError_t capture_info(cudaStream_t s, cudaGraph_t* g, const cudaGraphNode_t** deps,
@@ -184,38 +217,52 @@ extern "C" int rounds_ctl(void* ctl, void* pred, int budget, int rmp, int sr,
   return (int)cudaGetLastError();
 }
 
-extern "C" int rounds_ctl_while(void* ctl, void* pred, int budget, int rmp, int sr,
-                                int dirty_k, int n_nodes, int max_steps,
-                                unsigned long long handle, void* stream) {
+extern "C" int rounds_ctl_graph(void* ctl, void* pred, int budget, int rmp, int sr,
+                                int dirty_k, int n_nodes, int max_steps, const GraphCtl* g,
+                                void* stream) {
   CtlArgs a{budget, rmp, sr, dirty_k, n_nodes, max_steps};
-  rounds_ctl_while_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(
-      (int32_t*)ctl, (uint8_t*)pred, a, (cudaGraphConditionalHandle)handle);
+  rounds_ctl_graph_kernel<<<1, 1, 0, (cudaStream_t)stream>>>((int32_t*)ctl, (uint8_t*)pred,
+                                                             a, *g);
   return (int)cudaGetLastError();
 }
 
-// Add a conditional node (kind 0: IF, 1: WHILE) to the graph `stream` is
-// capturing, behind a kernel that loads its condition from the bool at
-// `pred`; start capturing `body` into the node's body graph. The node's
-// handle goes to *handle_out (the WHILE body's last kernel sets it).
-extern "C" int vt_cond_begin(void* stream, void* body, const void* pred, int kind,
-                             unsigned long long* handle_out) {
+// A conditional handle on the graph `stream` is capturing, reset to
+// `value` at each launch of that graph.
+extern "C" int vt_cond_handle(void* stream, unsigned value, unsigned long long* handle_out) {
+  cudaGraph_t g;
+  const cudaGraphNode_t* deps;
+  size_t n;
+  cudaError_t e = capture_info((cudaStream_t)stream, &g, &deps, &n);
+  if (e != cudaSuccess) return (int)e;
+  cudaGraphConditionalHandle h;
+  e = cudaGraphConditionalHandleCreate(&h, g, value, cudaGraphCondAssignDefault);
+  if (e != cudaSuccess) return (int)e;
+  *handle_out = (unsigned long long)h;
+  return 0;
+}
+
+// Capture, on `stream`, a kernel that sets `handle` from the bool at
+// `pred` (and bumps the int32 at `hits` when it is true, unless null).
+extern "C" int vt_cond_set(void* stream, unsigned long long handle, const void* pred,
+                           void* hits) {
+  set_cond_kernel<<<1, 1, 0, (cudaStream_t)stream>>>((cudaGraphConditionalHandle)handle,
+                                                     (const uint8_t*)pred, (int32_t*)hits);
+  return (int)cudaGetLastError();
+}
+
+// Add a conditional node (kind 0: IF, 1: WHILE) on `handle` to the graph
+// `stream` is capturing, behind what it captured so far, and start
+// capturing `body` into the node's body graph.
+extern "C" int vt_cond_node(void* stream, void* body, unsigned long long handle, int kind) {
   cudaStream_t s = (cudaStream_t)stream;
   cudaGraph_t g;
   const cudaGraphNode_t* deps;
   size_t n;
   cudaError_t e = capture_info(s, &g, &deps, &n);
   if (e != cudaSuccess) return (int)e;
-  cudaGraphConditionalHandle h;
-  e = cudaGraphConditionalHandleCreate(&h, g, 0, 0);
-  if (e != cudaSuccess) return (int)e;
-  set_cond_kernel<<<1, 1, 0, s>>>(h, (const uint8_t*)pred);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  e = capture_info(s, &g, &deps, &n);
-  if (e != cudaSuccess) return (int)e;
   cudaGraphNodeParams params = {};
   params.type = cudaGraphNodeTypeConditional;
-  params.conditional.handle = h;
+  params.conditional.handle = (cudaGraphConditionalHandle)handle;
   params.conditional.type = kind == 1 ? cudaGraphCondTypeWhile : cudaGraphCondTypeIf;
   params.conditional.size = 1;
   cudaGraphNode_t node;
@@ -233,11 +280,8 @@ extern "C" int vt_cond_begin(void* stream, void* body, const void* pred, int kin
   e = cudaStreamUpdateCaptureDependencies(s, &node, 1, cudaStreamSetCaptureDependencies);
 #endif
   if (e != cudaSuccess) return (int)e;
-  e = cudaStreamBeginCaptureToGraph((cudaStream_t)body, child, nullptr, nullptr, 0,
-                                    cudaStreamCaptureModeThreadLocal);
-  if (e != cudaSuccess) return (int)e;
-  *handle_out = (unsigned long long)h;
-  return 0;
+  return (int)cudaStreamBeginCaptureToGraph((cudaStream_t)body, child, nullptr, nullptr, 0,
+                                            cudaStreamCaptureModeThreadLocal);
 }
 
 // A stream of the graph's own (created once, never destroyed): torch's

@@ -27,8 +27,10 @@ __device__ __forceinline__ T dim_score(T cap, T want) {
 
 // req: [R] request; used_c/alloc_c: the node's [R] rows; aff: the node's
 // affinity score for the request's signature; weights: [least-requested,
-// balanced, node-affinity, binpack] plugin weights.
-template <typename T>
+// balanced, node-affinity, binpack] plugin weights. kUnroll > 0 (>= R)
+// unrolls the R loop to that bound, so that rows held in a caller's
+// register arrays stay there; the arithmetic and its order are the same.
+template <typename T, int kUnroll = 0>
 __device__ __forceinline__ T fused_score(int R, const T* req, T nz_cpu,
                                          T nz_mem, const T* used_c,
                                          const T* alloc_c, T aff,
@@ -53,7 +55,7 @@ __device__ __forceinline__ T fused_score(int R, const T* req, T nz_cpu,
   if (use_binpack) {
     T w_sum = T(0);
     T raw = T(0);
-    for (int r = 0; r < R; ++r) {
+    auto term = [&](int r) {
       T w_eff = req[r] > T(0) ? binpack_w[r] : T(0);
       w_sum = w_sum + w_eff;
       T want = req[r] + used_c[r];
@@ -61,6 +63,13 @@ __device__ __forceinline__ T fused_score(int R, const T* req, T nz_cpu,
       bool ok = (a > T(0)) && (want <= a);
       T part = ok ? (want * w_eff) / (a > T(0) ? a : T(1)) : T(0);
       raw = raw + part;
+    };
+    if constexpr (kUnroll > 0) {
+#pragma unroll
+      for (int r = 0; r < kUnroll; ++r)
+        if (r < R) term(r);
+    } else {
+      for (int r = 0; r < R; ++r) term(r);
     }
     T bp = w_sum > T(0) ? raw / (w_sum > T(0) ? w_sum : T(1)) : T(0);
     score = fma(bp, T(kMaxPriority) * weights[3], score);

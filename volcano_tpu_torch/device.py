@@ -30,6 +30,7 @@ DTYPES = {"float32": torch.float32, "float64": torch.float64}
 # (ops/rounds_graph.py, at the solve's fetch)
 LAUNCHES: Dict[str, int] = {
     "score_block": 0,
+    "score_round": 0,
     "window_topk": 0,
     "resolve_prefix": 0,
     "queue_budget": 0,

@@ -5,10 +5,14 @@ uses: ``SolveSpec``, the ``MIN_*`` constants, ``_share``, ``_le_eps`` and
 ``fused_scores`` (the plain PyTorch version of K1). The parity scan
 (``solve_allocate``) belongs to a later slice of the port.
 
-K1 ``score_block`` is the masked fused feasibility + score matrix over
-class rows and node columns (volcano_tpu/ops/rounds.py _score_block).
-On a CUDA tensor it launches the hand-written kernel in
-csrc/score_block.cu; on a CPU tensor it runs the plain version below.
+K1 is the masked fused feasibility + score matrix over class rows and
+node columns (volcano_tpu/ops/rounds.py _score_block), with two entries
+into one hand-written kernel (csrc/score_block.cu): ``score_round``, the
+round's, which decides on the card between the full refresh and the dirty
+columns and counts each class row's feasible columns (``n_feas``) in the
+same launch, and ``score_block``, the full refresh alone (K16a's probes).
+On CUDA tensors each launches the kernel; on CPU tensors each runs its
+plain version below.
 
 Rounding. Score ties decide placements, so the plain version, the kernel
 and the JAX reference must agree bit for bit. Every expression keeps the
@@ -251,11 +255,43 @@ def _score_rows_plain(spec, enc, idle, used, cnt, occ, cols):
     return torch.cat(blocks, dim=0)
 
 
-def score_block_plain(spec: SolveSpec, enc, idle, used, cnt, occ,
-                      cols: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The [K, M] block K1 computes, by the plain version (any device)."""
-    return _score_rows_plain(spec, enc, idle, used, cnt, occ,
-                             None if cols is None else cols.long())
+def score_block_plain(spec: SolveSpec, enc, idle, used, cnt, occ) -> torch.Tensor:
+    """The [K, N] block K1's full refresh computes, by the plain version
+    (any device)."""
+    return _score_rows_plain(spec, enc, idle, used, cnt, occ, None)
+
+
+def round_is_full(spec: SolveSpec, n_dirty: int) -> bool:
+    """The round's choice between the full refresh and the dirty columns
+    (volcano_tpu/ops/rounds.py:711-719): full without a dirty budget or
+    past it."""
+    return spec.dirty_k <= 0 or n_dirty > spec.dirty_k
+
+
+def score_round_plain(spec: SolveSpec, enc, idle, used, cnt, occ, scores,
+                      dirty, n_dirty, n_feas) -> torch.Tensor:
+    """Plain version of K1's round entry: the carried [K, N] ``scores``
+    rescored in place (every column on a full round, the dirty columns
+    otherwise), then ``n_feas`` [K] (int32, in place) the count of columns
+    above -inf in each class row. ``n_dirty``: the dirty count (a 0-d
+    int32 tensor, the control vector's slot). Returns ``n_feas``."""
+    if round_is_full(spec, int(n_dirty)):
+        scores.copy_(_score_rows_plain(spec, enc, idle, used, cnt, occ, None))
+    else:
+        cols = torch.nonzero(dirty).flatten()
+        if cols.numel():
+            scores[:, cols] = _score_rows_plain(spec, enc, idle, used, cnt, occ, cols)
+    n_feas.copy_(torch.sum(scores > float("-inf"), dim=-1))
+    return n_feas
+
+
+def score_weights(enc) -> torch.Tensor:
+    """[least-requested, balanced, node-affinity, binpack] weights, in the
+    score's dtype: built once a solve (the round's K1 and K7b read them)."""
+    dt = enc["cls_req"].dtype
+    return torch.stack([
+        enc["least_req_weight"], enc["balanced_weight"],
+        enc["node_affinity_weight"], enc["binpack_weight"]]).to(dt).contiguous()
 
 
 def _check(t, name, dtype, shape=None):
@@ -271,17 +307,50 @@ def _ptr(t):
     return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
 
 
-_SCORE_ARGTYPES = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 20 \
-    + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+# the argument block of csrc/score_block.cu (ScoreArgs)
+_SCORE_PTRS = ("cls_req", "cls_initreq", "cls_sig", "cls_nz_cpu", "cls_nz_mem",
+               "cls_has_pod", "cls_excl", "idle", "used", "alloc", "cnt", "nmax",
+               "sig_mask", "aff", "occ", "eps", "is_scalar", "binpack_w", "weights",
+               "dirty", "n_dirty", "n_feas", "acc", "out")
 
 
-def _score_block_cuda(spec, enc, idle, used, cnt, occ, out, cols):
-    from volcano_tpu_torch import _build
+class _ScoreArgs(ctypes.Structure):
+    _fields_ = [(f, ctypes.c_int) for f in (
+        "K", "N", "R", "dirty_k", "check_pod", "use_excl", "use_nodeorder",
+        "use_binpack")] + [(f, ctypes.c_void_p) for f in _SCORE_PTRS]
 
+
+_SCORE_FNS: dict = {}
+
+
+def _score_fn(entry: str, dt):
+    """The library's ``entry`` (score_block or score_round) for ``dt``,
+    its argtypes set once; the argument block's size checked on load."""
+    key = (entry, dt)
+    fn = _SCORE_FNS.get(key)
+    if fn is None:
+        from volcano_tpu_torch import _build
+
+        lib = _build.library("score_block")
+        size = lib.score_args_size()
+        if size != ctypes.sizeof(_ScoreArgs):
+            raise RuntimeError(f"score_block: argument block of {size} bytes, "
+                               f"the wrapper's has {ctypes.sizeof(_ScoreArgs)}")
+        fn = getattr(lib, entry + ("_f64" if dt == torch.float64 else "_f32"))
+        fn.argtypes = [ctypes.POINTER(_ScoreArgs), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _SCORE_FNS[key] = fn
+    return fn
+
+
+def _score_launch(entry, spec, enc, idle, used, cnt, occ, out, weights,
+                  rnd=None):
+    """One launch of csrc/score_block.cu: ``entry`` "score_block" (the
+    full refresh) or "score_round" with ``rnd`` = (dirty, n_dirty, n_feas,
+    acc). Checks every input first; raises on a failed launch."""
     dt = idle.dtype
     k_total, r_total = enc["cls_req"].shape
     n_total = idle.shape[0]
-    m = n_total if cols is None else cols.shape[0]
     b = torch.bool
     i32 = torch.int32
     checks = [
@@ -301,63 +370,95 @@ def _score_block_cuda(spec, enc, idle, used, cnt, occ, out, cols):
         ("eps", enc["eps"], dt, (r_total,)),
         ("is_scalar", enc["is_scalar"], b, (r_total,)),
         ("binpack_w", enc["binpack_w"], dt, (r_total,)),
+        ("weights", weights, dt, (4,)),
         ("out", out, dt, (k_total, n_total)),
     ]
     if spec.use_exclusion:
         checks += [("cls_excl", enc["cls_excl"], i32, (k_total,)),
                    ("occ", occ, b, None)]
-    if cols is not None:
-        checks.append(("cols", cols, i32, (m,)))
+    if rnd is not None:
+        dirty, n_dirty, n_feas, acc = rnd
+        checks += [("dirty", dirty, b, (n_total,)), ("n_dirty", n_dirty, i32, ()),
+                   ("n_feas", n_feas, i32, (k_total,)), ("acc", acc, i32, (k_total + 1,))]
     for name, t, want, shape in checks:
         if t.device != idle.device:
             raise ValueError(f"{name}: on {t.device}, expected {idle.device}")
         _check(t, name, want, shape)
     if enc["sig_mask"].shape[1] != n_total or enc["affinity_score"].shape[1] != n_total:
         raise ValueError("sig_mask/affinity_score: node axis mismatch")
-    weights = torch.stack([
-        enc["least_req_weight"], enc["balanced_weight"],
-        enc["node_affinity_weight"], enc["binpack_weight"]]).to(dt).contiguous()
-    lib = _build.library("score_block")
-    fn = lib.score_block_f64 if dt == torch.float64 else lib.score_block_f32
-    fn.argtypes = _SCORE_ARGTYPES
-    fn.restype = ctypes.c_int
+    if spec.use_exclusion and occ.shape[1] != n_total:
+        raise ValueError("occ: node axis mismatch")
+    ptrs = dict(
+        cls_req=enc["cls_req"], cls_initreq=enc["cls_initreq"], cls_sig=enc["cls_sig"],
+        cls_nz_cpu=enc["cls_nz_cpu"], cls_nz_mem=enc["cls_nz_mem"],
+        cls_has_pod=enc["cls_has_pod"],
+        cls_excl=enc["cls_excl"] if spec.use_exclusion else None,
+        idle=idle, used=used, alloc=enc["node_alloc"], cnt=cnt,
+        nmax=enc["node_max_tasks"], sig_mask=enc["sig_mask"],
+        aff=enc["affinity_score"], occ=occ if spec.use_exclusion else None,
+        eps=enc["eps"], is_scalar=enc["is_scalar"], binpack_w=enc["binpack_w"],
+        weights=weights, out=out)
+    if rnd is not None:
+        ptrs.update(dirty=rnd[0], n_dirty=rnd[1], n_feas=rnd[2], acc=rnd[3])
+    args = _ScoreArgs(
+        K=k_total, N=n_total, R=r_total, dirty_k=int(spec.dirty_k),
+        check_pod=int(spec.check_pod_count), use_excl=int(spec.use_exclusion),
+        use_nodeorder=int(spec.use_nodeorder), use_binpack=int(spec.use_binpack),
+        **{k: (None if t is None else t.data_ptr()) for k, t in ptrs.items()})
     stream = torch.cuda.current_stream(idle.device).cuda_stream
-    rc = fn(k_total, m, n_total, r_total,
-            _ptr(enc["cls_req"]), _ptr(enc["cls_initreq"]), _ptr(enc["cls_sig"]),
-            _ptr(enc["cls_nz_cpu"]), _ptr(enc["cls_nz_mem"]),
-            _ptr(enc["cls_has_pod"]),
-            _ptr(enc["cls_excl"] if spec.use_exclusion else None),
-            _ptr(idle), _ptr(used), _ptr(enc["node_alloc"]), _ptr(cnt),
-            _ptr(enc["node_max_tasks"]), _ptr(enc["sig_mask"]),
-            _ptr(enc["affinity_score"]),
-            _ptr(occ if spec.use_exclusion else None),
-            _ptr(enc["eps"]), _ptr(enc["is_scalar"]), _ptr(enc["binpack_w"]),
-            _ptr(weights), _ptr(cols),
-            int(spec.check_pod_count), int(spec.use_exclusion),
-            int(spec.use_nodeorder), int(spec.use_binpack),
-            _ptr(out), ctypes.c_void_p(stream))
+    rc = _score_fn(entry, dt)(ctypes.byref(args), ctypes.c_void_p(stream))
     if rc != 0:
-        raise RuntimeError(f"score_block kernel launch failed: CUDA error {rc}")
-    devmod.count_launch("score_block")
-    # the weights tensor must outlive the asynchronous launch: record it on
-    # the stream so the caching allocator does not hand it out early
-    weights.record_stream(torch.cuda.current_stream(idle.device))
+        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")
+    devmod.count_launch(entry)
 
 
 def score_block(spec: SolveSpec, enc, idle, used, cnt, occ, out,
-                cols: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """K1: write the masked fused scores of every class row over the node
-    columns ``cols`` (every column when None) into ``out[:, cols]``.
+                weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K1's full refresh: write the masked fused scores of every class row
+    over every node column into ``out`` [K, N].
 
     On a CUDA tensor this launches csrc/score_block.cu (and raises if it
-    cannot); on a CPU tensor it runs the plain version. ``cols`` is int32;
-    padding slots that repeat a column rewrite identical values."""
+    cannot); on a CPU tensor it runs the plain version. ``weights``
+    (``score_weights``) when the caller built them once."""
     if devmod.on_cuda(idle, used, out):
-        _score_block_cuda(spec, enc, idle, used, cnt, occ, out, cols)
+        w = score_weights(enc) if weights is None else weights
+        _score_launch("score_block", spec, enc, idle, used, cnt, occ, out, w)
+        if weights is None:
+            # built here: it must outlive the asynchronous launch
+            w.record_stream(torch.cuda.current_stream(idle.device))
         return out
-    block = score_block_plain(spec, enc, idle, used, cnt, occ, cols)
-    if cols is None:
-        out.copy_(block)
-    else:
-        out[:, cols.long()] = block
+    out.copy_(score_block_plain(spec, enc, idle, used, cnt, occ))
     return out
+
+
+def score_round(spec: SolveSpec, enc, idle, used, cnt, occ, scores, dirty,
+                n_dirty, n_feas, weights: Optional[torch.Tensor] = None,
+                scratch: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K1's round entry, one launch a round: rescore the carried
+    ``scores`` [K, N] in place (every column when the round is full, that
+    is ``dirty_k`` is 0 or the dirty count ``n_dirty`` passes it, else the
+    columns ``dirty`` marks) and write ``n_feas`` [K], the count of columns
+    above -inf in each class row. ``n_dirty`` is a 0-d int32 tensor (the
+    control vector's slot), read where the kernel runs.
+
+    On CUDA tensors this launches csrc/score_block.cu (and raises if it
+    cannot); on CPU tensors it runs ``score_round_plain``. ``weights``
+    (``score_weights``) and ``scratch`` (int32 [K + 1], zero; the kernel
+    leaves it zero) are the solve's, made once; a caller without them gets
+    them made for the call. Returns ``n_feas``."""
+    if not devmod.on_cuda(idle, used, scores):
+        return score_round_plain(spec, enc, idle, used, cnt, occ, scores, dirty,
+                                 n_dirty, n_feas)
+    k_total = enc["cls_req"].shape[0]
+    made = []
+    if weights is None:
+        weights = score_weights(enc)
+        made.append(weights)
+    if scratch is None:
+        scratch = torch.zeros(k_total + 1, dtype=torch.int32, device=idle.device)
+        made.append(scratch)
+    _score_launch("score_round", spec, enc, idle, used, cnt, occ, scores, weights,
+                  (dirty, n_dirty, n_feas, scratch))
+    for t in made:
+        t.record_stream(torch.cuda.current_stream(idle.device))
+    return n_feas

@@ -20,8 +20,9 @@ the card when asked (``loop="host"``), the same machine is driven from the
 host with the plain controller and the plain tail.
 
 The kernel-shaped steps run through hand-written CUDA kernels on the card:
-K1 ``score_block`` (ops/kernels.py) for the full and the dirty-column
-score refresh, K2 ``window_topk``, K2b ``cap_walk`` (the capacity walk of
+K1 ``score_round`` (ops/kernels.py: one launch a round that picks the full
+refresh or the dirty columns itself and counts each class row's feasible
+columns), K2 ``window_topk``, K2b ``cap_walk`` (the capacity walk of
 the window and of the full-width cover), K6 ``job_rank`` (the round's and
 the rollback's job ranks), K3 ``round_select`` (the select with K6's
 in-class and exclusion-group ranks and the window's coverage test, on the
@@ -48,7 +49,7 @@ from volcano_tpu_torch.ops.kernels import (  # noqa: F401 (CHUNK re-exported)
     CHUNK,
     SolveSpec,
     _le_eps,
-    score_block,
+    score_round,
 )
 from volcano_tpu_torch.ops.rounds_kernels import (
     INT32_MAX,
@@ -85,30 +86,6 @@ def _job_rank(spec: SolveSpec, enc, job_placed, job_alloc):
     """([J] dense rank from the tiered job-order keys (low = first), [J]
     the jobs in that order): K6 ``job_rank`` on the encode's job columns."""
     return job_rank(spec, {k: enc[k] for k in RK.JOB_COLS}, job_placed, job_alloc)
-
-
-def _dirty_cols(dirty, n_dirty, dirty_k: int):
-    """jnp.nonzero(dirty, size=dirty_k, fill_value=0) without a dynamic
-    shape: a stable sort brings the dirty columns first, ascending.
-    ``n_dirty`` is the dirty count, a 0-d tensor (or a number)."""
-    n_total = dirty.shape[0]
-    srt = torch.argsort((~dirty).to(torch.int8), stable=True).to(torch.int32)
-    if dirty_k > n_total:
-        srt = torch.cat([srt, torch.zeros(dirty_k - n_total, dtype=torch.int32,
-                                          device=dirty.device)])
-    else:
-        srt = srt[:dirty_k]
-    pos = torch.arange(dirty_k, device=dirty.device)
-    return torch.where(pos < n_dirty, srt, torch.zeros_like(srt))
-
-
-def _rescore_dirty(spec, enc, idle, used, cnt, excl_occ, scores, dirty,
-                   n_dirty):
-    """Dirty-column rescoring: K1 over the <= dirty_k columns the previous
-    round touched, written into the carried matrix in place. Padding slots
-    of the column list alias column 0 and rewrite identical values."""
-    cols = _dirty_cols(dirty, n_dirty, spec.dirty_k)
-    return score_block(spec, enc, idle, used, cnt, excl_occ, scores, cols=cols)
 
 
 def _cap_walk(spec: SolveSpec, enc, order, score_ord, req, exl, has_pod,
@@ -306,8 +283,13 @@ class _Dims:
             & enc["job_active0"][self.task_job_l]
 
 
-# the gated bodies of a step, by name (graph hit counters index them)
-BODIES = ("step", "round", "full", "dirty", "cover", "rollback", "tail")
+# the graph's bodies, by name: the WHILE node's (a pass: K7a and the step
+# it chose) and its IF nodes'; their hit counters (rounds_kernels.H_*)
+# count the times each ran
+BODIES = ("step", "round", "cover", "rollback", "tail")
+# the kinds of step: (body, the controller's predicate, the method)
+STEPS = (("round", RK.P_ROUND, "_round"), ("rollback", RK.P_ROLLBACK, "_rollback"),
+         ("tail", RK.P_TAIL, "_tail"))
 
 
 class StepMachine:
@@ -327,12 +309,17 @@ class StepMachine:
       a coverage bit in every windowed round (counted sync points);
     - ``"warm"``: every gate taken, the controller and the tail as
       kernels: one eager pass over every body before a capture;
-    - ``"capture"``: the gates become IF nodes and the step loop a WHILE
-      node of the graph being captured (ops/rounds_graph.py).
+    - ``"capture"``: the step loop a WHILE node of the graph being
+      captured (ops/rounds_graph.py), its body ``loop_body``: K7a first,
+      which sets the conditions of the step kinds' IF nodes after it.
 
-    ``head()`` initialises the state from ``enc``; ``step()`` runs one
-    step; ``finish()`` returns (raw result, packed result) computed from the
-    state, without changing it."""
+    ``head()`` initialises the state from ``enc`` and (unless told not
+    to) decides the first step; ``step()`` runs the pending step, then
+    the controller; ``loop_body()`` is the same sequence cut after the
+    controller instead: the controller, then the step it chose (the
+    graph's layout; after a ``head(control=False)``). ``finish()``
+    returns (raw result, packed result) computed from the state, without
+    changing it."""
 
     def __init__(self, spec: SolveSpec, enc: dict, mode: str):
         self.spec, self.enc_in, self.mode = spec, enc, mode
@@ -365,6 +352,10 @@ class StepMachine:
         self.pred = z(RK.NPRED, dtype=torch.bool)
         self.hits = z(len(BODIES), dtype=torch.int32)
         self.choice_full = z(t, dtype=torch.int32)
+        # K1's count of each class row's feasible columns, and the scratch
+        # its launch sums into (zero between launches: the kernel leaves it so)
+        self.n_feas = z(k, dtype=torch.int32)
+        self.feas_acc = z(k + 1, dtype=torch.int32)
         self.hp = None          # the predicates on the host (cpu, host)
         self.cond = None        # the graph's conditional-node hooks
         self.while_handle = None
@@ -373,13 +364,13 @@ class StepMachine:
 
     def _gate(self, pred, body: str, fn) -> None:
         """Run ``fn`` when ``pred`` holds: an index into the controller's
-        predicates, or a 0-d bool tensor the step computed."""
+        predicates, or a 0-d bool tensor the step computed (in a capture,
+        an IF node behind a setter that copies the bool into its condition
+        and counts the body's hits)."""
         if self.mode == "warm":
             fn()
         elif self.mode == "capture":
-            t = self.pred[pred] if isinstance(pred, int) else pred
-            with self.cond.if_node(t, body):
-                self.hits[BODIES.index(body)] += 1
+            with self.cond.if_node(pred, body, self.hits[BODIES.index(body)]):
                 fn()
         elif isinstance(pred, int):
             if self.hp[pred]:
@@ -387,8 +378,11 @@ class StepMachine:
         elif bool(pred if self.mode == "cpu" else devprof.readback(pred)):
             fn()
 
-    def control(self) -> None:
-        """K7a after a step (or the head): fold and decide."""
+    def control(self, handles=None) -> None:
+        """K7a after a step (or the head): fold and decide. In a capture it
+        is the WHILE body's first node and sets the conditions of
+        ``handles`` (the step kinds' IF nodes, after it) and of the WHILE
+        node."""
         if self.mode == "cpu":
             self.hp = RK.rounds_ctl_plain(self.ctl, self.pred, self.params)
         elif self.mode == "host":
@@ -396,9 +390,9 @@ class StepMachine:
             self.hp = RK._ctl_fold_decide(c, self.params)
             self.ctl.copy_(torch.tensor(c, dtype=torch.int32))
             self.pred.copy_(torch.tensor(self.hp, dtype=torch.bool))
-        elif self.while_handle is not None:
-            RK.rounds_ctl_while(self.ctl, self.pred, self.params,
-                                self.while_handle)
+        elif self.mode == "capture":
+            RK.rounds_ctl_graph(self.ctl, self.pred, self.params,
+                                (self.while_handle,) + tuple(handles), self.hits)
         else:
             RK.rounds_ctl(self.ctl, self.pred, self.params)
 
@@ -408,7 +402,7 @@ class StepMachine:
 
     # -- head, step, finish -------------------------------------------------
 
-    def head(self) -> None:
+    def head(self, control: bool = True) -> None:
         spec = self.spec
         # the task columns and the acceptance scans' integer units (K4, K5),
         # once a solve
@@ -428,10 +422,12 @@ class StepMachine:
                           task_excl=d.task_excl,
                           job_task_start=enc["job_task_start"],
                           job_task_count=enc["job_task_count"])
-        # what the tail kernel reads beside the encode
+        # what the tail kernel reads beside the encode; the plugin weights,
+        # once a solve, are K1's too
+        self.weights = RK.score_weights(enc)
         self.tenc = dict(enc, task_queue=d.task_queue, task_ns=d.task_ns,
                          task_in_job=d.task_in_job, task_excl=d.task_excl,
-                         score_weights=RK.score_weights(enc))
+                         score_weights=self.weights)
         st = self.st
         for name, src in (("idle", "node_idle"), ("used", "node_used"),
                           ("cnt", "node_cnt"), ("job_alloc", "job_alloc0"),
@@ -448,13 +444,32 @@ class StepMachine:
         self.ctl.zero_()
         self.ctl[RK.C_REMAINING] = d.task_valid.sum()
         self.hits.zero_()
-        self.control()
+        if control:
+            self.control()
+
+    def _steps(self, handles=None) -> None:
+        """The pending step's body: gated by the controller's predicates,
+        or (a capture) under the IF nodes on ``handles``."""
+        for i, (body, pred, name) in enumerate(STEPS):
+            if handles is None:
+                self._gate(pred, body, getattr(self, name))
+            else:
+                with self.cond.node(handles[i], body):
+                    getattr(self, name)()
 
     def step(self) -> None:
-        self._gate(RK.P_ROUND, "round", self._round)
-        self._gate(RK.P_ROLLBACK, "rollback", self._rollback)
-        self._gate(RK.P_TAIL, "tail", self._tail)
+        self._steps()
         self.control()
+
+    def loop_body(self) -> None:
+        """The graph's WHILE body: K7a decides, then the step it chose
+        runs (in a capture, the IF nodes' handles made first, for K7a to
+        set)."""
+        handles = None
+        if self.mode == "capture":
+            handles = tuple(self.cond.handle() for _ in STEPS)
+        self.control(handles)
+        self._steps(handles)
 
     def run(self) -> None:
         """The whole solve, driven from the host (cpu, host)."""
@@ -504,20 +519,13 @@ class StepMachine:
         occ = st.get("excl_occ")
         scores = st["scores"]
 
-        # carried scores: patch the dirty columns, or rebuild past the
-        # budget (every class row, live or not: a class revived by a
-        # rollback must find current scores)
-        def full():
-            score_block(spec, enc, idle, used, cnt, occ, scores)
-
-        if spec.dirty_k > 0:
-            self._gate(RK.P_FULL, "full", full)
-            self._gate(RK.P_DIRTY, "dirty", lambda: _rescore_dirty(
-                spec, enc, idle, used, cnt, occ, scores, st["dirty"],
-                self.ctl[RK.C_NDIRTY]))
-        else:
-            full()
-        n_feas = torch.sum(scores > float("-inf"), dim=-1).to(torch.int32)
+        # carried scores (K1, one launch): the dirty columns patched, or
+        # every column past the budget (every class row, live or not: a
+        # class revived by a rollback must find current scores), and each
+        # row's feasible count
+        n_feas = score_round(spec, enc, idle, used, cnt, occ, scores, st["dirty"],
+                             self.ctl[RK.C_NDIRTY], self.n_feas, self.weights,
+                             self.feas_acc)
 
         cls_frac = None
         if spec.use_binpack:

@@ -6,19 +6,23 @@ straggler rounds, the tail pass and the pack, all one XLA program). The
 solve is the flat step machine of ops/rounds.py (``StepMachine``), captured
 once per bucket into one graph:
 
-    head (state from the inputs, K7a decides the first step)
-    WHILE a step is pending:
-        IF round: the round body (IF full refresh / IF dirty columns,
-            IF the coverage fallback)
+    head (state from the inputs)
+    WHILE (1 at each replay's start) a step was chosen:
+        K7a: fold the last step's counters (or the head's), decide this
+            step, set the three IF nodes' conditions and the WHILE's
+        IF round: the round body (K1 once, whichever columns it rescores;
+            IF the coverage fallback, behind its one setter)
         IF rollback: the rollback body
         IF tail: K7b, the whole tail pass in one launch
-        K7a: fold the step's counters, decide the next step, set the WHILE
-            condition
     finish (the gang strip, the residue marking, the pack)
 
-PyTorch on the card offers no conditional-node capture, so the nodes come
-from csrc/rounds_ctl.cu (``vt_cond_begin``/``vt_cond_end``): each body is
-captured on a stream of its own into the node's body graph. Every buffer a
+A pass of the loop runs one control kernel (K7a) and a windowed round
+one more (the coverage fallback's setter). PyTorch on the card offers no
+conditional-node capture, so the nodes come from csrc/rounds_ctl.cu: a
+handle on the graph being captured (``vt_cond_handle``), a node on a
+handle whose body is captured on a stream of its own into the node's body
+graph (``vt_cond_node``/``vt_cond_end``), a setter for a condition a body
+computes (``vt_cond_set``). Every buffer a
 body touches lives in memory the graph owns: the inputs, the state and the
 outputs are allocated from the graph's MemPool before the capture, the
 temporaries of the bodies come from that pool during it (the allocator
@@ -65,7 +69,7 @@ from volcano_tpu_torch.ops import rounds_kernels as RK
 # captures made, seconds spent in them (warm-up pass included), solves run
 STATS = {"captures": 0, "capture_s": 0.0, "solves": 0}
 _GRAPHS: Dict[tuple, "_Graph"] = {}
-# nesting of the conditional bodies: WHILE, IF round, IF refresh/cover
+# nesting of the conditional bodies: WHILE, IF step kind, IF cover
 _DEPTH = 3
 _IF, _WHILE = 0, 1
 # the capture stream and one stream a body depth, the graphs' own
@@ -76,11 +80,15 @@ def _lib():
     from volcano_tpu_torch import _build
 
     lib = _build.library("rounds_ctl")
-    lib.vt_cond_begin.argtypes = [ctypes.c_void_p] * 3 + [
-        ctypes.c_int, ctypes.POINTER(ctypes.c_ulonglong)]
-    lib.vt_cond_begin.restype = ctypes.c_int
+    lib.vt_cond_handle.argtypes = [ctypes.c_void_p, ctypes.c_uint,
+                                   ctypes.POINTER(ctypes.c_ulonglong)]
+    lib.vt_cond_node.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_ulonglong,
+                                 ctypes.c_int]
+    lib.vt_cond_set.argtypes = [ctypes.c_void_p, ctypes.c_ulonglong, ctypes.c_void_p,
+                                ctypes.c_void_p]
     lib.vt_cond_end.argtypes = [ctypes.c_void_p]
-    lib.vt_cond_end.restype = ctypes.c_int
+    for fn in (lib.vt_cond_handle, lib.vt_cond_node, lib.vt_cond_set, lib.vt_cond_end):
+        fn.restype = ctypes.c_int
     lib.vt_stream_create.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
     lib.vt_stream_create.restype = ctypes.c_int
     lib.vt_copy_in.argtypes = [ctypes.POINTER(_CopyList), ctypes.c_void_p]
@@ -188,24 +196,33 @@ class _Cond:
         self.depth = 0
         self.counts: Dict[str, Dict[str, int]] = {}
 
+    def handle(self, value: int = 0) -> int:
+        """A conditional handle on the graph the current stream captures,
+        ``value`` at each launch of that graph until a kernel sets it."""
+        h = ctypes.c_ulonglong()
+        rc = self.lib.vt_cond_handle(
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream), value,
+            ctypes.byref(h))
+        if rc != 0:
+            raise RuntimeError(f"conditional handle: CUDA error {rc}")
+        return h.value
+
     @contextlib.contextmanager
-    def node(self, pred: torch.Tensor, body: str, kind: int):
-        """Capture the body of an IF (or WHILE) node on ``pred`` (a bool on
-        the card); yields the node's handle."""
+    def node(self, handle: int, body: str, kind: int = _IF):
+        """Capture the body of an IF (or WHILE) node on ``handle``, whose
+        condition a kernel before it sets."""
         if self.depth >= _DEPTH:
             raise RuntimeError(f"conditional bodies nested deeper than {_DEPTH}")
         side = self.streams[self.depth]
-        handle = ctypes.c_ulonglong()
-        rc = self.lib.vt_cond_begin(
+        rc = self.lib.vt_cond_node(
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
-            ctypes.c_void_p(side.cuda_stream), ctypes.c_void_p(pred.data_ptr()),
-            kind, ctypes.byref(handle))
+            ctypes.c_void_p(side.cuda_stream), handle, kind)
         if rc != 0:
             raise RuntimeError(f"conditional node for {body!r}: CUDA error {rc}")
         self.depth += 1
         try:
             with torch.cuda.stream(side), devmod.capture_sink() as sink:
-                yield handle.value
+                yield
             self.counts[body] = sink
         finally:
             self.depth -= 1
@@ -213,8 +230,19 @@ class _Cond:
         if rc != 0:
             raise RuntimeError(f"end of the {body!r} body: CUDA error {rc}")
 
-    def if_node(self, pred: torch.Tensor, body: str):
-        return self.node(pred, body, _IF)
+    @contextlib.contextmanager
+    def if_node(self, pred: torch.Tensor, body: str, hits: torch.Tensor):
+        """An IF node on a bool a body computed (``pred``, on the card):
+        a handle, its setter, which also adds one to the int32 ``hits``
+        when the body runs, then the node."""
+        h = self.handle()
+        rc = self.lib.vt_cond_set(
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream), h,
+            ctypes.c_void_p(pred.data_ptr()), ctypes.c_void_p(hits.data_ptr()))
+        if rc != 0:
+            raise RuntimeError(f"condition of {body!r}: CUDA error {rc}")
+        with self.node(h, body):
+            yield
 
 
 class _Graph:
@@ -278,12 +306,11 @@ class _Graph:
                               capture_error_mode="thread_local"):
             with torch.cuda.use_mem_pool(self.pool):
                 with devmod.capture_sink() as self.head_counts:
-                    m.head()
-                with cond.node(m.pred[RK.P_ACTIVE], "step", _WHILE) as handle:
-                    m.hits[R.BODIES.index("step")] += 1
-                    m.while_handle = handle
-                    m.step()
-                    m.while_handle = None
+                    m.head(control=False)
+                m.while_handle = cond.handle(1)
+                with cond.node(m.while_handle, "step", _WHILE):
+                    m.loop_body()
+                m.while_handle = None
                 raw, packed = m.finish()
                 for o, x in zip(self.out, raw):
                     o.copy_(x)

@@ -17,7 +17,13 @@ import ctypes
 import torch
 
 from volcano_tpu_torch import device as devmod
-from volcano_tpu_torch.ops.kernels import MIN_MILLI_SCALAR, _check, _ptr, _share
+from volcano_tpu_torch.ops.kernels import (  # noqa: F401 (score_weights re-exported)
+    MIN_MILLI_SCALAR,
+    _check,
+    _ptr,
+    _share,
+    score_weights,
+)
 
 INT32_MAX = 2**31 - 1
 
@@ -1013,7 +1019,8 @@ PH_INIT, PH_OUTER, PH_INNER, PH_STRAG_INIT, PH_STRAG, PH_TAIL, PH_DONE = range(7
 ST_NONE, ST_ROUND, ST_STRAG, ST_ROLLBACK, ST_TAIL = range(5)
 # the predicates (bool vector): a step runs, it is a round (plain or
 # straggler), the round is conservative, it refreshes every score column,
-# it rescores the dirty columns, it is the rollback, the tail, the machine
+# it rescores the dirty columns (K1's round entry takes that choice itself
+# from C_NDIRTY, the same way), it is the rollback, the tail, the machine
 # is done
 (P_ACTIVE, P_ROUND, P_CONS, P_FULL, P_DIRTY, P_ROLLBACK, P_TAIL,
  P_DONE) = range(8)
@@ -1137,21 +1144,41 @@ def rounds_ctl(ctl: torch.Tensor, pred: torch.Tensor, params) -> None:
     devmod.count_launch("rounds_ctl")
 
 
-def rounds_ctl_while(ctl: torch.Tensor, pred: torch.Tensor, params,
-                     handle: int) -> None:
-    """K7a inside the body of the solve graph's WHILE node: the same step,
-    then the node's condition (``handle``) set to pred[P_ACTIVE]."""
+# the graph's hit counters a K7a pass bumps (ops/rounds.py BODIES, in that
+# order): the pass itself, then the step body it chose
+H_STEP, H_ROUND, H_COVER, H_ROLLBACK, H_TAIL = range(5)
+
+
+class _GraphCtl(ctypes.Structure):
+    _fields_ = [("h_while", ctypes.c_ulonglong), ("h_round", ctypes.c_ulonglong),
+                ("h_rollback", ctypes.c_ulonglong), ("h_tail", ctypes.c_ulonglong),
+                ("hits", ctypes.c_void_p)]
+
+
+def rounds_ctl_graph(ctl: torch.Tensor, pred: torch.Tensor, params, handles,
+                     hits: torch.Tensor) -> None:
+    """K7a as the first node of the solve graph's WHILE body: the same fold
+    and decision, then the conditions of the step's IF nodes set from the
+    predicates (``handles``: the WHILE node's, then the round's, the
+    rollback's and the tail's, all of the graph being captured or of its
+    parent), and the graph's hit counters (``hits``, int32, indexed by
+    H_*) bumped for the pass and the step it chose."""
     from volcano_tpu_torch import _build
 
+    _same_device(ctl, pred=pred, hits=hits)
     _check(ctl, "ctl", torch.int32, (CTL_LEN,))
     _check(pred, "pred", torch.bool, (NPRED,))
+    _check(hits, "hits", torch.int32, None)
+    if hits.numel() <= H_TAIL or len(handles) != 4:
+        raise ValueError("rounds_ctl_graph: hits or handles too short")
     lib = _build.library("rounds_ctl")
-    fn = lib.rounds_ctl_while
+    fn = lib.rounds_ctl_graph
     fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 \
-        + [ctypes.c_ulonglong, ctypes.c_void_p]
+        + [ctypes.POINTER(_GraphCtl), ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    rc = fn(_ptr(ctl), _ptr(pred), *(int(x) for x in params),
-            ctypes.c_ulonglong(handle), _stream(ctl))
+    g = _GraphCtl(*handles, hits.data_ptr())
+    rc = fn(_ptr(ctl), _ptr(pred), *(int(x) for x in params), ctypes.byref(g),
+            _stream(ctl))
     if rc != 0:
         raise RuntimeError(f"rounds_ctl kernel launch failed: CUDA error {rc}")
     devmod.count_launch("rounds_ctl")
@@ -1187,14 +1214,6 @@ TAIL_STATE = (
 def tail_budget(spec) -> int:
     """Steps a tail pass may take (the reference's tail_budget)."""
     return 8 * max(spec.round_min_progress, 1) + 16
-
-
-def score_weights(enc) -> torch.Tensor:
-    """[least-requested, balanced, node-affinity, binpack] weights."""
-    dt = enc["cls_req"].dtype
-    return torch.stack([
-        enc["least_req_weight"], enc["balanced_weight"],
-        enc["node_affinity_weight"], enc["binpack_weight"]]).to(dt).contiguous()
 
 
 def tail_row_plain(spec, enc, c: int, idle, used, cnt, occ):

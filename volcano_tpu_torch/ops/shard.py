@@ -136,7 +136,12 @@ def probe_refresh(spec, enc: Dict[str, torch.Tensor],
     CPU tensors K1's wrapper runs its plain version."""
     from volcano_tpu_torch.ops import kernels
 
-    return _refresh(spec, enc, kernels.score_block, reps)
+    weights = kernels.score_weights(enc)  # once a probe
+
+    def score(spec, enc, idle, used, cnt, occ, out):
+        kernels.score_block(spec, enc, idle, used, cnt, occ, out, weights)
+
+    return _refresh(spec, enc, score, reps)
 
 
 # ---------------------------------------------------------------------------
