@@ -1429,6 +1429,7 @@ def rounds_loop_phase():
     from volcano_tpu_torch.ops import rounds_kernels as RK
 
     from volcano_tpu_torch.bench import round_cases
+    from volcano_tpu_torch.bench.kernel_profile import replay_ms
 
     scale = 1.0
     rows, ctl_inputs, tail_inputs, recorded = [], [], None, {}
@@ -1534,26 +1535,62 @@ def rounds_loop_phase():
     def fresh():
         return {k: v.clone() for k, v in st0.items()}, ctl0.clone()
 
-    st_k, c_k = fresh()
-    RK.tail_pass(spec6, tenc, st_k, c_k)
     st_p, c_p = fresh()
     _, tail_plain_ms = timed_plain(lambda: RK.tail_pass_plain(spec6, tenc, st_p, c_p))
+    # K7b in the placement cfg6's sizes take (the state and class columns
+    # staged in shared memory)
+    st_k, c_k = fresh()
+    RK.tail_pass(spec6, tenc, st_k, c_k)
     for name in st_k:
         same(st_k[name], st_p[name], f"tail_pass {name}")
     same(c_k, c_p, "tail_pass ctl")
-    reps = []
+    # and in the global placement: the same tail with its node axis tiled
+    # to 12,000 nodes (round_cases.widen_nodes), too large to stage
+    wenc, wst0 = round_cases.widen_nodes(tenc, st0, 12_000)
+    if RK.tail_placement(wenc["task_cls"].shape[0], 12_000, wst0["idle"].shape[1],
+                         wenc["job_tie_rank"].shape[0], wenc["queue_deserved"].shape[0],
+                         wst0["ns_alloc"].shape[0], wenc["cls_req"].shape[0],
+                         wst0["idle"].dtype) != "global":
+        raise AssertionError("tail_pass: 12,000 nodes should take the global placement")
+    w_p, wc_p = {k: v.clone() for k, v in wst0.items()}, ctl0.clone()
+    RK.tail_pass_plain(spec6, wenc, w_p, wc_p)
+    w_k, wc_k = {k: v.clone() for k, v in wst0.items()}, ctl0.clone()
+    RK.tail_pass(spec6, wenc, w_k, wc_k)
+    for name in w_k:
+        same(w_k[name], w_p[name], f"tail_pass {name} (global placement)")
+    same(wc_k, wc_p, "tail_pass ctl (global placement)")
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    eager = []
     for _ in range(5):
         st_t, c_t = fresh()
         torch.cuda.synchronize()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
         a.record()
         RK.tail_pass(spec6, tenc, st_t, c_t)
         b.record()
         torch.cuda.synchronize()
-        reps.append(a.elapsed_time(b))
+        eager.append(a.elapsed_time(b))
+    # the launch's device time (the record's ms): K7b captured once in a
+    # CUDA graph, the recorded state put back before each replay, CUDA
+    # events around the replay alone (the eager calls above also time the
+    # wrapper's host work)
+    st_g, c_g = fresh()
+    RK.tail_pass(spec6, tenc, st_g, c_g)
+
+    def reset():
+        for k, v in st0.items():
+            st_g[k].copy_(v)
+        c_g.copy_(ctl0)
+
+    reps = replay_ms(lambda: RK.tail_pass(spec6, tenc, st_g, c_g), reset)
+    for name in st_g:
+        same(st_g[name], st_p[name], f"tail_pass {name} (graph replay)")
+    same(c_g, c_p, "tail_pass ctl (graph replay)")
     retired = int((st0["active"] & ~st_p["active"]).sum())
     t_n, (n_n, r_n) = tenc["task_cls"].shape[0], st0["idle"].shape
+    placement = RK.tail_placement(t_n, n_n, r_n, tenc["job_tie_rank"].shape[0],
+                                  tenc["queue_deserved"].shape[0], st0["ns_alloc"].shape[0],
+                                  tenc["cls_req"].shape[0], st0["idle"].dtype)
     steps = retired + int(retired < RK.tail_budget(spec6) and bool(st_p["active"].any()))
     tail_rec = dict(
         name="tail_pass", kernel="tail_pass", route="cuda",
@@ -1566,9 +1603,12 @@ def rounds_loop_phase():
         ops=steps * (t_n * 8 + n_n * (30 + 12 * r_n)), dtype=st0["idle"].dtype,
         launch_path=6,
         shape=f"cfg6 tail: T={t_n} N={n_n} R={r_n}, {steps} steps, "
-              f"{int(c_p[RK.C_TAIL_PLACED])} placed")
+              f"{int(c_p[RK.C_TAIL_PLACED])} placed; state in {placement} memory; "
+              f"one launch in a graph (eager call {sum(eager) / len(eager):.4f} ms)")
     for rec in (ctl_rec, tail_rec):
         finish_record(rec)
+    print(json.dumps({"kernel": "tail_pass", "card": CARD, "placement": placement,
+                      "graph_ms": reps, "eager_ms": eager}), flush=True)
     warm5 = next(r for r in rows if r["k7"].startswith("cfg5"))
     k7_row = {"solve_ms": warm5["graph_solve_ms_warm"], "host_loop_ms": warm5["host_loop_ms"],
               "sync_points": warm5["graph_sync_points"],
@@ -2112,13 +2152,28 @@ def express_lane_phase(scale=1.0, device="cuda", dtype="float32"):
     from volcano_tpu_torch.express import place as place_mod
     from volcano_tpu_torch.scheduler.util.test_utils import build_pod, build_pod_group
 
+    import gc
+
     cache, _, _, actions, n_tasks = build_config(5, scale)
     tiers = tpu_tiers(5, device, dtype)
     lane = ExpressLane(cache, device=device, dtype=dtype)
+    # every collector pass from the settling session on: [where (the
+    # session, the drain, the batch: warm ones negative), generation, ms]
+    gc_log, gc_where, gc_t0 = [], ["settle"], {}
+
+    def gc_trace(phase, info):
+        if phase == "start":
+            gc_t0["t"] = time.perf_counter()
+        elif "t" in gc_t0:
+            gc_log.append([gc_where[0], info["generation"],
+                           round((time.perf_counter() - gc_t0.pop("t")) * 1e3, 4)])
+
+    gc.callbacks.append(gc_trace)
     t0 = time.perf_counter()
     plain_session(cache, tiers, actions)
     torch.cuda.synchronize()
     settle_ms = (time.perf_counter() - t0) * 1e3
+    gc_where[0] = "drain"
     lane.run_once()  # drain the backlog notifications (all bound)
 
     rng = random.Random(7)
@@ -2170,8 +2225,6 @@ def express_lane_phase(scale=1.0, device="cuda", dtype="float32"):
         return wrapped
 
     # the collector's pauses inside each batch (gc.callbacks)
-    import gc
-
     gc_t = {}
 
     def gc_probe(phase, info):
@@ -2195,7 +2248,10 @@ def express_lane_phase(scale=1.0, device="cuda", dtype="float32"):
     lat, sizes, fetches, reps = [], [], [], []
     try:
         for it in range(EXPRESS_WARM + EXPRESS_MEASURED):
+            gc_where[0] = it - EXPRESS_WARM
             if it == EXPRESS_WARM:
+                gc_sizes = [len(gc.get_objects(g)) for g in range(3)]
+                gc_counts = list(gc.get_count())
                 torch.cuda.synchronize()
                 devmod.reset_launches()
                 gc.callbacks.append(gc_probe)
@@ -2226,6 +2282,7 @@ def express_lane_phase(scale=1.0, device="cuda", dtype="float32"):
         commit_mod.commit_batch = real_commit
         if gc_probe in gc.callbacks:
             gc.callbacks.remove(gc_probe)
+        gc.callbacks.remove(gc_trace)
     if builds:
         raise AssertionError(f"express: kernels built after the warm batches: {builds}")
     if any(f != 1 for f in fetches):
@@ -2275,6 +2332,9 @@ def express_lane_phase(scale=1.0, device="cuda", dtype="float32"):
                                     "commit", "other", "gc")},
         "max_batch_index": lat.index(ordered[-1]),
         "split_ms_of_max": parts[lat.index(ordered[-1])],
+        # the collector's passes, and its generations' sizes and counts
+        # when the measured batches began
+        "gc_log": gc_log, "gc_sizes_at_start": gc_sizes, "gc_counts_at_start": gc_counts,
         "state": dict(lane.state.stats)}
     print(json.dumps(out), flush=True)
     if "tb16" not in captured or "tb64" not in captured:
@@ -2585,9 +2645,12 @@ def parity_phase(scale=1.0, device="cuda", dtype="float32"):
     warm-up; the plain version once). (b) float64 parity sessions on the
     card give the host serial loop's binds and cursor: cfg2 at 1.0 and
     cfg3 at 0.4 (cfg3: ten weighted queues, the overused purge). (c) cfg5
-    at full width, float32: one parity session, feasible binds, K15 timed
-    (2 calls after 1 warm-up). Returns (K15's record, the launches of
-    (a)'s session)."""
+    at full width, float32: one parity session, feasible binds; on its
+    capture with the first tenth of its jobs active (full T and N) K15 is
+    torch.equal to the plain version; K15 timed on that and on the whole
+    capture (2 calls after 1 warm-up). Returns (K15's record, the launches
+    of (a)'s session)."""
+    from volcano_tpu_torch.bench import parity_cases as PC
     from volcano_tpu_torch.ops import parity_kernels as PK
 
     launched = 1 if device == "cuda" else 0  # a CPU rehearsal runs the plain version
@@ -2650,20 +2713,30 @@ def parity_phase(scale=1.0, device="cuda", dtype="float32"):
         raise AssertionError(f"cfg5 parity: {counts['parity_scan']} K15 launches")
     check_binds(cache, 5)
     spec, enc, rr0, ntf = args
-    got5 = PK.solve_allocate(spec, enc, rr0, ntf)
-    want5, plain5 = timed_plain(lambda: PK.solve_allocate_plain(spec, enc, rr0, ntf))
+    # K15 against its plain version on the cfg5 capture with only its
+    # first tenth of jobs active (full T and N; the plain version of the
+    # whole scan took 180-240 s of a run); K15's whole scan timed apart
+    cut = PC.job_prefix(enc, 10)
+    got5 = PK.solve_allocate(spec, cut, rr0, ntf)
+    want5, plain5 = timed_plain(lambda: PK.solve_allocate_plain(spec, cut, rr0, ntf))
     steps5 = PK.STATS["steps"]
-    same(got5, want5, "parity_scan (cfg5)")
+    same(got5, want5, "parity_scan (cfg5, a tenth of the jobs)")
+    cut_ms = time_ms(lambda: PK.solve_allocate(spec, cut, rr0, ntf), reps=2, warmup=1)
     ms5 = time_ms(lambda: PK.solve_allocate(spec, enc, rr0, ntf), reps=2, warmup=1)
+    full5 = PK.solve_allocate(spec, enc, rr0, ntf)
     print(json.dumps({"parity": f"cfg5@{scale} {dtype}", "card": CARD, "session_ms": wall,
-                      "binds": len(cache.binder.binds), "k15_ms": ms5, "plain_ms": plain5,
-                      "steps": steps5, "us_a_step": ms5 * 1e3 / max(steps5, 1),
+                      "binds": len(cache.binder.binds), "k15_ms": ms5,
+                      "placed": int((full5[:-1] >= 0).sum()),
+                      "cut": {"jobs": f"1/10 of {enc['job_active0'].shape[0]}",
+                              "k15_ms": cut_ms, "plain_ms": plain5, "steps": steps5,
+                              "us_a_step": cut_ms * 1e3 / max(steps5, 1)},
                       "gc2_ms": prof["gc2_ms"],
                       "T": enc["task_req"].shape[0], "N": enc["node_idle"].shape[0],
                       "J": enc["job_task_start"].shape[0], "ntf": ntf,
                       "split_ms": {k: round(prof[k] * 1e3, 3) for k in
                                    ("encode_s", "solve_s", "apply_s")}}), flush=True)
-    log(f"kernel parity_scan [cfg5]: {ms5:.4f} ms, {ms5 * 1e3 / max(steps5, 1):.3f} us a step")
+    log(f"kernel parity_scan [cfg5]: {ms5:.4f} ms; a tenth of the jobs {cut_ms:.4f} ms, "
+        f"{cut_ms * 1e3 / max(steps5, 1):.3f} us a step, equal to plain")
     return rec, counts_a
 
 
@@ -3030,11 +3103,17 @@ def scatter_kernel_phase(node_dev, lane_dev):
     """K8 against its plain version (index_copy_) with torch.equal, on
     clones of the cfg5 replica's node family (N = 10000) with 1, 16, 100
     and 256 dirty rows, and of the express lane's columns with 1 row;
-    timed over 20 calls after 3 warm-ups, beside the index_copy_ calls
-    with sources already on the card (library_ms) and the like-for-like
-    yardstick of the wrapper (library_staged_ms): per call, the rows packed
-    into one pinned staging buffer, one non_blocking copy to the card and
-    index_copy_ a buffer."""
+    each through a plan of its own (ops/replica.ScatterPlans). Timed: the
+    device's part (the launch, which reads the rows from the plan's mapped
+    host block, 20 calls in a CUDA graph: the record's ms, as K1's and
+    K2b's), the eager launch, and the
+    wrapper a call (CUDA events over 20 calls after 3 warm-ups, and its
+    host time), beside the index_copy_ calls with sources already on the
+    card (library_ms) and the like-for-like yardstick of the wrapper
+    (library_staged_ms): per call, the rows packed into one pinned staging
+    buffer, one non_blocking copy to the card and index_copy_ a buffer.
+    Counted: the objects the collector tracks that a call of each leaves
+    alive (gc_net_objects)."""
     import numpy as np
     from volcano_tpu_torch.ops import replica as R
 
@@ -3057,23 +3136,34 @@ def scatter_kernel_phase(node_dev, lane_dev):
                 vals[k] = v
             got = {k: t.clone() for k, t in base.items()}
             want = {k: t.clone() for k, t in base.items()}
-            R.scatter_rows(got, idx, vals)
+            plans = R.ScatterPlans()
+            R.scatter_rows(got, idx, vals, plans=plans)
             R.scatter_rows_plain(want, idx, vals)
             torch.cuda.synchronize()
             for k in base:
                 if not torch.equal(got[k], want[k]):
                     raise AssertionError(f"scatter_rows {what}/{d}: {k} != plain")
-            # the kernel alone, on sources staged once; the wrapper (host
-            # staging, one pinned copy, the launch) per call apart
-            staged = R.stage_scatter(got, idx, vals)
-            ms = time_ms(lambda: R.launch_scatter(staged))
-            wrapper_ms = time_ms(lambda: R.scatter_rows(got, idx, vals))
+            plan = plans.get(got, len(idx))
+            # the device's part alone (the launch, as the wrapper issues
+            # it) in a graph; the eager launch; the wrapper a call
+            ms = graph_ms(lambda: plan.launch(0))
+            launch_ms = time_ms(lambda: plan.launch(0))
+            wrapper_ms = time_ms(lambda: R.scatter_rows(got, idx, vals, plans=plans))
+            wrapper_host_ms = host_ms(lambda: R.scatter_rows(got, idx, vals, plans=plans))
+            wrapper_gc = gc_net_objects(lambda: R.scatter_rows(got, idx, vals, plans=plans))
             plain_ms = time_ms(lambda: R.scatter_rows_plain(want, idx, vals))
             dsrc = {k: torch.from_numpy(np.ascontiguousarray(v)).to(base[k].device)
                     for k, v in vals.items()}
             didx = torch.from_numpy(idx.astype(np.int64)).to(got[next(iter(got))].device)
             lib_ms = time_ms(lambda: [want[k].index_copy_(0, didx, dsrc[k]) for k in base])
-            staged_ms = time_ms(staged_index_copy(want, idx, vals))
+            staged = staged_index_copy(want, idx, vals)
+            staged_ms = time_ms(staged)
+            staged_gc = gc_net_objects(staged)
+            torch.cuda.synchronize()
+            for k in base:
+                if not torch.equal(got[k], want[k]):
+                    raise AssertionError(f"scatter_rows {what}/{d}: {k} != plain after timing")
+            plans.clear()
             row_bytes = sum(t[0].numel() * t.element_size() for t in base.values())
             rec = dict(
                 name="scatter_rows" if what == "node" else "scatter_rows_express",
@@ -3082,18 +3172,45 @@ def scatter_kernel_phase(node_dev, lane_dev):
                 source="volcano_tpu_torch/csrc/scatter_rows.cu",
                 replaces="volcano_tpu/ops/replica.py:144" if what == "node"
                 else "volcano_tpu/express/encode.py:199",
-                max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                max_abs_err=0.0, ms=ms, host_ms=wrapper_host_ms, plain_ms=plain_ms,
+                library_ms=lib_ms,
                 bytes=d * 4 + 2 * d * row_bytes, ops=0, dtype=torch.float32,
                 shape=f"{what} family, {len(base)} buffers, N={n}, {d} rows "
-                      f"(padded {len(idx)}); wrapper {wrapper_ms:.4f} ms a call, "
+                      f"(padded {len(idx)}); 20 launches in a graph; "
+                      f"eager launch {launch_ms:.4f} ms, wrapper {wrapper_ms:.4f} ms a call, "
                       f"library_staged_ms {staged_ms:.4f}")
             finish_record(rec)
-            print(json.dumps({"kernel": rec["name"], "rows": d, "wrapper_ms": wrapper_ms,
-                              "library_staged_ms": staged_ms, "library_ms": lib_ms}),
+            print(json.dumps({"kernel": rec["name"], "card": CARD, "rows": d, "graph_ms": ms,
+                              "launch_ms": launch_ms, "wrapper_ms": wrapper_ms,
+                              "wrapper_host_ms": wrapper_host_ms,
+                              "library_staged_ms": staged_ms, "library_ms": lib_ms,
+                              "gc_net_objects_a_call": {"wrapper": wrapper_gc,
+                                                        "library_staged": staged_gc}}),
                   flush=True)
             if (what, d) in (("node", 16), ("express", 1)):
                 records.append(rec)
     return records
+
+
+def gc_net_objects(fn, calls: int = 200) -> float:
+    """The objects the collector tracks that a call of ``fn`` leaves alive
+    (its allocations less its frees, the collector off): what brings the
+    next collection nearer."""
+    import gc
+
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        fn()
+        torch.cuda.synchronize()
+        c0 = gc.get_count()[0]
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        return (gc.get_count()[0] - c0) / calls
+    finally:
+        if was:
+            gc.enable()
 
 
 def staged_index_copy(dst, idx, vals):

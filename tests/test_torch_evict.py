@@ -351,7 +351,7 @@ def test_wrappers_run_plain_versions_on_cpu_tensors():
         tk.solve_packed(spec._replace(kind="express"), enc)
 
 
-@pytest.mark.parametrize("kernel", ["k9", "k10", "k13", "k14", "k15"])
+@pytest.mark.parametrize("kernel", ["k7b", "k9", "k10", "k13", "k14", "k15"])
 def test_kernel_profile_marks_match_its_phases(kernel):
     """A kernel profile's phases are the kernel's PROF(k) marks: every
     phase has a mark and every mark a phase, and the kernel's counter array
@@ -379,7 +379,7 @@ def test_kernel_profile_marks_match_its_phases(kernel):
     assert f'extern "C" int {k.read}' in src[src.rindex(f"#ifdef {k.flag}"):]
 
 
-@pytest.mark.parametrize("kernel", ["k9", "k10", "k13", "k14", "k15"])
+@pytest.mark.parametrize("kernel", ["k7b", "k9", "k10", "k13", "k14", "k15"])
 def test_kernel_profile_builds_the_kernel_source_with_the_flag(monkeypatch, kernel):
     """The profiling build is nvcc on the kernel's own source with the
     kernels' flags and the kernel's profile flag defined: no copy of the

@@ -97,15 +97,8 @@ def test_gpu_controller_and_tail_kernels_equal_plain(dtype):
     finally:
         RK.tail_pass_plain, RK._ctl_fold_decide = real_tail, real_ctl
     assert "st" in seen, "the solve must reach the tail pass"
-    st_k = {k: v.clone() for k, v in seen["st"].items()}
-    ctl_k = seen["c"].clone()
-    RK.tail_pass(spec, seen["enc"], st_k, ctl_k)
-    st_p = {k: v.clone() for k, v in seen["st"].items()}
-    ctl_p = seen["c"].clone()
-    RK.tail_pass_plain(spec, seen["enc"], st_p, ctl_p)
-    for k in st_k:
-        assert torch.equal(st_k[k], st_p[k]), k
-    assert torch.equal(ctl_k, ctl_p) and int(ctl_p[RK.C_TAIL_PLACED]) > 0
+    ctl_p = hold_tail(spec, seen["enc"], seen["st"], seen["c"], "cfg6 capped")
+    assert int(ctl_p[RK.C_TAIL_PLACED]) > 0
     for c in seen["ctl"]:
         got = torch.tensor(c, dtype=torch.int32, device="cuda")
         pred = torch.zeros(RK.NPRED, dtype=torch.bool, device="cuda")
@@ -113,6 +106,104 @@ def test_gpu_controller_and_tail_kernels_equal_plain(dtype):
         want = list(c)
         want_p = RK._ctl_fold_decide(want, m.params)
         assert got.tolist() == want and pred.tolist() == want_p
+
+
+def tail_placement_of(enc, st):
+    N, R = st["idle"].shape
+    return RK.tail_placement(enc["task_cls"].shape[0], N, R, enc["job_tie_rank"].shape[0],
+                             enc["queue_deserved"].shape[0], st["ns_alloc"].shape[0],
+                             enc["cls_req"].shape[0], st["idle"].dtype)
+
+
+def hold_tail(spec, enc, st, c, what, placement="shared", launches=1):
+    """K7b, in the placement its sizes choose (asserted to be
+    ``placement``), against tail_pass_plain on the same inputs, ``launches``
+    times from the same inputs: every state tensor by its bits, the
+    control vector. Returns the plain version's control vector."""
+    st_p = {k: v.clone() for k, v in st.items()}
+    ctl_p = c.clone()
+    RK.tail_pass_plain(spec, enc, st_p, ctl_p)
+    assert tail_placement_of(enc, st) == placement, what
+    for i in range(launches):
+        st_k = {k: v.clone() for k, v in st.items()}
+        ctl_k = c.clone()
+        RK.tail_pass(spec, enc, st_k, ctl_k)
+        for k in st_k:
+            assert RC.bit_equal(st_k[k], st_p[k]), (what, i, k)
+        assert torch.equal(ctl_k, ctl_p), (what, i)
+    return ctl_p
+
+
+def tail_inputs(spec, arrays, dtype):
+    """The tail's (enc, state, ctl) of the host-driven machine's solve of
+    ``arrays`` on the card."""
+    from volcano_tpu_torch.ops import solver as tsolver
+
+    enc = tsolver.from_numpy_encoded(arrays, device="cuda", dtype=getattr(torch, dtype))
+    m = trounds.StepMachine(spec, enc, "host")
+    seen = {}
+    real = RK.tail_pass_plain
+
+    def tail(spec, enc, st, ctl):
+        seen.update(enc=enc, st={k: v.clone() for k, v in st.items()}, c=ctl.clone())
+        return real(spec, enc, st, ctl)
+
+    RK.tail_pass_plain = tail
+    try:
+        m.run()
+    finally:
+        RK.tail_pass_plain = real
+    assert "st" in seen, "the solve must reach the tail pass"
+    return seen["enc"], seen["st"], seen["c"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("kind", RC.TAIL_KINDS + ("-0.0 shares", "wide nodes", "wide classes",
+                                                  "segments"))
+def test_gpu_tail_pass_equals_plain_on_crafted_tails(kind, dtype):
+    """K7b on the tails of round_cases' crafted capped solves (jobs tied
+    to task_in_job, queues crossing their share, no node fits, nothing
+    eligible, the drf share first), and on tails patched from them: drf
+    shares of -0.0 and +0.0, a node axis too large for the shared-memory
+    placement (N = 12,000), a class axis too large to stage beside the
+    state (K = 8,192; global placement too), every task a segment of its
+    own and live (the block-wide select)."""
+    _cuda()
+    base = RC.tail_base_arrays()
+    spec, arrays = RC.tail_solve_case(kind if kind in RC.TAIL_KINDS else (
+        "drf" if kind == "-0.0 shares" else "base"), base)
+    enc, st, c = tail_inputs(spec, arrays, dtype)
+    placement = "shared"
+    if kind == "-0.0 shares":
+        st = RC.negative_zero_shares(st)
+    elif kind == "wide nodes":
+        enc, st = RC.widen_nodes(enc, st, 12_000)
+        placement = "global"
+    elif kind == "wide classes":
+        enc = RC.widen_classes(enc, 8192)
+        placement = "global"
+    elif kind == "segments":
+        enc, st = RC.split_segments(enc, st)
+        assert int(st["active"].sum()) > 256
+    hold_tail(spec, enc, st, c, kind, placement)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_gpu_tail_pass_global_placement_repeated(dtype):
+    """K7b in the global placement at a small task axis (T <= 1,024: a
+    task a thread, so no staging and no run of tasks delays a warp before
+    it counts the live tasks), launched 200 times from the same inputs,
+    each launch equal to the plain version: a count of live tasks lost to
+    a race between warps would end the pass early in some launch."""
+    _cuda()
+    spec, arrays = RC.tail_solve_case("base", RC.tail_base_arrays())
+    enc, st, c = tail_inputs(spec, arrays, dtype)
+    assert enc["task_cls"].shape[0] <= 1024
+    enc, st = RC.widen_nodes(enc, st, 12_000)
+    ctl_p = hold_tail(spec, enc, st, c, "global, repeated", "global", launches=200)
+    assert int(ctl_p[RK.C_TAIL_PLACED]) > 0
 
 
 @pytest.mark.gpu

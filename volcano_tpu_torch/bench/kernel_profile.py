@@ -1,16 +1,21 @@
-"""Where a kernel's time goes: K9, K10, K13, K14 or K15, phase by phase,
+"""Where a kernel's time goes: K7b, K9, K10, K13, K14 or K15, phase by phase,
 on the card; and, with ``--kernel k7``, where a warm graph round of the
 rounds solve spends it, node group by node group (bench/round_split.py).
 
-Builds the kernel's source with its profile flag (``-DK9_PROFILE``,
-``-DK10_PROFILE``, ``-DK13_PROFILE``, ``-DK14_PROFILE`` or
-``-DK15_PROFILE``), which turns the kernel's PROF(k) marks into clock64()
-reads at the thread that runs its control machine (CTA 0 thread 0; K13's
-and K15's block thread 0; K14's walk CTA 0 thread 0), takes the kernel's
+Builds the kernel's source with its profile flag (``-DK7B_PROFILE``,
+``-DK9_PROFILE``, ``-DK10_PROFILE``, ``-DK13_PROFILE``, ``-DK14_PROFILE``
+or ``-DK15_PROFILE``), which turns the kernel's PROF(k) marks into
+clock64() reads at the thread that runs its control machine (CTA 0
+thread 0; K7b's, K13's and K15's block thread 0; K14's walk CTA 0 thread
+0), takes the kernel's
 inputs from a session on the card (float32), runs them through that build
 and prints each phase's share of the kernel's time and microseconds a unit
 of work:
 
+- k7b: the tail pass of cfg6's capped solve (full scale, the host-driven
+  machine's tail inputs, as chip_smoke.py's K7 phase records them); a
+  step. Its lines add the kernel's device span (globaltimer marks), to
+  which its phases are scaled; every call starts from the recorded state;
 - k9: the preempt machine of a per-action cfg4 session; a walk;
 - k10: the reclaim machine of a per-action reclaim-path session
   (``bench/reclaim_path.py``); a candidate fold (one walk iteration);
@@ -59,6 +64,13 @@ class Kernel(NamedTuple):
 
 
 KERNELS = {
+    "k7b": Kernel("tail_pass", "K7B_PROFILE", "k7b_profile_read", "step", True, (
+        ("setup", "the pass's start: staging and the per-job cursors"),
+        ("gate", "step: the overused gate"),
+        ("select", "step: the task select and its reduction"),
+        ("sweep", "step: the node sweep and its reduction"),
+        ("commit", "step: the commit and its barrier"),
+    ), 2),
     "k9": Kernel("evict_preempt", "K9_PROFILE", "k9_profile_read", "walk", False, (
         ("loop", "the machine loop's own work"),
         ("window_scan", "window: eligibility and the block scan"),
@@ -289,8 +301,63 @@ def express_inputs(scale: float):
     return seen[16], seen[64]
 
 
+def tail_inputs(cfg: int = 6, scale: float = 1.0):
+    """K7b's (spec, enc, state, ctl) as the host-driven machine hands them
+    to the tail of bench config ``cfg``'s allocate solve on the card,
+    float32 (cfg6 caps at full scale)."""
+    from volcano_tpu_torch.bench.clusters import CONFIGS, build_config, make_tiers
+    from volcano_tpu_torch.ops import rounds, rounds_kernels as RK
+    from volcano_tpu_torch.scheduler.framework import close_session, open_session
+    import volcano_tpu_torch.scheduler.actions  # noqa: F401
+    import volcano_tpu_torch.scheduler.plugins  # noqa: F401
+
+    cache, *_ = build_config(cfg, scale)
+    ssn = open_session(cache, make_tiers(["tpuscore"], *CONFIGS[cfg].tiers, arguments={
+        "tpuscore": {"tpuscore.mode": "rounds", "tpuscore.device": "cuda",
+                     "tpuscore.dtype": "float32"}}))
+    try:
+        prep = ssn.batch_allocator._prepare(ssn)
+    finally:
+        close_session(ssn)
+    seen = {}
+    real = RK.tail_pass_plain
+
+    def keep(spec, enc, st, ctl):
+        seen.setdefault("tail", (spec, dict(enc), {k: v.clone() for k, v in st.items()},
+                                 ctl.clone()))
+        return real(spec, enc, st, ctl)
+
+    RK.tail_pass_plain = keep
+    try:
+        rounds.solve(prep["spec"], prep["staged"], loop="host")
+    finally:
+        RK.tail_pass_plain = real
+    if "tail" not in seen:
+        raise RuntimeError(f"kernel_profile: cfg{cfg}'s solve never reached the tail")
+    return seen["tail"]
+
+
 def _cases(kernel: str, args):
-    """[(label, shape dict, run)] of ``kernel``: the calls to profile."""
+    """[(label, shape dict, run, reset)] of ``kernel``: the calls to
+    profile; ``reset`` (or None) restores the state a call updates in
+    place, off the clock."""
+    if kernel == "k7b":
+        from volcano_tpu_torch.ops import rounds_kernels as RK
+
+        spec, enc, st0, ctl0 = tail_inputs(6, args.scale)
+        st = {k: v.clone() for k, v in st0.items()}
+        ctl = ctl0.clone()
+
+        def reset():
+            for k, v in st0.items():
+                st[k].copy_(v)
+            ctl.copy_(ctl0)
+
+        N, R = st0["idle"].shape
+        shape = {"config": 6, "T": enc["task_cls"].shape[0], "N": N, "R": R,
+                 "J": enc["job_tie_rank"].shape[0], "Q": enc["queue_deserved"].shape[0],
+                 "active": int(st0["active"].sum()), "budget": RK.tail_budget(spec)}
+        return [("tail", shape, lambda: RK.tail_pass(spec, enc, st, ctl), reset)]
     if kernel == "k15":
         from volcano_tpu_torch.ops import parity_kernels as PK
 
@@ -298,7 +365,7 @@ def _cases(kernel: str, args):
         shape = {"config": args.config, "T": enc["task_req"].shape[0],
                  "N": enc["node_idle"].shape[0], "J": enc["job_task_start"].shape[0],
                  "ntf": ntf}
-        return [("parity", shape, lambda: PK._solve_cuda(spec, enc, rr0, ntf))]
+        return [("parity", shape, lambda: PK._solve_cuda(spec, enc, rr0, ntf), None)]
     if kernel == "k13":
         from volcano_tpu_torch.ops import evict_kernels as EK
 
@@ -308,7 +375,7 @@ def _cases(kernel: str, args):
             shape = {"J": enc["job_prio"].shape[0], "rows": a[0], "jcap": a[1],
                      "slots": slots}
             cases.append((kind, shape, lambda kind=kind, spec=spec, enc=enc, st=st, a=a, kw=kw:
-                           EK.fuse_heaps(kind, spec, enc, st, *a, **kw)))
+                           EK.fuse_heaps(kind, spec, enc, st, *a, **kw), None))
         return cases
     if kernel == "k14":
         from volcano_tpu_torch.express import place as P
@@ -317,7 +384,7 @@ def _cases(kernel: str, args):
         for label, (spec, a) in zip(("1-task", "64-task"), express_inputs(args.scale)):
             shape = {"N": a[0].shape[0], "tb": spec.tb, "W": spec.window_k,
                      "valid": int(a[9].sum())}
-            cases.append((label, shape, lambda spec=spec, a=a: P.solve_express(spec, *a)))
+            cases.append((label, shape, lambda spec=spec, a=a: P.solve_express(spec, *a), None))
         return cases
     from volcano_tpu_torch.ops import evict_kernels as EK
 
@@ -329,7 +396,35 @@ def _cases(kernel: str, args):
     else:
         cluster, smem, spill = EK.reclaim_layout(n, v, enc["node_used"].dtype)
     shape.update(cluster=cluster, smem=smem, spill=spill)
-    return [(kernel, shape, lambda: EK.solve_packed(spec, enc))]
+    return [(kernel, shape, lambda: EK.solve_packed(spec, enc), None)]
+
+
+def replay_ms(run, reset, reps: int = 5) -> list:
+    """Device ms of ``run`` (one call that updates state in place),
+    captured once in a CUDA graph and replayed ``reps`` times, ``reset``
+    putting the state back before each replay, CUDA events around the
+    replay alone: the device's time without the wrapper's host work."""
+    reset()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        with torch.cuda.graph(graph, stream=stream):
+            run()
+    torch.cuda.current_stream().wait_stream(stream)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(reps):
+        reset()
+        torch.cuda.synchronize()
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return times
 
 
 def _host_ms(run, reps=20) -> float:
@@ -374,9 +469,11 @@ def main() -> int:
     real = _build.library
     _build.library = lambda name: lib if name == k.source else real(name)
     try:
-        for label, shape, run in cases:
+        for label, shape, run, reset in cases:
             run()                                        # warm-up
-            host_ms = _host_ms(run) if spans else None
+            host_ms = _host_ms(run) if spans and reset is None else None
+            if reset is not None:
+                reset()
             torch.cuda.synchronize()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -418,19 +515,25 @@ def main() -> int:
     finally:
         _build.library = real
     # the same calls on the kernels' own build (no marks): CUDA events over
-    # back-to-back calls, as chip_smoke.py times them
-    for label, _, run in cases:
+    # back-to-back calls, as chip_smoke.py times them (one call replayed
+    # in a graph where each starts from the recorded state)
+    for label, _, run, reset in cases:
         run()
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(5):
-            run()
-        end.record()
-        torch.cuda.synchronize()
-        print(json.dumps({"kernel_profile": args.kernel, "case": label, "unmarked_ms":
-                          start.elapsed_time(end) / 5}), flush=True)
+        if reset is None:
+            start.record()
+            for _ in range(5):
+                run()
+            end.record()
+            torch.cuda.synchronize()
+            ms = start.elapsed_time(end) / 5
+        else:
+            reps = replay_ms(run, reset)
+            ms = sum(reps) / len(reps)
+        print(json.dumps({"kernel_profile": args.kernel, "case": label, "unmarked_ms": ms}),
+              flush=True)
     return 0
 
 

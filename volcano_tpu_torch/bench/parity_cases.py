@@ -2,7 +2,8 @@
 version on the card: a session's captured inputs, clusters that reach the
 scan's rarer paths (a gang visit that rolls back after several
 placements; more than 32 namespaces and queues, the block argmins), pad
-nodes inside the round-robin rotation, and the windows that bound it.
+nodes inside the round-robin rotation, the windows that bound it, and a
+capture cut to a prefix of its jobs.
 ``chip_smoke.py`` phase 11 and tests/test_torch_kernels_gpu.py use them."""
 
 from __future__ import annotations
@@ -96,6 +97,18 @@ def pads_inside(enc):
     real[torch.arange(n, device=real.device) % 5 == 2] = False
     enc["node_real"] = real
     enc["real_n"] = torch.tensor(int(real.sum()), dtype=torch.int32, device=real.device)
+    return enc
+
+
+def job_prefix(enc, parts: int):
+    """``enc`` with only the first 1/``parts`` of its jobs (by index)
+    active: the same task and node axes, a scan of about 1/``parts`` of
+    the steps (a step is a task visited; num_to_find only sizes each
+    step's node window)."""
+    enc = dict(enc)
+    active = enc["job_active0"].clone()
+    active[-(-active.shape[0] // parts):] = False
+    enc["job_active0"] = active
     return enc
 
 

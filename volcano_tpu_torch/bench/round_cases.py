@@ -708,3 +708,167 @@ def rank_cases(device="cpu", dtype=torch.float64):
         out.append((label, rank_args(rank_inputs(40 + i, j), RANK_KEY_ORDERS[0], device,
                                      dtype)))
     return out
+
+
+# -- K7b: capped solves whose tails take crafted paths -----------------------
+
+TAIL_KINDS = ("base", "ties", "queues", "no fit", "stuck", "drf")
+
+
+def tail_base_arrays(scale: float = 0.06):
+    """(spec, padded numpy arrays) of the port's own cfg6 allocate encode
+    at ``scale``, capped as tests/test_torch_rounds_gpu.py caps it (a
+    progress floor of 40, two straggler rounds): its tail places the
+    remainder with exclusion groups, the pod check and binpack, and meets
+    jobs whose first tasks the rounds placed."""
+    from volcano_tpu_torch.bench.clusters import CONFIGS, build_config, make_tiers
+    from volcano_tpu_torch.ops import solver
+    from volcano_tpu_torch.scheduler.framework import close_session, open_session
+    import volcano_tpu_torch.scheduler.actions  # noqa: F401
+    import volcano_tpu_torch.scheduler.plugins  # noqa: F401
+
+    cache, *_ = build_config(6, scale)
+    ssn = open_session(cache, make_tiers(["tpuscore"], *CONFIGS[6].tiers, arguments={
+        "tpuscore": {"tpuscore.mode": "rounds", "tpuscore.device": "cpu",
+                     "tpuscore.dtype": "float64"}}))
+    try:
+        prep = ssn.batch_allocator._prepare(ssn)
+    finally:
+        close_session(ssn)
+    arrays = {k: np.array(v) for k, v in solver.pad_encoded(prep["enc"]).items()
+              if k not in solver._ROUNDS_SKIP}
+    spec = prep["spec"]._replace(round_min_progress=40, straggler_rounds=2)
+    return spec, arrays
+
+
+def tail_solve_case(kind: str, base=None):
+    """(spec, arrays) of a capped solve whose tail takes ``kind``
+    (TAIL_KINDS), numpy first (tests/test_torch_tail_cases.py feeds the
+    same arrays to the JAX package):
+
+    - "base": the cfg6 encode as it is;
+    - "ties": every job's priority and tie rank equal and every gang
+      ready (min_available 0), so the jobs tie on every key level and the
+      tail's order falls to task_in_job, then the task index;
+    - "queues": the jobs dealt over three queues (the gate on), each
+      queue's deserved share 0.95 of its jobs' requests over its starting
+      allocation: the rounds stop short of it and the tail takes two
+      queues across their share while it runs;
+    - "stuck": the same at 0.9: the rounds take every queue over its
+      share with tasks left, so the tail's first step finds nothing
+      eligible and stops;
+    - "no fit": the last job's class asks for more than any node holds,
+      so its tasks reach the tail and no node fits them (tail_failed);
+    - "drf": drf first in the job order over every dimension (cfg6 has
+      no drf totals: its shares are all 0), the cluster's capacity the
+      totals, half the jobs' starting allocations -0.0 and the rest +0.0
+      (the rounds' commits add +0.0 to every job's row, so no -0.0
+      reaches a tail this way: ``negative_zero_shares`` puts it there)."""
+    spec, a = base if base is not None else tail_base_arrays()
+    a = {k: v.copy() for k, v in a.items()}
+    if kind == "ties":
+        a["job_priority"][:] = 0
+        a["job_tie_rank"][:] = 0
+        a["job_min_available"][:] = 0
+    elif kind in ("queues", "stuck"):
+        _three_queues(a, 0.95 if kind == "queues" else 0.9)
+        spec = spec._replace(use_prop_overused=True)
+    elif kind == "no fit":
+        last = int(np.nonzero(a["job_task_count"] > 0)[0][-1])
+        c = a["task_cls"][a["job_task_start"][last]]
+        big = a["node_alloc"].max(axis=0) * 2 + 1
+        a["cls_req"][c] = big
+        a["cls_initreq"][c] = big
+        a["cls_nz_cpu"][c] = big[0]
+        a["cls_nz_mem"][c] = big[1]
+    elif kind == "drf":
+        a["drf_present"][:] = True
+        a["drf_total"] = a["node_alloc"].sum(axis=0).astype(a["drf_total"].dtype)
+        a["job_alloc0"][:] = 0.0
+        a["job_alloc0"][::2] = -0.0
+        spec = spec._replace(job_order_keys=("drf",) + tuple(
+            k for k in spec.job_order_keys if k != "drf"))
+    elif kind != "base":
+        raise KeyError(kind)
+    return spec, a
+
+
+def _three_queues(a, frac: float) -> None:
+    """Deal the jobs of ``a`` over three queues, each queue's deserved
+    share ``frac`` of its jobs' requests over its starting allocation."""
+    q, J = 3, a["job_tie_rank"].shape[0]
+    a["job_queue"] = (np.arange(J) % q).astype(a["job_queue"].dtype)
+    r = a["queue_deserved"].shape[1]
+    task_req = a["cls_req"][a["task_cls"]]
+    valid = np.arange(a["task_cls"].shape[0]) < (
+        a["job_task_start"] + a["job_task_count"])[a["task_job"]]
+    want = np.zeros((q, r))
+    np.add.at(want, a["job_queue"][a["task_job"][valid]], task_req[valid])
+    alloc0 = np.zeros((q, r), a["queue_alloc0"].dtype)
+    alloc0[0] = a["queue_alloc0"][0]
+    a["queue_alloc0"] = alloc0
+    a["queue_deserved"] = (alloc0 + want * frac).astype(a["queue_deserved"].dtype)
+    a["queue_present"] = np.repeat(a["queue_present"][:1], q, axis=0)
+    a["queue_tie_rank"] = np.arange(q, dtype=a["queue_tie_rank"].dtype)
+    a["q_in_ns0"] = np.repeat(a["q_in_ns0"][:1], q, axis=0)
+
+
+def negative_zero_shares(st):
+    """A tail's state with every job's allocation -0.0 in every dimension
+    on the even jobs and +0.0 on the odd ones: drf shares of both signs
+    of zero, which tie."""
+    st = dict(st)
+    alloc = torch.zeros_like(st["job_alloc"])
+    alloc[::2] = -0.0
+    st["job_alloc"] = alloc
+    return st
+
+
+def widen_nodes(enc, st, n: int):
+    """A tail's inputs (``enc``, ``st``: the tail pass's) with the node
+    axis tiled to ``n`` nodes: every node column and state row repeated
+    (the sig masks, affinities and exclusion occupancy with it), so the
+    state is too large for K7b's shared-memory placement."""
+    n0 = st["idle"].shape[0]
+    reps = -(-n // n0)
+
+    def tile(t, axis):
+        out = torch.cat([t] * reps, dim=axis)
+        return out.narrow(axis, 0, n).contiguous()
+
+    enc = dict(enc)
+    for k in ("node_max_tasks", "node_alloc"):
+        enc[k] = tile(enc[k], 0)
+    for k in ("sig_mask", "affinity_score"):
+        enc[k] = tile(enc[k], 1)
+    st = dict(st)
+    for k in ("idle", "used", "cnt"):
+        st[k] = tile(st[k], 0)
+    if st.get("excl_occ") is not None:
+        st["excl_occ"] = tile(st["excl_occ"], 1)
+    return enc, st
+
+
+def widen_classes(enc, k: int):
+    """A tail's inputs with the class axis tiled to ``k`` classes (the
+    tasks keep theirs), so K7b's class columns and state no longer fit in
+    shared memory together: the global placement."""
+    k0 = enc["cls_req"].shape[0]
+    reps = -(-k // k0)
+    enc = dict(enc)
+    for name in ("cls_req", "cls_initreq", "cls_sig", "cls_nz_cpu", "cls_nz_mem",
+                 "cls_has_pod"):
+        enc[name] = torch.cat([enc[name]] * reps, dim=0)[:k].contiguous()
+    return enc
+
+
+def split_segments(enc, st):
+    """A tail's inputs with every task a segment of its own (task_in_job
+    decreasing along the task axis) and every task live, so more segments
+    live than K7b's warp-0 select takes: its block-wide select."""
+    enc = dict(enc)
+    enc["task_in_job"] = (-torch.arange(enc["task_in_job"].shape[0], dtype=torch.int32)
+                          ).to(enc["task_in_job"].device)
+    st = dict(st)
+    st["active"] = torch.ones_like(st["active"])
+    return enc, st

@@ -1,9 +1,10 @@
 """Where a warm graph round of the rounds solve (K7) spends the card's time.
 
 ``python -m volcano_tpu_torch.bench.kernel_profile --kernel k7`` runs this
-on the card, for cfg2 (24 rounds, binpack, a GPU scalar dimension) and cfg5
-(one round and the full-width cover), both at full scale, float32, on the
-solver's own encode:
+on the card, for cfg2 (24 rounds, binpack, a GPU scalar dimension), cfg5
+(one round and the full-width cover) and cfg6 (15 rounds, capped: the
+straggler rounds and the tail pass, K7b), all at full scale, float32, on
+the solver's own encode:
 
 1. A solve by the host-driven step machine (``loop="host"``: the same round
    body, launched eagerly) under ``torch.profiler``, with a range around
@@ -79,7 +80,7 @@ KERNEL_NAMES = (
 )
 # the one-thread control kernels (K7a, the condition setters), by name
 CONTROL = ("rounds_ctl", "set_cond")
-CFGS = (2, 5)
+CFGS = (2, 5, 6)
 # a kernel's kind within its group, by a substring of its name
 HANDWRITTEN = ("resolve_prefix", "queue_budget", "round_select", "round_commit",
                "score_block", "window_topk", "rounds_ctl", "tail_pass", "cap_walk",

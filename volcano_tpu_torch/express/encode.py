@@ -66,6 +66,7 @@ class ExpressState:
 
     def __init__(self, cache, device=None, dtype=None):
         from volcano_tpu_torch import device as devmod
+        from volcano_tpu_torch.ops.replica import ScatterPlans
 
         self.cache = cache
         self.device = devmod.resolve_device(device)
@@ -79,6 +80,8 @@ class ExpressState:
         # idiom): a marked row whose visible columns did not actually move
         # is dropped before the scatter
         self._mirror: Optional[dict] = None
+        # K8's plans of the standing columns (dropped with them)
+        self._plans = ScatterPlans()
         self.n = 0
         self.stats = {"rebuilds": 0, "row_patches": 0, "patched_rows": 0,
                       "h2d_puts": 0, "rows_deduped": 0}
@@ -181,6 +184,7 @@ class ExpressState:
 
         cols = ("idle", "alloc", "cnt", "ok", "maxt")
         if self.dev is None:
+            self._plans.clear()
             self._mirror = dict(zip(cols, self._host_cols()))
             self.dev = {k: self._put(v) for k, v in self._mirror.items()}
             self.stats["h2d_puts"] += len(self.dev)
@@ -200,7 +204,8 @@ class ExpressState:
                 return self.dev
             idx = replica_mod.bucket_pad_rows(live)
             pvals = dict(zip(cols, self._host_cols(idx)))
-            self.dev = replica_mod.scatter_rows(self.dev, idx, pvals)
+            self.dev = replica_mod.scatter_rows(self.dev, idx, pvals,
+                                                plans=self._plans)
             for k in cols:
                 self._mirror[k][idx] = pvals[k]
             # counted as the reference counts its puts: the index and the

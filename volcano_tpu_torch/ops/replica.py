@@ -28,9 +28,10 @@ Families and the kernel: one scatter launch per axis family ("node",
 "job", "queue", "ns"), row indices padded to the solver's bucket ladder
 (solver._bucket) by repeating the first dirty row — duplicate writes of
 identical values. On a CUDA tensor the scatter is K8, the hand-written
-kernel in csrc/scatter_rows.cu (one launch over the whole family, rows
-staged from pinned host memory); on a CPU tensor its plain version,
-``index_copy_`` per buffer.
+kernel in csrc/scatter_rows.cu (one launch over the whole family, which
+reads the rows from pinned host memory, through a plan a family and bucket
+width, ``ScatterPlans``, dropped with the standing buffers); on a CPU
+tensor its plain version, ``index_copy_`` per buffer.
 
 In place instead of donation. JAX updates functionally and marks a
 consumed (donated) buffer deleted; the port writes the standing tensors
@@ -164,80 +165,202 @@ def scatter_rows_plain(dev: Dict[str, torch.Tensor], idx,
     return dev
 
 
-def stage_scatter(dev: Dict[str, torch.Tensor], idx,
-                  rows: Dict[str, object]) -> tuple:
-    """K8's host half: checks, then one pinned staging buffer holding the
-    index and every source block (each section 16-byte aligned), moved to
-    the card in one asynchronous copy. Returns the launch arguments of
-    ``launch_scatter`` (the staged buffer among them, kept alive)."""
+def _lib():
     from volcano_tpu_torch import _build
 
-    names = list(dev)
-    idx = np.ascontiguousarray(np.asarray(idx, np.int32))
-    m = int(idx.shape[0])
-    ref = dev[names[0]]
     lib = _build.library("scatter_rows")
-    if len(names) > lib.scatter_rows_max_bufs():
-        raise ValueError(f"scatter_rows: {len(names)} buffers in one family")
-    srcs, offs, widths = [], [], []
-    off = (idx.nbytes + 15) & ~15
-    for k in names:
-        buf = dev[k]
-        if buf.device != ref.device:
-            raise ValueError(f"{k}: on {buf.device}, expected {ref.device}")
-        if not buf.is_contiguous() or buf.dim() < 1:
-            raise ValueError(f"{k}: not a contiguous row-major buffer")
-        src = _host_rows(rows[k], buf)
-        if src.shape != (m,) + tuple(buf.shape[1:]):
-            raise ValueError(f"{k}: rows {src.shape} for buffer {tuple(buf.shape)}")
-        srcs.append(src)
-        offs.append(off)
-        widths.append(buf[0].numel() * buf.element_size())
-        off += (src.nbytes + 15) & ~15
-    host = torch.empty(off, dtype=torch.uint8, pin_memory=True)
-    hn = host.numpy()
-    hn[:idx.nbytes] = idx.view(np.uint8)
-    for src, o in zip(srcs, offs):
-        hn[o:o + src.nbytes] = src.reshape(-1).view(np.uint8)
-    staged = host.to(ref.device, non_blocking=True)
-    base = staged.data_ptr()
-    nb = len(names)
-    dst_t = (ctypes.c_void_p * nb)(*[dev[k].data_ptr() for k in names])
-    src_t = (ctypes.c_void_p * nb)(*[base + o for o in offs])
-    rb_t = (ctypes.c_int * nb)(*widths)
-    stream = torch.cuda.current_stream(ref.device).cuda_stream
-    return (lib, staged, nb, dst_t, src_t, rb_t, m, stream)
+    if lib.scatter_plan_run.argtypes is None:
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        lib.scatter_plan_new.argtypes = [i, vp, vp, vp, i, ctypes.c_longlong]
+        lib.scatter_plan_new.restype = vp
+        lib.scatter_plan_host.argtypes = [vp, i]
+        lib.scatter_plan_host.restype = vp
+        lib.scatter_plan_free.argtypes = [vp]
+        lib.scatter_plan_free.restype = i
+        for fn in (lib.scatter_plan_run, lib.scatter_plan_launch):
+            fn.argtypes = [vp, i, vp]
+            fn.restype = i
+    return lib
 
 
-def launch_scatter(args: tuple) -> None:
-    """K8's launch, on the arguments ``stage_scatter`` made."""
-    lib, staged, nb, dst_t, src_t, rb_t, m, stream = args
-    fn = lib.scatter_rows
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    rc = fn(nb, ctypes.cast(dst_t, ctypes.c_void_p),
-            ctypes.cast(src_t, ctypes.c_void_p),
-            ctypes.cast(rb_t, ctypes.c_void_p),
-            ctypes.c_void_p(staged.data_ptr()), m, ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError(f"scatter_rows kernel launch failed: CUDA error {rc}")
-    devmod.count_launch("scatter_rows")
+def _raw_stream(index: int) -> int:
+    """The current CUDA stream of device ``index`` as an integer."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(index)
+    return torch.cuda.current_stream(index).cuda_stream
+
+
+class ScatterPlan:
+    """K8 planned for one family of standing buffers at one padded bucket
+    width ``m`` (csrc/scatter_rows.cu): the C plan, which holds the
+    buffers' pointers, row widths, copy words and grid and two staging
+    slots, each a block of pinned host memory mapped for the card of the
+    bucket's size (the int32 index, then each buffer's rows, every section
+    16-byte aligned); and numpy views of the blocks. ``run`` writes the
+    rows into the current slot's views and makes one C call (the launch,
+    which reads them over the bus, the slot's event, the wait for the
+    other slot's last launch)."""
+
+    def __init__(self, dev: Dict[str, torch.Tensor], m: int):
+        lib = _lib()
+        names = tuple(dev)
+        if not names or m <= 0:
+            raise ValueError("scatter_rows: no buffers or no rows")
+        if len(names) > lib.scatter_rows_max_bufs():
+            raise ValueError(f"scatter_rows: {len(names)} buffers in one family")
+        ref = dev[names[0]]
+        offs, widths, shapes = [], [], []
+        off = (m * 4 + 15) & ~15
+        for k in names:
+            buf = dev[k]
+            if buf.device != ref.device:
+                raise ValueError(f"{k}: on {buf.device}, expected {ref.device}")
+            if not buf.is_contiguous() or buf.dim() < 1 or buf.dtype not in _NP_DTYPE:
+                raise ValueError(f"{k}: not a contiguous row-major buffer")
+            width = buf[0].numel() * buf.element_size()
+            if width <= 0:
+                raise ValueError(f"{k}: empty rows")
+            offs.append(off)
+            widths.append(width)
+            shapes.append((m,) + tuple(buf.shape[1:]))
+            off += (m * width + 15) & ~15
+        self.names, self.m, self.bytes = names, m, off
+        # what the plan was made for, checked on every call (matches)
+        self._bufs = tuple((k, dev[k].data_ptr(), dev[k].dtype, dev[k].shape)
+                           for k in names)
+        self.index = ref.device.index
+        nb = len(names)
+        self._lib = lib
+        with torch.cuda.device(self.index):
+            self.handle = lib.scatter_plan_new(
+                nb, (ctypes.c_void_p * nb)(*[dev[k].data_ptr() for k in names]),
+                (ctypes.c_int * nb)(*widths), (ctypes.c_longlong * nb)(*offs), m, off)
+        if not self.handle:
+            raise RuntimeError("scatter_rows: the plan was refused (sizes, blocks or events)")
+        # a slot: the index's view, then (name, view) a buffer
+        self.views = []
+        for slot in range(2):
+            hn = np.ctypeslib.as_array(
+                (ctypes.c_uint8 * off).from_address(lib.scatter_plan_host(self.handle, slot)))
+            self.views.append((hn[:m * 4].view(np.int32), tuple(
+                (k, hn[o:o + m * w].view(_NP_DTYPE[dev[k].dtype]).reshape(shape))
+                for k, o, w, shape in zip(names, offs, widths, shapes))))
+        self.slot = 0
+
+    def matches(self, dev: Dict[str, torch.Tensor]) -> bool:
+        """``dev`` holds the buffers the plan was made for: the same names,
+        pointers, dtypes and shapes."""
+        if len(dev) != len(self._bufs):
+            return False
+        for k, ptr, dtype, shape in self._bufs:
+            t = dev.get(k)
+            if t is None or t.data_ptr() != ptr or t.dtype != dtype or t.shape != shape:
+                return False
+        return True
+
+    def write(self, idx, rows: Dict[str, object]) -> None:
+        """The index and each buffer's rows into the current slot's pinned
+        block (cast to the buffer's dtype as ``scatter_rows_plain`` casts)."""
+        iv, views = self.views[self.slot]
+        idx = np.asarray(idx)
+        if idx.shape != iv.shape:
+            raise ValueError(f"scatter_rows: index {idx.shape} for a plan of {iv.shape}")
+        np.copyto(iv, idx, casting="unsafe")
+        for k, view in views:
+            v = rows[k]
+            if isinstance(v, torch.Tensor):
+                v = v.cpu().numpy()
+            v = np.asarray(v)
+            if v.shape != view.shape:
+                raise ValueError(f"{k}: rows {v.shape} for buffer rows {view.shape}")
+            np.copyto(view, v, casting="unsafe")
+
+    def run(self, idx, rows: Dict[str, object]) -> None:
+        """One scatter: the rows staged, then one C call."""
+        self.write(idx, rows)
+        rc = self._lib.scatter_plan_run(self.handle, self.slot, _raw_stream(self.index))
+        if rc != 0:
+            raise RuntimeError(f"scatter_rows kernel launch failed: CUDA error {rc}")
+        self.slot ^= 1
+        devmod.count_launch("scatter_rows")
+
+    def launch(self, slot: int) -> None:
+        """Slot ``slot``'s launch alone, with no event and no wait: what a
+        CUDA graph captures to time the device's part."""
+        rc = self._lib.scatter_plan_launch(self.handle, slot, _raw_stream(self.index))
+        if rc != 0:
+            raise RuntimeError(f"scatter_rows kernel launch failed: CUDA error {rc}")
+        devmod.count_launch("scatter_rows")
+
+    def close(self) -> None:
+        """Free the C plan and its blocks once its launches are done (its
+        views are dropped first)."""
+        if self.handle:
+            handle, self.handle = self.handle, None
+            self.views = []
+            rc = self._lib.scatter_plan_free(handle)
+            if rc != 0:
+                raise RuntimeError(f"scatter_rows: a launch failed: CUDA error {rc}")
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:  # interpreter shutdown: the library may be gone
+            pass
+
+
+class ScatterPlans:
+    """The K8 plans of one owner of standing buffers (the replica, the
+    express lane), by the family's first buffer name (a name belongs to
+    one family of an owner), then the padded bucket width. The owner drops
+    them when it rebuilds its buffers; a plan whose buffers' names,
+    pointers, dtypes or shapes no longer match is remade in any case."""
+
+    def __init__(self):
+        self._plans: Dict[str, Dict[int, ScatterPlan]] = {}
+
+    def __len__(self) -> int:
+        return sum(len(by_m) for by_m in self._plans.values())
+
+    def get(self, dev: Dict[str, torch.Tensor], m: int) -> ScatterPlan:
+        for first in dev:
+            break
+        else:
+            raise ValueError("scatter_rows: no buffers")
+        by_m = self._plans.get(first)
+        if by_m is None:
+            by_m = self._plans[first] = {}
+        plan = by_m.get(m)
+        if plan is None or not plan.matches(dev):
+            if plan is not None:
+                plan.close()
+            plan = by_m[m] = ScatterPlan(dev, m)
+        return plan
+
+    def clear(self) -> None:
+        plans, self._plans = self._plans, {}
+        for by_m in plans.values():
+            for plan in by_m.values():
+                plan.close()
 
 
 def scatter_rows(dev: Dict[str, torch.Tensor], idx,
-                 rows: Dict[str, object]) -> Dict[str, torch.Tensor]:
+                 rows: Dict[str, object],
+                 plans: Optional[ScatterPlans] = None) -> Dict[str, torch.Tensor]:
     """K8, the ONE bucketed row scatter shared by every axis family (and
     by the express lane's column patch — express/encode.py): writes
     ``rows[k]`` into ``dev[k]`` at the row indices ``idx``, in place, and
     returns the same dict (callers read as in the reference, whose update
     is functional). ``idx`` must already be padded to a bucket width
-    (bucket_pad_rows). On CUDA tensors this launches csrc/scatter_rows.cu
-    (raising if it cannot); on CPU tensors it runs the plain version."""
+    (bucket_pad_rows). On CUDA tensors this runs csrc/scatter_rows.cu
+    through the plan for (family, width) in ``plans``, the buffers'
+    owner's (raising if it cannot); on CPU tensors it runs the plain
+    version."""
     if devmod.on_cuda(*dev.values()):
-        launch_scatter(stage_scatter(dev, idx, rows))
+        if plans is None:
+            raise ValueError("scatter_rows on the card takes the buffers' owner's ScatterPlans")
+        plans.get(dev, len(idx)).run(idx, rows)
         return dev
     return scatter_rows_plain(dev, idx, rows)
 
@@ -294,6 +417,8 @@ class DeviceReplica:
         # whole-encode reuse memo (serve_prepare / store_prepare)
         self._prep_token = None
         self._prep = None
+        # K8's plans of the standing buffers (dropped with them)
+        self._plans = ScatterPlans()
         self.stats = {
             "serves": 0, "scatters": 0, "scatter_rows": 0,
             "scatter_ms": 0.0, "rebuilds": {}, "encode_reuses": 0,
@@ -308,6 +433,7 @@ class DeviceReplica:
 
     def invalidate(self) -> None:
         """Drop all device state; the next serve rebuilds (counted)."""
+        self._plans.clear()
         self.mirror.clear()
         self.dev.clear()
         self._versions.clear()
@@ -437,6 +563,7 @@ class DeviceReplica:
     def _rebuild(self, arrays, enc, place, reason: str) -> None:
         rb = self.stats["rebuilds"]
         rb[reason] = rb.get(reason, 0) + 1
+        self._plans.clear()
         self.mirror = dict(arrays)
         self.dev = {}
         self._place = place
@@ -513,7 +640,8 @@ class DeviceReplica:
         names = [n for n in FAMILIES[family] if n in arrays]
         idx = bucket_pad_rows(rows)
         vals = {n: np.ascontiguousarray(arrays[n][idx]) for n in names}
-        out = scatter_rows({n: self.dev[n] for n in names}, idx, vals)
+        out = scatter_rows({n: self.dev[n] for n in names}, idx, vals,
+                           plans=self._plans)
         self.dev.update(out)
         self._seal(names)
         self.stats["scatters"] += 1

@@ -1309,24 +1309,51 @@ def tail_pass_plain(spec, enc, st, ctl) -> None:
 class _TailParams(ctypes.Structure):
     _fields_ = ([(name, ctypes.c_void_p) for name, _ in TAIL_INPUTS]
                 + [(name, ctypes.c_void_p) for name, _ in TAIL_STATE]
-                + [("ctl", ctypes.c_void_p)]
+                + [("ctl", ctypes.c_void_p), ("scratch", ctypes.c_void_p)]
                 + [(name, ctypes.c_int) for name in (
-                    "T", "N", "R", "J", "Q", "S", "G", "budget", "n_job_keys",
+                    "T", "N", "R", "J", "Q", "S", "G", "K", "budget", "n_job_keys",
                     "key0", "key1", "key2", "use_prop_overused",
                     "check_pod_count", "use_exclusion", "use_nodeorder",
                     "use_binpack")])
+
+
+def _tail_lib():
+    from volcano_tpu_torch import _build
+
+    lib = _build.library("tail_pass")
+    if lib.tail_pass_f32.argtypes is None:
+        for fn in (lib.tail_pass_f32, lib.tail_pass_f64):
+            fn.argtypes = [ctypes.POINTER(_TailParams), ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        lib.tail_pass_scratch_bytes.argtypes = [ctypes.c_int] * 2
+        lib.tail_pass_scratch_bytes.restype = ctypes.c_longlong
+        lib.tail_pass_placement.argtypes = [ctypes.c_int] * 8
+        lib.tail_pass_placement.restype = ctypes.c_int
+    return lib
+
+
+TAIL_PLACEMENTS = ("global", "shared")
+
+
+def tail_placement(T: int, N: int, R: int, J: int, Q: int, S: int, K: int, dtype) -> str:
+    """Where K7b keeps the pass's state and class columns at these sizes on
+    the card (one of TAIL_PLACEMENTS): "shared" (staged in shared memory
+    for the whole pass, where they all fit) or "global"."""
+    fits = _tail_lib().tail_pass_placement(T, N, R, J, Q, S, K, int(dtype == torch.float64))
+    if fits < 0:
+        raise ValueError(f"tail_pass: {Q} queues exceed the shared-memory gate")
+    return TAIL_PLACEMENTS[fits]
 
 
 def tail_pass(spec, enc, st, ctl) -> None:
     """K7b (csrc/tail_pass.cu, one block, one launch for the whole tail)
     on CUDA, the plain version on the CPU. ``enc`` holds TAIL_INPUTS,
     ``st`` TAIL_STATE (updated in place); the tasks placed land in
-    ctl[C_TAIL_PLACED]."""
+    ctl[C_TAIL_PLACED]. The sizes choose the kernel's placement
+    (``tail_placement``)."""
     if not devmod.on_cuda(st["idle"], ctl):
         tail_pass_plain(spec, enc, st, ctl)
         return
-    from volcano_tpu_torch import _build
-
     dev = ctl.device
     dt = st["idle"].dtype
     kinds = {"f": dt, "i": torch.int32, "b": torch.bool}
@@ -1362,8 +1389,12 @@ def tail_pass(spec, enc, st, ctl) -> None:
             setattr(p, name, t.data_ptr())
     _check(ctl, "ctl", torch.int32, (CTL_LEN,))
     p.ctl = ctl.data_ptr()
+    lib = _tail_lib()
+    # the per-segment scratch, planned once a size (rebuilt by every launch)
+    p.scratch = _scratch("tail_pass", dev, -(-lib.tail_pass_scratch_bytes(T, J) // 8)).data_ptr()
     codes = [JOB_KEY_CODES[k] for k in spec.job_order_keys] + [-1] * 3
-    ints = dict(T=T, N=N, R=R, J=J, Q=Q, S=S, G=G, budget=tail_budget(spec),
+    ints = dict(T=T, N=N, R=R, J=J, Q=Q, S=S, G=G, K=enc["cls_req"].shape[0],
+                budget=tail_budget(spec),
                 n_job_keys=len(spec.job_order_keys), key0=codes[0],
                 key1=codes[1], key2=codes[2],
                 use_prop_overused=int(spec.use_prop_overused),
@@ -1373,10 +1404,7 @@ def tail_pass(spec, enc, st, ctl) -> None:
                 use_binpack=int(spec.use_binpack))
     for name, val in ints.items():
         setattr(p, name, val)
-    lib = _build.library("tail_pass")
     fn = lib.tail_pass_f64 if dt == torch.float64 else lib.tail_pass_f32
-    fn.argtypes = [ctypes.POINTER(_TailParams), ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     rc = fn(ctypes.byref(p), _stream(ctl))
     if rc != 0:
         raise RuntimeError(f"tail_pass kernel launch failed: CUDA error {rc}")
