@@ -109,7 +109,10 @@ Phases, each failing the run on any error:
    the first fused reclaim-path run's; each held against its plain
    version with torch.equal (the packed int32 result, K13's every output,
    the fused K9's every carry tensor; float32 state), and timed (K13 also
-   its wrapper's host time a call, ``host_ms``); K9's and
+   its wrapper's host time a call, ``host_ms``; K11 that and 20 calls in
+   a CUDA graph, ``graph_ms``); K11 also on bench/backfill_cases.py's
+   crafted inputs, each in the placement its sizes choose and, widened,
+   in the global one (one launch a call, torch.equal); K9's and
    K10's shape lines give their cluster's CTAs, a CTA's shared memory
    (static from ptxas -v, dynamic from the launcher) and microseconds a
    walk (K9) or a fold (K10).
@@ -186,7 +189,8 @@ Phases, each failing the run on any error:
    the cluster build outside every timed window): at d = 1 and d = 8
    shards (N/d = 32,500 and 4,063 of the padded axis), K16a probe_refresh (16 launches of
    K1) and K16b probe_evict_fold (one launch) torch.equal to their plain
-   versions on one shard's slice, each timed (5 calls after 1 warm-up);
+   versions on one shard's slice, each timed (5 calls after 1 warm-up;
+   K16b also 20 calls in a CUDA graph and its wrapper's host time);
    (b) the bench's entry point ``main`` on the card (default --device
    cuda): cfg5 with both arms (the serial arm extrapolated under
    --serial-budget), the mesh curve at cfg7 0.2, the express lane (32
@@ -788,6 +792,8 @@ def finish_record(rec):
         f"bound {rec['bound_ms']:.5f} ms ({rec['bound_by']})")
     line = {"kernel": rec["name"], "shape": rec["shape"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "library_ms": rec["library_ms"]}
+    if "graph_ms" in rec:
+        line["graph_ms"] = rec["graph_ms"]  # 20 calls in a CUDA graph
     if "host_ms" in rec:
         line["host_ms"] = rec["host_ms"]    # the wrapper's host time a call
     print(json.dumps(line), flush=True)
@@ -878,16 +884,21 @@ def evict_kernel_phase(captured):
         stats = dict(EK.STATS)
         same(got, want, name)
         ms = time_ms(lambda: EK.solve_packed(spec, enc), reps=5, warmup=1)
+        extra = {}
         if kind == "backfill":
             used = ("sig_mask", "node_cnt", "node_max", "b_sig", "b_has_pod", "b_real")
             s_rows, n = enc["sig_mask"].shape
             t_total = enc["b_sig"].shape[0]
+            extra = dict(graph_ms=graph_ms(lambda: EK.backfill(spec, enc)),
+                         host_ms=host_ms(lambda: EK.backfill(spec, enc)))
             # pod counts only rise, so the first feasible node of each
             # (signature, has_pod) never moves back: one cursor each walks
             # the node axis once (mask, count test, and), plus a lookup and
             # a bump per task
             ops = (2 if spec.check_pod_count else 1) * s_rows * n * 3 + t_total * 4
-            shape = f"T={t_total} S={s_rows} N={n} ({src})"
+            shape = (f"T={t_total} S={s_rows} N={n} ({src}), "
+                     f"{EK.backfill_placement(n, s_rows, t_total)} placement, "
+                     f"{int((got >= 0).sum())} placed")
         else:
             used = [k for k in EK._INPUTS if k in enc]
             n, v = enc["vic_job"].shape
@@ -909,10 +920,44 @@ def evict_kernel_phase(captured):
             max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
             bytes=nbytes(*(enc[k] for k in used)) + nbytes(got), ops=ops,
             dtype=enc["node_used"].dtype if "node_used" in enc else torch.int32,
-            shape=shape)
+            shape=shape, **extra)
         finish_record(rec)
         records.append(rec)
+    backfill_crafted_phase()
     return records
+
+
+def backfill_crafted_phase():
+    """K11 on bench/backfill_cases.py's crafted inputs: each case in the
+    placement its sizes choose and, widened by all-false node columns, in
+    the global placement; one launch a call, torch.equal to the plain
+    version on the card."""
+    from volcano_tpu_torch import device as devmod
+    from volcano_tpu_torch.bench import backfill_cases
+    from volcano_tpu_torch.ops import evict_kernels as EK
+
+    t0 = time.perf_counter()
+    held = []
+    for name, check_pod, arrays in backfill_cases.cases():
+        spec = backfill_cases.spec(check_pod)
+        s_rows, n = arrays["sig_mask"].shape
+        t_total = arrays["b_sig"].shape[0]
+        variants = [arrays]
+        if EK.backfill_placement(n, s_rows, t_total) == "shared":
+            variants.append(backfill_cases.widen_nodes(arrays, backfill_cases.global_width(s_rows)))
+        for a in variants:
+            enc = {k: torch.from_numpy(v).cuda() for k, v in a.items()}
+            where = EK.backfill_placement(a["sig_mask"].shape[1], s_rows, t_total)
+            devmod.reset_launches()
+            got = EK.backfill(spec, enc)
+            torch.cuda.synchronize()
+            if devmod.launches()["evict_backfill"] != 1:
+                raise AssertionError(f"evict_backfill {name} ({where}): "
+                                     f"{devmod.launches()['evict_backfill']} launches")
+            same(got, EK.backfill_plain(spec, enc), f"evict_backfill {name} ({where})")
+            held.append(f"{name} ({where})")
+    log(f"evict_backfill: crafted cases equal to plain, one launch each: "
+        f"{', '.join(held)} ({time.perf_counter() - t0:.1f} s)")
 
 
 def cluster_layout(kind, enc, ms, units, unit):
@@ -3412,6 +3457,8 @@ def k16_phase(scale=K16_CFG7_SCALE, device="cuda", dtype="float32"):
             source="volcano_tpu_torch/csrc/probe_evict_fold.cu",
             replaces="volcano_tpu/ops/shard.py:215", max_abs_err=0.0,
             ms=time_ms(lambda: shard.probe_evict_fold(*fold), reps=5, warmup=1),
+            graph_ms=graph_ms(lambda: shard.probe_evict_fold(*fold)),
+            host_ms=host_ms(lambda: shard.probe_evict_fold(*fold)),
             plain_ms=fold_plain_ms, library_ms=None,
             bytes=nbytes(*fold) + 4,
             ops=reps * w_ * v_ * 6 * r_ + stats["updates"] * r_, dtype=dt,

@@ -143,3 +143,49 @@ def test_fold_ties_and_near_ties_on_the_card():
         assert int(got) == 5
         full = shard.probe_evict_fold(*(a.cuda() for a in args))
         assert torch.equal(full.cpu(), shard.probe_evict_fold_plain(*args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("reps", [1, 16])
+@pytest.mark.parametrize("w", [1, 15, 16 * 40 + 7, 4063])
+def test_fold_ragged_rows_and_reps(w, reps, dtype):
+    """Row counts that are not a multiple of a block's rows (16 at 16
+    reps, 256 at one), at one and at 16 reps: equal to the plain version,
+    one launch a call."""
+    _cuda()
+    args = _fold(w, 8, 2, seed=w + reps, dtype=dtype)
+    devmod.reset_launches()
+    got = shard.probe_evict_fold(*args, reps=reps)
+    torch.cuda.synchronize()
+    assert devmod.launches()["probe_evict_fold"] == 1
+    want = shard.probe_evict_fold_plain(*args, reps=reps)
+    assert torch.equal(got, want), (int(got), int(want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_fold_in_a_cuda_graph(dtype):
+    """The factors are built once (outside the capture), so a probe is
+    captured whole; 20 replays on changing requests, each equal to the
+    plain version."""
+    _cuda()
+    args = _fold(2000 + 5, 8, 2, seed=3, dtype=dtype)
+    shard.probe_evict_fold(*args)                 # factors and library, once
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    devmod.reset_launches()
+    with torch.cuda.stream(stream):
+        with torch.cuda.graph(graph, stream=stream):
+            out = shard.probe_evict_fold(*args)
+    torch.cuda.current_stream().wait_stream(stream)
+    assert devmod.launches()["probe_evict_fold"] == 1
+    for seed in range(20):
+        fresh = _fold(2000 + 5, 8, 2, seed=100 + seed, dtype=dtype)
+        for a, b in zip(args, fresh):
+            a.copy_(b)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, shard.probe_evict_fold_plain(*args)), seed

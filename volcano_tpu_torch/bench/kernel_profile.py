@@ -1,13 +1,13 @@
-"""Where a kernel's time goes: K7b, K9, K10, K13, K14 or K15, phase by phase,
+"""Where a kernel's time goes: K7b, K9, K10, K11, K13, K14 or K15, phase by phase,
 on the card; and, with ``--kernel k7``, where a warm graph round of the
 rounds solve spends it, node group by node group (bench/round_split.py).
 
 Builds the kernel's source with its profile flag (``-DK7B_PROFILE``,
-``-DK9_PROFILE``, ``-DK10_PROFILE``, ``-DK13_PROFILE``, ``-DK14_PROFILE``
-or ``-DK15_PROFILE``), which turns the kernel's PROF(k) marks into
-clock64() reads at the thread that runs its control machine (CTA 0
-thread 0; K7b's, K13's and K15's block thread 0; K14's walk CTA 0 thread
-0), takes the kernel's
+``-DK9_PROFILE``, ``-DK10_PROFILE``, ``-DK11_PROFILE``, ``-DK13_PROFILE``,
+``-DK14_PROFILE`` or ``-DK15_PROFILE``), which turns the kernel's PROF(k)
+marks into clock64() reads at the thread that runs its control machine
+(CTA 0 thread 0; K7b's, K11's, K13's and K15's block thread 0; K14's walk
+CTA 0 thread 0), takes the kernel's
 inputs from a session on the card (float32), runs them through that build
 and prints each phase's share of the kernel's time and microseconds a unit
 of work:
@@ -17,6 +17,10 @@ of work:
   step. Its lines add the kernel's device span (globaltimer marks), to
   which its phases are scaled; every call starts from the recorded state;
 - k9: the preempt machine of a per-action cfg4 session; a walk;
+- k11: the backfill placements of a per-action cfg4 session (the shared
+  placement) and bench/backfill_cases.py's N = 40,000, S = 64 case (the
+  global one); a task. Its lines add the kernel's device span
+  (globaltimer marks), to which its phases are scaled;
 - k10: the reclaim machine of a per-action reclaim-path session
   (``bench/reclaim_path.py``); a candidate fold (one walk iteration);
 - k13: both heap rebuilds (preempt, reclaim) of a fused cfg4 session; a
@@ -101,6 +105,12 @@ KERNELS = {
         ("cut", "the eviction cut and the pipeline"),
         ("barrier", "the iteration's closing barriers"),
     )),
+    "k11": Kernel("evict_backfill", "K11_PROFILE", "k11_profile_read", "task", True, (
+        ("setup", "the bitsets, headroom, room bits, first nodes and cursors"),
+        ("read", "32 tasks: their columns and ballots, the assign store"),
+        ("cursor", "a run's cursor word (a ballot past spent words), a single's node"),
+        ("commit", "a run's scan, search and headroom; a single's headroom"),
+    ), 2),
     "k13": Kernel("fuse_heaps", "K13_PROFILE", "k13_profile_read", "push", True, (
         ("zero", "the outputs zeroed, the evictions counted (reclaim)"),
         ("slots", "the slot pass: decisions, compaction, keys"),
@@ -200,6 +210,25 @@ def evict_inputs(kernel: str, scale: float):
 
     return _capture_evict("reclaim", lambda: (
         reclaim_path_cluster(scale)[0], RECLAIM_TIERS, EVICT_ACTIONS))
+
+
+def backfill_cases_inputs(scale: float):
+    """K11's [(label, spec, enc)]: a per-action cfg4 session's call and
+    bench/backfill_cases.py's N = 40,000, S = 64 case, on the card."""
+    from volcano_tpu_torch.bench import backfill_cases
+    from volcano_tpu_torch.bench.clusters import CONFIGS, build_config
+
+    def build():
+        cache, _, _, actions, _ = build_config(4, scale)
+        return cache, CONFIGS[4].tiers, actions
+
+    spec, enc = _capture_evict("backfill", build)
+    out = [("cfg4", spec, enc)]
+    for name, check_pod, arrays in backfill_cases.cases():
+        if name == "N=40000 S=64":
+            out.append((name, backfill_cases.spec(check_pod),
+                        {k: torch.from_numpy(v).cuda() for k, v in arrays.items()}))
+    return out
 
 
 def parity_inputs(cfg: int, scale: float):
@@ -358,6 +387,19 @@ def _cases(kernel: str, args):
                  "J": enc["job_tie_rank"].shape[0], "Q": enc["queue_deserved"].shape[0],
                  "active": int(st0["active"].sum()), "budget": RK.tail_budget(spec)}
         return [("tail", shape, lambda: RK.tail_pass(spec, enc, st, ctl), reset)]
+    if kernel == "k11":
+        from volcano_tpu_torch.ops import evict_kernels as EK
+
+        cases = []
+        for label, spec, enc in backfill_cases_inputs(args.scale):
+            s_rows, n = enc["sig_mask"].shape
+            t_total = enc["b_sig"].shape[0]
+            shape = {"T": t_total, "S": s_rows, "N": n,
+                     "placement": EK.backfill_placement(n, s_rows, t_total)}
+            # no state to restore: the graph replay times the unmarked launch
+            cases.append((label, shape, lambda spec=spec, enc=enc: EK.backfill(spec, enc),
+                          lambda: None))
+        return cases
     if kernel == "k15":
         from volcano_tpu_torch.ops import parity_kernels as PK
 

@@ -19,19 +19,24 @@
 // the slot updates). Built with --fmad=false: nothing is contracted, so
 // every rounding is the plain version's.
 //
-// A walk is a sequential state machine per row, so one thread owns one
-// row: qcur and the row's requests live in registers (V and R are template
-// parameters, the loops unrolled), the deserved floors and allocations
-// (a [Q, R] table) come through the read-only cache. Each thread's count
-// is reduced through its warp (shuffles), then its block (shared memory),
-// and one atomicAdd a block lands it in the int32 result, which the entry
-// zeroes first on the same stream.
+// Design: the reps are independent (each starts from queue_alloc[q] x
+// its factor), so a thread owns one (row, rep) walk: W x reps threads,
+// 520,000 at W = 32,500 and 16 reps, about two waves of 256-thread
+// blocks. A block takes a run of whole rows (16 at 16 reps) and stages
+// them through shared memory first: the rows' vic_req with 16-byte loads
+// where the addresses allow, each slot's queue allocation and deserved
+// floor (gathered once a block from the [Q, R] tables), and each victim's
+// samequeue row folded into a bitmask. The rep-threads of a row read
+// them there (a broadcast); qcur lives in registers (V and R are template
+// parameters, the loops unrolled; a step updates only the slots after
+// it, the only ones read again). The count is summed by warp shuffles,
+// then by one shared and one global integer add a block (the order of
+// integer adds does not change the sum); the entry zeroes the int32
+// result first on the same stream (a memset, its own node in a graph).
 //
-// Bound: at cfg7 (W = 50,000 at one shard, V = 8, R = 2, float32) the
-// inputs are about 8 MB read once and the reps x W x V x (6R + V R)
-// operations about 0.18 G: both bounds a few microseconds. The walk is
-// V dependent steps a rep, 16 reps, over 50,000 rows: one wave of 196
-// blocks of 256 threads.
+// Bound: at cfg7 x 0.65 (W = 32,500 at one shard, V = 8, R = 2, float32)
+// the inputs are about 5.2 MB read once, 0.00155 ms at 3.35 TB/s; the
+// reps x W x V x 6R operations, 0.05 G, take under a microsecond.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -39,43 +44,94 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kStageBytes = 32 * 1024;  // a block's staged rows at most (under
+                                        // the 48 KB a launch takes unasked)
 
 __device__ __forceinline__ float vt_abs(float x) { return fabsf(x); }
 __device__ __forceinline__ double vt_abs(double x) { return fabs(x); }
 
-template <typename T, int V, int R>
-__global__ void fold_kernel(int W, int reps, const T* __restrict__ vic_req,
-                            const int32_t* __restrict__ vic_queue,
-                            const bool* __restrict__ samequeue,
-                            const T* __restrict__ queue_alloc,
-                            const T* __restrict__ queue_deserved,
-                            const T* __restrict__ eps,
-                            const T* __restrict__ factors,
-                            int32_t* __restrict__ out) {
-  const int w = blockIdx.x * blockDim.x + threadIdx.x;
-  int count = 0;
-  if (w < W) {
-    T req[V][R];
-    int q[V];
-    uint32_t same[V];
+// `bytes` from `src` to shared `dst` by the block: 16-byte words where
+// both addresses and the size allow, else 4-byte words, else bytes
+__device__ __forceinline__ void stage(void* dst, const void* src, int bytes) {
+  const uintptr_t a = (uintptr_t)src | (uintptr_t)dst;
+  if ((a & 15) == 0 && (bytes & 15) == 0) {
+    for (int i = threadIdx.x; i < bytes / 16; i += blockDim.x)
+      ((uint4*)dst)[i] = __ldg((const uint4*)src + i);
+  } else if ((a & 3) == 0 && (bytes & 3) == 0) {
+    for (int i = threadIdx.x; i < bytes / 4; i += blockDim.x)
+      ((uint32_t*)dst)[i] = __ldg((const uint32_t*)src + i);
+  } else {
+    for (int i = threadIdx.x; i < bytes; i += blockDim.x)
+      ((uint8_t*)dst)[i] = __ldg((const uint8_t*)src + i);
+  }
+}
+
+// the bitmask of one victim's samequeue row (V bools): 4-byte words
+// where V and the address allow, else bytes
+template <int V>
+__device__ __forceinline__ uint32_t same_bits(const bool* row) {
+  uint32_t bits = 0;
+  if constexpr (V % 4 == 0) {
+    if ((((uintptr_t)row) & 3) == 0) {
 #pragma unroll
-    for (int v = 0; v < V; ++v) {
-      q[v] = vic_queue[(long long)w * V + v];
+      for (int w = 0; w < V / 4; ++w) {
+        const uint32_t x = __ldg((const uint32_t*)row + w);
 #pragma unroll
-      for (int r = 0; r < R; ++r) req[v][r] = vic_req[((long long)w * V + v) * R + r];
-      uint32_t bits = 0;
-#pragma unroll
-      for (int u = 0; u < V; ++u)
-        if (samequeue[((long long)w * V + v) * V + u]) bits |= 1u << u;
-      same[v] = bits;
+        for (int b = 0; b < 4; ++b)
+          if ((x >> (8 * b)) & 0xffu) bits |= 1u << (4 * w + b);
+      }
+      return bits;
     }
-    for (int rep = 0; rep < reps; ++rep) {
+  }
+#pragma unroll
+  for (int u = 0; u < V; ++u)
+    if (__ldg((const uint8_t*)row + u)) bits |= 1u << u;
+  return bits;
+}
+
+// four blocks an SM where a thread's walk state is small
+template <typename T, int V, int R>
+__global__ void __launch_bounds__(kThreads, V * R * sizeof(T) <= 64 ? 4 : 1)
+    fold_kernel(int W, int reps, int rep_threads, int rows_a_block,
+                const T* __restrict__ vic_req, const int32_t* __restrict__ vic_queue,
+                const bool* __restrict__ samequeue, const T* __restrict__ queue_alloc,
+                const T* __restrict__ queue_deserved, const T* __restrict__ eps,
+                const T* __restrict__ factors, int32_t* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int r0 = blockIdx.x * rows_a_block;
+  const int rows = W - r0 < rows_a_block ? W - r0 : rows_a_block;
+  const size_t plane = (size_t)rows_a_block * V * R;
+  T* s_req = (T*)smem;                             // [rows, V, R] requests
+  T* s_alloc = s_req + plane;                      // [rows, V, R] the slot's queue allocation
+  T* s_des = s_alloc + plane;                      // [rows, V, R] and its deserved floor
+  uint32_t* s_same = (uint32_t*)(s_des + plane);   // [rows, V] samequeue bits
+  stage(s_req, vic_req + (size_t)r0 * V * R, rows * V * R * (int)sizeof(T));
+  for (int i = threadIdx.x; i < rows * V * R; i += blockDim.x) {
+    const int q = __ldg(&vic_queue[(size_t)r0 * V + i / R]);
+    s_alloc[i] = __ldg(&queue_alloc[q * R + i % R]);
+    s_des[i] = __ldg(&queue_deserved[q * R + i % R]);
+  }
+  for (int i = threadIdx.x; i < rows * V; i += blockDim.x)
+    s_same[i] = same_bits<V>(samequeue + ((size_t)r0 * V + i) * V);
+  T e[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) e[r] = __ldg(&eps[r]);
+  __syncthreads();
+
+  const int row = threadIdx.x / rep_threads;
+  int count = 0;
+  if (row < rows) {
+    const T* req = s_req + (size_t)row * V * R;
+    const T* alloc = s_alloc + (size_t)row * V * R;
+    const T* des = s_des + (size_t)row * V * R;
+    const uint32_t* same = s_same + row * V;
+    for (int rep = threadIdx.x - row * rep_threads; rep < reps; rep += rep_threads) {
       const T f = factors[rep];
       T qcur[V][R];
 #pragma unroll
       for (int v = 0; v < V; ++v)
 #pragma unroll
-        for (int r = 0; r < R; ++r) qcur[v][r] = __ldg(&queue_alloc[q[v] * R + r]) * f;
+        for (int r = 0; r < R; ++r) qcur[v][r] = alloc[v * R + r] * f;
 #pragma unroll
       for (int v = 0; v < V; ++v) {
         bool all_lt = true;
@@ -83,19 +139,20 @@ __global__ void fold_kernel(int W, int reps, const T* __restrict__ vic_req,
 #pragma unroll
         for (int r = 0; r < R; ++r) {
           const T cur = qcur[v][r];
-          const T d = cur - req[v][r];
-          const T des = __ldg(&queue_deserved[q[v] * R + r]);
-          all_lt = all_lt && (cur < req[v][r]);
-          fits = fits && ((des < d) || (vt_abs(des - d) < __ldg(&eps[r])));
+          const T d = cur - req[v * R + r];
+          const T fl = des[v * R + r];
+          all_lt = all_lt && (cur < req[v * R + r]);
+          fits = fits && ((fl < d) || (vt_abs(fl - d) < e[r]));
         }
         const bool go = !all_lt;
         count += (go && fits) ? 1 : 0;
-        if (go) {
+        if (go) {  // only the slots after v are read again
+          const uint32_t m = same[v];
 #pragma unroll
-          for (int u = 0; u < V; ++u) {
-            if ((same[v] >> u) & 1u) {
+          for (int u = v + 1; u < V; ++u) {
+            if ((m >> u) & 1u) {
 #pragma unroll
-              for (int r = 0; r < R; ++r) qcur[u][r] = qcur[u][r] - req[v][r];
+              for (int r = 0; r < R; ++r) qcur[u][r] = qcur[u][r] - req[v * R + r];
             }
           }
         }
@@ -104,15 +161,12 @@ __global__ void fold_kernel(int W, int reps, const T* __restrict__ vic_req,
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) count += __shfl_down_sync(0xffffffffu, count, off);
-  __shared__ int warp_sum[kThreads / 32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) warp_sum[warp] = count;
+  __shared__ int block_sum;
+  if (threadIdx.x == 0) block_sum = 0;
   __syncthreads();
-  if (threadIdx.x == 0) {
-    int total = 0;
-    for (int i = 0; i < kThreads / 32; ++i) total += warp_sum[i];
-    if (total) atomicAdd(out, total);
-  }
+  if ((threadIdx.x & 31) == 0 && count) atomicAdd(&block_sum, count);
+  __syncthreads();
+  if (threadIdx.x == 0 && block_sum) atomicAdd(out, block_sum);
 }
 
 template <typename T, int V, int R>
@@ -120,9 +174,17 @@ int launch(int W, int reps, const void* vic_req, const void* vic_queue,
            const void* samequeue, const void* queue_alloc,
            const void* queue_deserved, const void* eps, const void* factors,
            void* out, cudaStream_t stream) {
-  const int blocks = (W + kThreads - 1) / kThreads;
-  fold_kernel<T, V, R><<<blocks, kThreads, 0, stream>>>(
-      W, reps, (const T*)vic_req, (const int32_t*)vic_queue,
+  // a row's rep-threads, whole rows a block (at most kThreads threads and
+  // kStageBytes staged), the block rounded up to whole warps
+  const int rep_threads = reps < kThreads ? reps : kThreads;
+  const int row_bytes = 3 * V * R * (int)sizeof(T) + V * 4;
+  int rows = kThreads / rep_threads;
+  if (rows * row_bytes > kStageBytes) rows = kStageBytes / row_bytes;
+  if (rows < 1) rows = 1;
+  const int threads = (rows * rep_threads + 31) / 32 * 32;
+  const int blocks = (W + rows - 1) / rows;
+  fold_kernel<T, V, R><<<blocks, threads, (size_t)rows * row_bytes, stream>>>(
+      W, reps, rep_threads, rows, (const T*)vic_req, (const int32_t*)vic_queue,
       (const bool*)samequeue, (const T*)queue_alloc, (const T*)queue_deserved,
       (const T*)eps, (const T*)factors, (int32_t*)out);
   return (int)cudaGetLastError();

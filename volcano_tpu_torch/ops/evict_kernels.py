@@ -1241,15 +1241,45 @@ def _machine_cuda(kind: str, spec: EvictSpec, enc,
     return scratch
 
 
-def _backfill_cuda(spec: EvictSpec, enc) -> torch.Tensor:
+# where K11 keeps its state (csrc/evict_backfill.cu): "shared" (dynamic
+# shared memory) or "global" (scratch the wrapper allocates)
+BACKFILL_PLACEMENTS = ("shared", "global")
+
+
+def _bf_lib():
+    """K11's library, its argtypes set once, when it loads."""
     from volcano_tpu_torch import _build
 
+    lib = _build.library("evict_backfill")
+    if lib.evict_backfill.argtypes is None:
+        lib.evict_backfill.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 9
+        lib.evict_backfill.restype = ctypes.c_int
+        lib.evict_backfill_scratch_bytes.argtypes = [ctypes.c_int] * 3
+        lib.evict_backfill_scratch_bytes.restype = ctypes.c_longlong
+    return lib
+
+
+def _bf_scratch(lib, n: int, s: int, t: int) -> int:
+    need = lib.evict_backfill_scratch_bytes(n, s, t)
+    if need < 0:
+        raise ValueError(f"evict_backfill: sizes N={n} S={s} T={t} not supported")
+    return need
+
+
+def backfill_placement(n: int, s: int, t: int) -> str:
+    """Where K11 keeps its state at these sizes on the card (one of
+    BACKFILL_PLACEMENTS): the sizes alone choose."""
+    return BACKFILL_PLACEMENTS[_bf_scratch(_bf_lib(), n, s, t) > 0]
+
+
+def _backfill_cuda(spec: EvictSpec, enc) -> torch.Tensor:
+    sig_mask = enc["sig_mask"]
     cnt0 = enc["node_cnt"]
     dev = cnt0.device
-    sb, n = enc["sig_mask"].shape
+    sb, n = sig_mask.shape
     t_total = enc["b_sig"].shape[0]
     for name, t, want, shape in (
-            ("sig_mask", enc["sig_mask"], torch.bool, (sb, n)),
+            ("sig_mask", sig_mask, torch.bool, (sb, n)),
             ("node_cnt", cnt0, torch.int32, (n,)),
             ("node_max", enc["node_max"], torch.int32, (n,)),
             ("b_sig", enc["b_sig"], torch.int32, (t_total,)),
@@ -1258,16 +1288,15 @@ def _backfill_cuda(spec: EvictSpec, enc) -> torch.Tensor:
         if t.device != dev:
             raise ValueError(f"{name}: on {t.device}, expected {dev}")
         kmod._check(t, name, want, shape)
-    cnt = torch.empty(n, dtype=torch.int32, device=dev)
+    lib = _bf_lib()
+    need = _bf_scratch(lib, n, sb, t_total)
+    scratch = torch.empty(need, dtype=torch.uint8, device=dev) if need else None
     assign = torch.empty(t_total, dtype=torch.int32, device=dev)
-    lib = _build.library("evict_backfill")
-    fn = lib.evict_backfill
-    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 9
-    fn.restype = ctypes.c_int
-    rc = fn(n, t_total, int(spec.check_pod_count), kmod._ptr(enc["sig_mask"]),
-            kmod._ptr(cnt0), kmod._ptr(enc["node_max"]), kmod._ptr(enc["b_sig"]),
-            kmod._ptr(enc["b_has_pod"]), kmod._ptr(enc["b_real"]),
-            kmod._ptr(cnt), kmod._ptr(assign), _stream(cnt0))
+    rc = lib.evict_backfill(
+        n, sb, t_total, int(spec.check_pod_count), kmod._ptr(sig_mask),
+        kmod._ptr(cnt0), kmod._ptr(enc["node_max"]), kmod._ptr(enc["b_sig"]),
+        kmod._ptr(enc["b_has_pod"]), kmod._ptr(enc["b_real"]),
+        kmod._ptr(scratch), kmod._ptr(assign), _stream(cnt0))
     if rc != 0:
         raise RuntimeError(f"evict_backfill kernel launch failed: CUDA error {rc}")
     devmod.count_launch("evict_backfill")

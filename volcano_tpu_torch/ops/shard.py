@@ -28,7 +28,10 @@ The rep factor. The reference scales by ``1.0 + i * 1e-12``, computed in
 float64 and cast to the array's dtype before the multiply: in float32 it
 is exactly 1 for every rep (16 identical refreshes, all still run), in
 float64 it is ``fl64(1 + fl64(i) * 1e-12)``. ``probe_factors`` computes
-it on the host in double and rounds it to the dtype.
+it on the host in double and rounds it to the dtype; ``_factor_tensor``
+puts the factors on the device once a (reps, dtype, device), so no probe
+copies host memory on a call and, after a first call, either probe can
+be captured in a CUDA graph.
 
 Left to the mesh (ROADMAP Queue 1 item 7): ``stage_node_arrays`` (the
 per-shard device cache, which ``clear_cache`` would empty), the shardings
@@ -93,8 +96,19 @@ def probe_factors(reps: int, dtype: torch.dtype) -> list:
             for i in range(reps)]
 
 
+# the factors tensor of each (reps, dtype, device), built once: no probe
+# copies host memory on a call, so both probes can be captured in a CUDA
+# graph once the tensor exists (readers never write to it)
+_FACTORS: Dict[tuple, torch.Tensor] = {}
+
+
 def _factor_tensor(reps, dtype, device):
-    return torch.tensor(probe_factors(reps, dtype), dtype=dtype, device=device)
+    key = (reps, dtype, torch.device(device))
+    t = _FACTORS.get(key)
+    if t is None:
+        t = _FACTORS[key] = torch.tensor(probe_factors(reps, dtype),
+                                         dtype=dtype, device=device)
+    return t
 
 
 # ---------------------------------------------------------------------------
@@ -183,52 +197,54 @@ def probe_evict_fold_plain(vic_req, vic_queue, vic_samequeue, queue_alloc,
     return total
 
 
-_FOLD_ARGTYPES = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 8 + [ctypes.c_void_p]
+def _fold_fns():
+    """K16b's entries (float32, float64), their argtypes set once, when
+    the library loads."""
+    from volcano_tpu_torch import _build
+
+    lib = _build.library("probe_evict_fold")
+    fns = (lib.probe_evict_fold_f32, lib.probe_evict_fold_f64)
+    if fns[0].argtypes is None:
+        for fn in fns:
+            fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 9
+            fn.restype = ctypes.c_int
+    return fns
 
 
 def _fold_cuda(vic_req, vic_queue, vic_samequeue, queue_alloc,
                queue_deserved, eps, reps):
-    from volcano_tpu_torch import _build
-
     dt = vic_req.dtype
+    dev = vic_req.device
     w, v, r = vic_req.shape
     q = queue_alloc.shape[0]
     if v not in FOLD_WIDTHS or r not in FOLD_RESOURCES:
         raise ValueError(f"probe_evict_fold: V={v}, R={r} not instantiated "
                          f"(V in {FOLD_WIDTHS}, R in {FOLD_RESOURCES})")
-    checks = [
-        ("vic_req", vic_req, dt, (w, v, r)),
-        ("vic_queue", vic_queue, torch.int32, (w, v)),
-        ("vic_samequeue", vic_samequeue, torch.bool, (w, v, v)),
-        ("queue_alloc", queue_alloc, dt, (q, r)),
-        ("queue_deserved", queue_deserved, dt, (q, r)),
-        ("eps", eps, dt, (r,)),
-    ]
-    for name, t, want, shape in checks:
-        if t.device != vic_req.device:
-            raise ValueError(f"{name}: on {t.device}, expected {vic_req.device}")
+    for name, t, want, shape in (
+            ("vic_req", vic_req, dt, (w, v, r)),
+            ("vic_queue", vic_queue, torch.int32, (w, v)),
+            ("vic_samequeue", vic_samequeue, torch.bool, (w, v, v)),
+            ("queue_alloc", queue_alloc, dt, (q, r)),
+            ("queue_deserved", queue_deserved, dt, (q, r)),
+            ("eps", eps, dt, (r,))):
+        if t.device != dev:
+            raise ValueError(f"{name}: on {t.device}, expected {dev}")
         if t.dtype != want:
             raise TypeError(f"{name}: dtype {t.dtype}, expected {want}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: not contiguous")
-        if tuple(t.shape) != shape:
+        if t.shape != shape:
             raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
-    factors = _factor_tensor(reps, dt, vic_req.device)
-    out = torch.empty((), dtype=torch.int32, device=vic_req.device)
-    lib = _build.library("probe_evict_fold")
-    fn = lib.probe_evict_fold_f64 if dt == torch.float64 else lib.probe_evict_fold_f32
-    fn.argtypes = _FOLD_ARGTYPES
-    fn.restype = ctypes.c_int
-    stream = torch.cuda.current_stream(vic_req.device)
-    rc = fn(w, v, r, reps,
-            *(ctypes.c_void_p(t.data_ptr()) for t in (
-                vic_req, vic_queue, vic_samequeue, queue_alloc,
-                queue_deserved, eps, factors, out)),
-            ctypes.c_void_p(stream.cuda_stream))
+    factors = _factor_tensor(reps, dt, dev)
+    out = torch.empty((), dtype=torch.int32, device=dev)
+    fn = _fold_fns()[dt == torch.float64]
+    rc = fn(w, v, r, reps, vic_req.data_ptr(), vic_queue.data_ptr(),
+            vic_samequeue.data_ptr(), queue_alloc.data_ptr(),
+            queue_deserved.data_ptr(), eps.data_ptr(), factors.data_ptr(),
+            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"probe_evict_fold kernel launch failed: CUDA error {rc}")
     devmod.count_launch("probe_evict_fold")
-    factors.record_stream(stream)
     return out
 
 
