@@ -7,7 +7,8 @@ Run from the repository root on a machine with an NVIDIA H100:
     python3 chip_smoke.py --only parity,pipeline  # some phase groups only
 
 Phase groups (``--only``; all by default): allocate (phases 2-5, 3b),
-express (6-10), parity (11), pipeline (12), loop (13), bench (14).
+express (6-10), parity (11), pipeline (12), loop (13), bench (14),
+store (15). Each group's wall time is logged at the end.
 
 Every rounds solve on the card is one replay of its bucket's CUDA graph
 (K7, volcano_tpu_torch/ops/rounds_graph.py): the kernel wrappers launch
@@ -154,7 +155,8 @@ Phases, each failing the run on any error:
    session through the tpuscore plugin launches K15 exactly once, binds
    feasible and gangs whole; on the captured inputs K15 is torch.equal to
    its plain version (assign and the cursor) and timed (5 calls after 1
-   warm-up), and torch.equal on crafted inputs (bench/parity_cases.py:
+   warm-up), and torch.equal on crafted inputs (bench/parity_cases.py; on
+   the capture with a tenth of its jobs active:
    the cursor at real_n - 1, num_to_find <= 0, 1 and above the feasible
    count, pad nodes inside the rotation, 1024 and 256 threads, the node
    state in global memory, a gang visit that rolls back, more than 32
@@ -194,13 +196,31 @@ Phases, each failing the run on any error:
    (b) the bench's entry point ``main`` on the card (default --device
    cuda): cfg5 with both arms (the serial arm extrapolated under
    --serial-budget), the mesh curve at cfg7 0.2, the express lane (32
-   measured batches) and the pipeline (6 measured cycles, and its churn
+   measured batches) and the pipeline (2 measured cycles, and its churn
    arm), cfg5 at full scale: zero warm compiles (kernel builds and graph captures), both
    native engines loaded, one sync point a warm cfg5 solve, binds > 0,
    one curve entry with per_device_stage_ms > 0; each headline line and
    the phase's wall time are printed. The launch counters are zeroed
    before the mesh-curve run and read after it: K1's launches inside its
-   probes (16 a probe) and K16b's.
+   probes (16 a probe) and K16b's;
+15. the state store (volcano_tpu_torch/store): (a) cfg5 at ``--scale``
+   (50k x 10k) written by its generator into a port Store, mirrored by a
+   SchedulerCache(store=...) only through its watches (run()), one
+   allocate session on the card binding through DefaultBinder.bind_many
+   into the store: every rounds kernel of cfg5's path launched, the
+   store's spec.node_name of every pod equal to its bind, the Scheduled
+   events exactly the bind keys in bind order, the binds equal pod by pod
+   (and in order) to a fed twin's (the same generator into a FakeBinder
+   cache, the clock pinned to one counter on both sides, on the card),
+   and a second session binding nothing new and capturing no graph; (b)
+   cfg2 behind an ApiGateway on 127.0.0.1 (its journal sized to hold the
+   initial sync and the binds' echoes), a RemoteStore-backed cache in
+   this process synced from the watches, one session on the card binding
+   over HTTP: cfg2's kernels launched, the server store's binds equal to
+   a fed cfg2 twin's, one Scheduled event a bind after flush_events(), no
+   watch reset; the watches and the gateway stopped in a ``finally``.
+   Prints populate, session and bind-apply times, events, binds a second
+   over HTTP.
 
 The last two lines of standard output are a {"kernels": [...]} JSON object
 and {"ok": true, "device": {...}}. Without a usable GPU, or without the
@@ -2787,11 +2807,16 @@ def parity_phase(scale=1.0, device="cuda", dtype="float32"):
 
 def parity_crafted(spec, enc, rr0, ntf):
     """K15 torch.equal to its plain version on crafted inputs: on the cfg2
-    capture the cursor at real_n - 1, num_to_find <= 0, 1 and above the
-    feasible count, pad nodes inside the rotation; a gang visit that rolls
-    back after several placements; more than 32 namespaces and queues."""
+    capture with the first tenth of its jobs active (full T and N; the
+    plain scans of the whole capture took most of the parity group) the
+    cursor at real_n - 1, num_to_find <= 0, 1 and above the feasible
+    count, pad nodes inside the rotation; a gang visit that rolls back
+    after several placements; more than 32 namespaces and queues."""
     from volcano_tpu_torch.bench import parity_cases as PC
     from volcano_tpu_torch.ops import parity_kernels as PK
+
+    t0 = time.perf_counter()
+    enc = PC.job_prefix(enc, 10)
 
     def check(sp, e, r0, k, what):
         got = PK._solve_cuda(sp, e, r0, k)
@@ -2812,7 +2837,8 @@ def parity_crafted(spec, enc, rr0, ntf):
     if e["ns_active0"].shape[0] <= 32 or e["queue_deserved"].shape[0] <= 32:
         raise AssertionError("the wide-visit case has no more than 32 namespaces or queues")
     check(sp, e, r0, k, "S, Q > 32")
-    print(json.dumps({"parity_crafted": n + 2, "equal": True}), flush=True)
+    print(json.dumps({"parity_crafted": n + 2, "equal": True,
+                      "wall_s": time.perf_counter() - t0}), flush=True)
 
 
 def signature(cache):
@@ -3508,7 +3534,7 @@ def bench_phase(scale=1.0, device=None, dtype=None):
     t_phase = time.perf_counter()
     place = [] if device is None else ["--device", device, "--dtype", dtype]
     bench_main(["--config", "5", "--backend", "both", "--warm-iters", "3",
-                "--serial-budget", "15", "--scale", str(scale)] + place)
+                "--serial-budget", "5", "--scale", str(scale)] + place)
     with open(run.RECORD) as fh:
         rec = json.load(fh)["results"][0]
     prof = rec["tpu_profile"]
@@ -3563,7 +3589,7 @@ def bench_phase(scale=1.0, device=None, dtype=None):
                     + place)[-1]["summary"]["express"]
     checks["express: warm compiles 0"] = xp["express_warm_compiles"] == 0
     checks["express: one sync point a batch"] = xp["express_sync_points_per_batch"] == 1.0
-    pl = bench_main(["--pipeline", "--pipeline-cycles", "6", "--scale",
+    pl = bench_main(["--pipeline", "--pipeline-cycles", "2", "--scale",
                      str(scale)] + place)
     pl = pl[-1]["summary"]["cfg5_pipeline"]
     # the churn arms' bind match is printed, not checked: it depends on the
@@ -3593,7 +3619,252 @@ def bench_phase(scale=1.0, device=None, dtype=None):
             "probe_evict_fold": counts["probe_evict_fold"]}
 
 
-PHASE_GROUPS = ("allocate", "express", "parity", "pipeline", "loop", "bench")
+# ---------------------------------------------------------------------------
+# 15: the state store, in-process and over HTTP
+# ---------------------------------------------------------------------------
+
+STORE_WATCHED = ("Pod", "Node", "PodGroup", "Queue", "PriorityClass",
+                 "ResourceQuota", "PodDisruptionBudget")
+
+
+class StoreWriter:
+    """The bench generators' cache surface, writing into a store: the
+    objects reach a store-backed cache only through its watches."""
+
+    def __init__(self, store):
+        self.add_node = self.add_queue = store.create
+        self.add_pod_group = self.add_pod = store.create
+
+
+def pinned_populate(cfg, target, scale):
+    """CONFIGS[cfg].populate with the clock pinned to a counter, so twins
+    built apart get the same creation times (and so the same job order)."""
+    import itertools
+
+    from volcano_tpu_torch.bench.clusters import CONFIGS
+    from volcano_tpu_torch.utils import clock
+
+    ticks = itertools.count(1)
+    clock.set_source(lambda: float(next(ticks)))
+    try:
+        return CONFIGS[cfg].populate(target, scale)
+    finally:
+        clock.set_source(None)
+
+
+def store_session(cache, cfg, device, dtype):
+    """One allocate session on ``cache`` with the bind apply timed through
+    the binder's ``bind_many``; returns (profile, launches, captured,
+    wall_s, bound keys in order, bind_many seconds)."""
+    from volcano_tpu_torch import device as devmod
+    from volcano_tpu_torch.bench.clusters import CONFIGS, make_tiers
+    from volcano_tpu_torch.ops import rounds_graph
+    from volcano_tpu_torch.scheduler.framework import (
+        close_session, open_session, run_actions)
+
+    binder = cache.binder
+    bind_many = binder.bind_many
+    order, apply_s = [], [0.0]
+
+    def timed(pairs):
+        def keyed():
+            for pod, host in pairs:
+                order.append(f"{pod.metadata.namespace}/{pod.metadata.name}")
+                yield pod, host
+        t0 = time.perf_counter()
+        try:
+            bind_many(keyed())
+        finally:
+            apply_s[0] += time.perf_counter() - t0
+
+    binder.bind_many = timed
+    tiers = make_tiers(["tpuscore"], *CONFIGS[cfg].tiers, arguments={
+        "tpuscore": {"tpuscore.mode": "rounds", "tpuscore.device": device,
+                     "tpuscore.dtype": dtype}})
+    caps0 = rounds_graph.STATS["captures"]
+    if device == "cuda":
+        torch.cuda.synchronize()
+    devmod.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        ssn = open_session(cache, tiers)
+        run_actions(ssn, ["allocate"])
+        prof = dict(ssn.plugins["tpuscore"].profile)
+        close_session(ssn)
+        if device == "cuda":
+            torch.cuda.synchronize()
+    finally:
+        del binder.bind_many
+    wall = time.perf_counter() - t0
+    return (prof, devmod.launches(), rounds_graph.STATS["captures"] != caps0,
+            wall, order, apply_s[0])
+
+
+def fed_twin(cfg, scale, device, dtype):
+    """The same config and scale fed into a FakeBinder cache (bench/
+    clusters.make_cache) with the clock pinned the same way; one session
+    on the card. Returns the binds and their order."""
+    from volcano_tpu_torch.bench.clusters import make_cache
+
+    cache = make_cache()
+    pinned_populate(cfg, cache, scale)
+    store_session(cache, cfg, device, dtype)
+    check_binds(cache, f"{cfg} fed twin")
+    return dict(cache.binder.binds), list(cache.binder.channel)
+
+
+def store_binds(store):
+    return {f"{p.metadata.namespace}/{p.metadata.name}": p.spec.node_name
+            for p in store.list("Pod") if p.spec.node_name}
+
+
+def first_difference(got, want, what):
+    """Fail on the first pod whose bind differs."""
+    for key in sorted(set(got) | set(want)):
+        if got.get(key) != want.get(key):
+            raise AssertionError(f"{what}: pod {key} bound to {got.get(key)!r}, "
+                                 f"the fed twin to {want.get(key)!r}")
+
+
+def scheduled_keys(store):
+    return [e.object_key for e in store.events if e.reason == "Scheduled"]
+
+
+def stop_remote_watches(remote, store):
+    """Stop a RemoteStore's watches without waiting out their long polls:
+    with the stop flag set, one write of each watched kind wakes every
+    poll, so each thread sees the flag and the joins return."""
+    from volcano_tpu_torch.api import codec, objects
+
+    remote._watch_stop.set()
+    for kind in STORE_WATCHED:
+        store.create(codec.kind_class(kind)(
+            metadata=objects.ObjectMeta(name="zz-wake", namespace="wake")))
+    remote.stop_watches()
+
+
+def store_phase(scale=1.0, device="cuda", dtype="float32"):
+    """(a) cfg5 written into a port Store, mirrored by a store-backed cache
+    through its watches, one session binding through DefaultBinder into the
+    store; (b) cfg2 behind an ApiGateway, a RemoteStore-backed cache in
+    this process, one session binding over HTTP. Each against a fed twin
+    on the card. Returns the launches of each session."""
+    from volcano_tpu_torch.scheduler.cache import SchedulerCache
+    from volcano_tpu_torch.scheduler.util import scheduler_helper
+    from volcano_tpu_torch.store import Store
+    from volcano_tpu_torch.store.gateway import ApiGateway
+    from volcano_tpu_torch.store.remote import RemoteStore
+
+    t_phase = time.perf_counter()
+    launches = {}
+
+    # (a) in-process store, cfg5
+    scheduler_helper.reset_round_robin()
+    store = Store()
+    cache = SchedulerCache(store=store)
+    if type(cache.binder).__name__ != "DefaultBinder":
+        raise AssertionError(f"store cache binder {type(cache.binder).__name__}")
+    cache.run()
+    t0 = time.perf_counter()
+    n_tasks = pinned_populate(5, StoreWriter(store), scale)
+    populate_s = time.perf_counter() - t0
+    mirrored = sum(len(j.tasks) for j in cache.jobs.values())
+    if mirrored != n_tasks or len(cache.nodes) != len(store.list("Node")):
+        raise AssertionError(f"store: the watches mirrored {mirrored} of "
+                             f"{n_tasks} tasks")
+    prof, counts, cold, wall, order, apply_s = store_session(cache, 5, device, dtype)
+    if prof.get("mode") != "rounds":
+        raise AssertionError(f"store cfg5: mode {prof.get('mode')}")
+    check_launches(5, prof, counts, False, cold)
+    launches["cfg5"] = counts
+    binds = store_binds(store)
+    if not order or len(order) != len(set(order)):
+        raise AssertionError(f"store cfg5: DefaultBinder.bind_many bound "
+                             f"{len(order)} pods, {len(set(order))} distinct")
+    bound = {k: binds.get(k) for k in order}
+    if set(binds) != set(order) or None in bound.values():
+        raise AssertionError("store cfg5: the store's node_name set differs "
+                             "from the binds")
+    events = scheduled_keys(store)
+    if events != order:
+        raise AssertionError(f"store cfg5: {len(events)} Scheduled events, "
+                             f"not the {len(order)} binds in bind order")
+    scheduler_helper.reset_round_robin()
+    fed, fed_order = fed_twin(5, scale, device, dtype)
+    first_difference(binds, fed, "store cfg5")
+    if order != fed_order:
+        raise AssertionError("store cfg5: bind order differs from the fed twin's")
+    prof2, counts2, cold2, wall2, order2, _ = store_session(cache, 5, device, dtype)
+    if order2 or cold2 or store_binds(store) != binds \
+            or scheduled_keys(store) != events:
+        raise AssertionError(f"store cfg5: the second session bound {len(order2)} "
+                             f"new pods, captured a graph: {cold2}")
+    print(json.dumps({"store_cfg5": {
+        "tasks": n_tasks, "nodes": len(cache.nodes), "binds": len(binds),
+        "scheduled_events": len(events), "populate_s": populate_s,
+        "session_ms": wall * 1e3, "bind_apply_ms": apply_s * 1e3,
+        "solve_ms": prof["solve_s"] * 1e3, "apply_ms": prof["apply_s"] * 1e3,
+        "second_session_ms": wall2 * 1e3, "cold": cold,
+        "equals_fed_twin": True, "card": CARD}}), flush=True)
+    del cache, store, fed, fed_order
+
+    # (b) over HTTP, cfg2
+    server = Store()
+    n2 = pinned_populate(2, StoreWriter(server), scale)
+    # the Pod journal holds the initial sync (5,000 ADDED) and the binds'
+    # echoes (5,000 MODIFIED): at the default 4,096 entries the client's
+    # first poll would fall off the ring and re-list (a watch reset)
+    gw = ApiGateway(server, "127.0.0.1:0", journal_cap=4 * 4096).start()
+    remote = None
+    try:
+        remote = RemoteStore(f"127.0.0.1:{gw.port}")
+        scheduler_helper.reset_round_robin()
+        rcache = SchedulerCache(store=remote)
+        t0 = time.perf_counter()
+        rcache.run()
+        rcache.wait_for_cache_sync()
+        n_nodes = len(server.list("Node"))
+        deadline = time.monotonic() + 300.0
+        while not (sum(len(j.tasks) for j in rcache.jobs.values()) == n2
+                   and len(rcache.nodes) == n_nodes and "default" in rcache.queues
+                   and all(j.pod_group is not None for j in rcache.jobs.values())):
+            if time.monotonic() > deadline:
+                raise AssertionError("remote cfg2: the watches never delivered "
+                                     "the cluster")
+            time.sleep(0.05)
+        sync_s = time.perf_counter() - t0
+        prof, counts, cold, wall, order, apply_s = store_session(
+            rcache, 2, device, dtype)
+        check_launches(2, prof, counts, False, cold)
+        launches["cfg2_remote"] = counts
+        remote.flush_events(timeout=120.0)
+        binds = store_binds(server)
+        events = scheduled_keys(server)
+        resets = remote.watch_stats()["resets"]
+        scheduler_helper.reset_round_robin()
+        fed, _ = fed_twin(2, scale, device, dtype)
+        first_difference(binds, fed, "remote cfg2")
+        if sorted(events) != sorted(order) or set(order) != set(binds):
+            raise AssertionError(f"remote cfg2: {len(events)} Scheduled events "
+                                 f"for {len(order)} binds")
+        if resets:
+            raise AssertionError(f"remote cfg2: {resets} watch resets")
+        print(json.dumps({"store_cfg2_remote": {
+            "tasks": n2, "binds": len(binds), "scheduled_events": len(events),
+            "watch_sync_s": sync_s, "session_ms": wall * 1e3,
+            "bind_apply_ms": apply_s * 1e3,
+            "binds_per_s_over_http": len(order) / apply_s if apply_s else None,
+            "watch_resets": resets, "equals_fed_twin": True, "card": CARD}}),
+            flush=True)
+    finally:
+        if remote is not None:
+            stop_remote_watches(remote, server)
+        gw.stop()
+    log(f"store phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+PHASE_GROUPS = ("allocate", "express", "parity", "pipeline", "loop", "bench", "store")
 
 
 def main() -> int:
@@ -3638,6 +3909,15 @@ def main() -> int:
     if not all(engines.values()):
         raise AssertionError(f"native engines did not load: {engines}")
     probe_versions()
+    # each group's wall time, for the script's time budget
+    walls, t_mark = {}, [t0]
+
+    def mark(group):
+        now = time.perf_counter()
+        walls[group] = round(now - t_mark[0], 1)
+        t_mark[0] = now
+
+    mark("build")
     records, launches, express_p99 = [], {}, None
     if "allocate" in groups:
         records = kernel_phase(args.scale)
@@ -3646,6 +3926,7 @@ def main() -> int:
         launches, captured = session_phase(args.scale)
         records += evict_kernel_phase(captured)
         records += fused_kernel_phase(captured)
+        mark("allocate")
     if "express" in groups:
         from volcano_tpu_torch.ops.replica import FAMILIES
 
@@ -3663,16 +3944,25 @@ def main() -> int:
         records += scatter_kernel_phase({k: rep.dev[k] for k in FAMILIES["node"]},
                                         lane.state.dev)
         del lane, rep
+        mark("express")
     if "parity" in groups:
         rec, launches["parity"] = parity_phase(args.scale)
         records.append(rec)
+        mark("parity")
     if "pipeline" in groups:
         launches["pipeline"] = pipeline_phase(args.scale)
+        mark("pipeline")
     if "loop" in groups:
         launches["loop"] = scheduler_loop_phase(express_p99_ms=express_p99)
+        mark("loop")
     if "bench" in groups:
         records += k16_phase()
         launches["bench"] = bench_phase()
+        mark("bench")
+    if "store" in groups:
+        launches["store"] = store_phase(args.scale)
+        mark("store")
+    log(f"group walls (s): {walls}")
     # each kernel's launches on the path that runs it: K1-K5 on cfg5; the
     # per-action K9 on cfg4's and K10 on the reclaim path's per-action run;
     # K11, K13 and the fused K9 on cfg4's fused run, the fused K10 on the

@@ -5,9 +5,10 @@ the same keys (the port adds the card line ``device``), the device arm
 binds what the JAX bench binds, and warm sessions build no kernel and
 capture no graph. The mesh curve runs the JAX bench without x64, as
 ``bench.py`` runs it (its fold probe does not trace under x64; see
-tests/test_torch_shard.py). The CLI exits 0 with a ``summary`` tail, and
-each flag of a mode the port leaves out exits non-zero naming its
-ROADMAP.md item.
+tests/test_torch_shard.py). The watch fan-out bench counts what
+``bench.py``'s counts on the same arguments. The CLI exits 0 with a
+``summary`` tail, and each flag of a mode the port leaves out exits
+non-zero naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -162,8 +163,6 @@ def test_cli_runs_and_prints_a_summary_tail():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--fanout"], "item 3"),
-    (["--no-fanout"], "item 3"),
     (["--no-front-door"], "item 4"),
     (["--scenario", "cfg5_storm"], "item 6"),
     (["--no-storm"], "item 6"),
@@ -175,3 +174,48 @@ def test_left_out_flags_are_refused(argv, item, capsys):
     assert run.main(argv + ["--device", "cpu"]) != 0
     err = capsys.readouterr().err
     assert "not in the port yet" in err and f"ROADMAP.md Queue 1 {item}" in err
+
+
+FANOUT_COUNTS = ("watchers", "batches", "events_appended", "deliveries",
+                 "coalesced", "demotions", "resyncs",
+                 "journal_peak_occupancy", "journal_hard_cap",
+                 "per_watcher_state_bytes")
+
+
+@pytest.mark.parametrize("kw", [
+    dict(watchers=300, batches=6),
+    # a ring small enough that the slow tail is demoted and resyncs
+    dict(watchers=200, batches=12, churn=64, cap=128, slow_every=50,
+         slow_stride=6, pods=32),
+])
+def test_fanout_bench_counts_match_the_jax_bench(kw):
+    # the fan-out reads the process's degrade ladder, which earlier runs
+    # leave tripped: each package's starts fresh
+    from volcano_tpu.scheduler import degrade as ref_degrade
+    from volcano_tpu_torch.scheduler import degrade
+
+    degrade.reset()
+    ref_degrade.reset()
+    ours = run.run_fanout_bench(**kw)
+    ref = bench.run_fanout_bench(**kw)
+    degrade.reset()
+    ref_degrade.reset()
+    assert {k: ours[k] for k in FANOUT_COUNTS} == \
+        {k: ref[k] for k in FANOUT_COUNTS}
+    assert ours["deliveries"] > 0
+    assert set(ours) == set(ref)
+    if kw["watchers"] == 200:
+        assert ours["demotions"] > 0 and ours["resyncs"] > 0
+
+
+def test_fanout_cli_runs_without_a_device():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run(
+        [sys.executable, "-m", "volcano_tpu_torch.bench", "--fanout", "200"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    lines = out.stdout.strip().splitlines()
+    head, tail = json.loads(lines[-2]), json.loads(lines[-1])
+    assert head["unit"] == "ms" and "200 watchers" in head["metric"]
+    result = tail["summary"]["watch_fanout"]
+    assert result["watchers"] == 200 and result["deliveries"] > 0

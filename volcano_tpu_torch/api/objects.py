@@ -1,7 +1,8 @@
 """The framework's API object model — the analog of volcano's CRDs and the
 slice of core/v1 it consumes.
 
-These are plain mutable dataclasses. They mirror:
+These are plain mutable dataclasses living in the in-process event store
+(volcano_tpu_torch.store). They mirror:
 - Pod/Node: the consumed subset of k8s core/v1;
 - PodGroup/Queue: pkg/apis/scheduling/types.go;
 - Job (batch): pkg/apis/batch/v1alpha1/job.go;

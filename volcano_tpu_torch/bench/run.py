@@ -29,11 +29,15 @@ the solve (the tpuscore plugin's ``tpuscore.device`` / ``tpuscore.dtype``)
 and the express lane; ``--device cpu --dtype float64`` runs the kernels'
 plain versions on the host.
 
-Left out, each refused with its ROADMAP.md item: ``--fanout`` (the watch
-fan-out bench needs the state store, Queue 1 item 3), the front-door
-column (admission, item 4), the storm column and ``--scenario`` (the
-simulator, item 6), and the bare ``--mesh`` flag (the mesh, item 7). The
-all-configs summary's standing mesh curve runs in-process.
+``--fanout [N]`` runs the watch fan-out bench alone (N watchers over one
+shared journal, host only: it exits before any device is resolved); the
+all-configs summary carries it as its ``watch_fanout`` column unless
+``--no-fanout``.
+
+Left out, each refused with its ROADMAP.md item: the front-door column
+(admission, item 4), the storm column and ``--scenario`` (the simulator,
+item 6), and the bare ``--mesh`` flag (the mesh, item 7). The all-configs
+summary's standing mesh curve runs in-process.
 
 Usage:
     python -m volcano_tpu_torch.bench                # headline (cfg 5, full scale)
@@ -57,10 +61,6 @@ RECORD = os.path.join(REPO, "BENCH_torch_local.json")
 # flags of the reference bench the port does not run yet, with the
 # ROADMAP.md item that owns each
 REFUSED = {
-    "fanout": "the watch fan-out bench needs the state store "
-              "(ROADMAP.md Queue 1 item 3)",
-    "no_fanout": "the fan-out column needs the state store "
-                 "(ROADMAP.md Queue 1 item 3)",
     "no_front_door": "the front-door column needs admission and the "
                      "controllers (ROADMAP.md Queue 1 item 4)",
     "scenario": "scenario clusters come from the simulator "
@@ -75,7 +75,6 @@ REFUSED = {
 # summary columns of the reference's all-configs tail left out here
 LEFT_OUT_COLUMNS = {
     "cfg5_storm": REFUSED["no_storm"],
-    "watch_fanout": REFUSED["no_fanout"],
     "front_door_storm": REFUSED["no_front_door"],
 }
 
@@ -894,6 +893,128 @@ def _pipeline_churn(scale, batches, actions, seed,
 _FLOOR_PROBE = {}  # device -> the no-op's one-element operand
 
 
+def run_fanout_bench(watchers: int = 10000, batches: int = 40,
+                     churn: int = 96, cap: int = 4096,
+                     slow_every: int = 500, slow_stride: int = 8,
+                     sample: int = 64, pods: int = 512):
+    """Watch fan-out at 10k+ concurrent watchers over ONE shared journal.
+
+    Synchronous (no threads — the shared-slice fast path is what's under
+    test): each batch mutates ``churn`` pods, then every watcher polls
+    once through the flow-control layer. Every ``slow_every``-th watcher
+    only polls every ``slow_stride`` batches — the laggard tail that must
+    ride bounded retention and demotion-to-resync instead of pinning the
+    ring. Reports per-event delivery latency percentiles (append-stamp to
+    delivery, sampled over the first ``sample`` watchers), throughput,
+    and the per-watcher memory footprint — cursor + counters only, which
+    is the O(events + watchers) proof."""
+    import copy
+
+    from volcano_tpu_torch.api import objects
+    from volcano_tpu_torch.scheduler.util.test_utils import build_pod
+    from volcano_tpu_torch.store.flowcontrol import WatchFanout, WatcherState
+    from volcano_tpu_torch.store.gateway import _WatchJournal
+    from volcano_tpu_torch.store.store import Store
+
+    store = Store()
+    journal = _WatchJournal(store, "Pod", cap=cap)
+    fanout = WatchFanout(journal, demote_lag=2 * cap, pin_factor=4)
+
+    def make(i):
+        pod = build_pod("bench", f"pod-{i:06d}", "",
+                        objects.POD_PHASE_PENDING,
+                        {"cpu": "100m", "memory": "64Mi"}, "")
+        pod.metadata.ensure_identity()
+        return pod
+
+    live = []
+    for i in range(pods):
+        pod = make(i)
+        store.create(pod)
+        live.append(pod)
+    cursors = [0] * watchers
+    classes = ["interactive" if i % 3 == 0 else "batch"
+               for i in range(watchers)]
+    latencies = []
+    delivered = resyncs = 0
+    next_pod = pods
+    wall0 = time.perf_counter()
+    for batch in range(batches):
+        for k in range(churn):
+            idx = (batch * churn + k) % len(live)
+            if k % 7 == 0:
+                pod = make(next_pod)
+                next_pod += 1
+                store.create(pod)
+                live.append(pod)
+            else:
+                cur = store.try_get("Pod", "bench",
+                                    live[idx].metadata.name)
+                if cur is None:
+                    continue
+                upd = copy.deepcopy(cur)
+                upd.metadata.annotations["b"] = str(batch)
+                store.update(upd)
+        poll_t = time.monotonic()
+        for i in range(watchers):
+            if slow_every and i % slow_every == slow_every - 1 \
+                    and batch % slow_stride != 0:
+                continue  # the deliberately slow tail
+            events, nxt, reset = fanout.poll_for(
+                f"w{i:05d}", cursors[i], 0.0, cls=classes[i])
+            cursors[i] = nxt
+            if reset:
+                resyncs += 1
+                continue
+            delivered += len(events)
+            if i < sample:
+                latencies.extend(poll_t - e["ts"] for e in events
+                                 if "ts" in e)
+    wall = time.perf_counter() - wall0
+    latencies.sort()
+
+    def pct(q):
+        if not latencies:
+            return 0.0
+        return round(
+            latencies[min(int(q * len(latencies)), len(latencies) - 1)]
+            * 1e3, 3)
+
+    ws_bytes = sys.getsizeof(WatcherState("x", "batch", 0)) \
+        + sum(sys.getsizeof(getattr(WatcherState("x", "batch", 0), s))
+              for s in WatcherState.__slots__)
+    stats = fanout.watch_stats()
+    return {
+        "watchers": watchers,
+        "batches": batches,
+        "events_appended": stats["journal"]["appended"],
+        "deliveries": delivered,
+        "fanout_p50_ms": pct(0.50),
+        "fanout_p99_ms": pct(0.99),
+        "polls_per_sec": round(watchers * batches / wall, 1),
+        "deliveries_per_sec": round(delivered / wall, 1),
+        "coalesced": stats["counters"]["coalesced"],
+        "demotions": stats["counters"]["demotions"],
+        "resyncs": resyncs,
+        "journal_peak_occupancy": stats["journal"]["peak_occupancy"],
+        "journal_hard_cap": stats["journal"]["hard_cap"],
+        "per_watcher_state_bytes": ws_bytes,
+        "wall_s": round(wall, 3),
+        "pid_rss_mb": _rss_mb(),
+    }
+
+
+def _rss_mb():
+    try:
+        with open("/proc/self/status") as fh:
+            for line in fh:
+                if line.startswith("VmRSS:"):
+                    return round(int(line.split()[1]) / 1024.0, 1)
+    except OSError:
+        pass
+    return None
+
+
 def _probe_once_ms(device):
     """One timed no-op round trip: ``x + 1`` on a one-element int32 tensor
     on the device, fetched through devprof (so its sync/fetch budget lands
@@ -981,11 +1102,15 @@ def _parser():
                     help="measured back-to-back cycles per arm (after 4 warmup cycles)")
     ap.add_argument("--pipeline-rate", type=float, default=3.0,
                     help="Poisson arrival rate for --pipeline, jobs/cycle")
+    ap.add_argument("--fanout", nargs="?", const=10000, default=None,
+                    type=int,
+                    help="run the watch fan-out bench alone at N watchers "
+                         "(default 10000) and print its summary tail")
+    ap.add_argument("--no-fanout", action="store_true",
+                    help="skip the standing 10k-watcher fan-out column in "
+                         "the all-configs summary tail")
     # the reference's flags whose modes are not ported: refused below
     ap.add_argument("--scenario", default=None, help=argparse.SUPPRESS)
-    ap.add_argument("--fanout", nargs="?", const=10000, default=None, type=int,
-                    help=argparse.SUPPRESS)
-    ap.add_argument("--no-fanout", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--no-front-door", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--no-storm", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--storm-scale", type=float, default=None, help=argparse.SUPPRESS)
@@ -1014,6 +1139,20 @@ def main(argv=None) -> int:
     if why is not None:
         print(f"[bench] {why}", file=sys.stderr)
         return 2
+    if args.fanout is not None:
+        # device-free path: the fan-out bench exercises only the store/
+        # journal/flow-control layer, so it runs (and exits) before any
+        # device machinery loads
+        result = run_fanout_bench(watchers=args.fanout)
+        print(json.dumps({
+            "metric": "watch fan-out p99 delivery latency @ %d watchers"
+                      % args.fanout,
+            "value": result["fanout_p99_ms"],
+            "unit": "ms",
+        }), flush=True)
+        print(json.dumps({"summary": {"watch_fanout": result}},
+                         separators=(",", ":")), flush=True)
+        return 0
     device = str(devmod.resolve_device(args.device))
     dtype = args.dtype
     # the production loop runs under this policy (Scheduler._loop);
@@ -1199,6 +1338,13 @@ def _main(args, device, dtype, argv) -> int:
         for column, why in LEFT_OUT_COLUMNS.items():
             print(f"[bench] summary column {column} left out: {why}",
                   file=sys.stderr)
+    # the standing fan-out column: 10k-watcher fan-out p50/p99 delivery
+    # latency + bounded per-watcher memory
+    if not args.no_fanout and len(cfgs) > 1:
+        try:
+            summary["watch_fanout"] = run_fanout_bench()
+        except Exception as e:
+            print(f"[bench] fan-out bench failed: {e}", file=sys.stderr)
     # the standing mesh-scaling curve: cfg7 in every all-configs run,
     # in-process (no virtual devices to set up)
     if (not args.no_mesh_curve and args.backend in ("tpu", "both", "auto")

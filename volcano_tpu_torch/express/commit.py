@@ -16,10 +16,6 @@ touched job+nodes (which also feeds the express state's dirty shadow for
 the next refresh), the binder dispatches, and the Scheduled event is
 recorded. Each committed job records an ExpressToken; the next full
 session confirms or reverts it (express/reconcile.py).
-
-Trimmed from the reference: the ``FencedError`` branch (a lease lost
-mid-commit parks the lane). The port has no store: its ``cache.bind``
-catches binder errors and resyncs, and never raises a fence error.
 """
 
 from __future__ import annotations
@@ -31,6 +27,7 @@ import numpy as np
 
 from volcano_tpu_torch.api.types import TaskStatus
 from volcano_tpu_torch.express.trigger import ExpressToken
+from volcano_tpu_torch.store import FencedError
 from volcano_tpu_torch.utils import clock
 
 logger = logging.getLogger(__name__)
@@ -59,12 +56,28 @@ def commit_batch(cache, lane, jobs: List[Tuple[object, list]],
     # and the binder's store write dispatches synchronous watch callbacks
     # whose handlers re-enter the cache — holding the lock across that is
     # the ABBA inversion VT003 exists to prevent
-    for job, plan in plans:
+    fenced = False
+    for ji, (job, plan) in enumerate(plans):
         binds: Dict[str, Tuple[str, str]] = {}
         ok = True
         for task, node_name in plan:
             try:
                 cache.bind(task, node_name)
+            except FencedError:
+                # the lease moved mid-commit (a deposed leader's express
+                # batch): the store fenced this bind, so STOP the whole
+                # batch and park the lane — every remaining write would
+                # burn one rejection to learn the same thing. Binds that
+                # already landed belong to this job's token below; the
+                # NEW leader's first session reconciles (and reverts)
+                # them through the ordinary token drain.
+                logger.warning(
+                    "express commit fenced (lease lost) at %s; parking "
+                    "lane", task.uid)
+                lane.park("lease_lost")
+                ok = False
+                fenced = True
+                break
             except Exception:
                 # a raced mutation beat the bind; the remainder of this
                 # gang is NOT dispatched — reconcile reverts the partial
@@ -80,6 +93,9 @@ def commit_batch(cache, lane, jobs: List[Tuple[object, list]],
                 stamp=clock.now(), epoch=lane.commit_epoch)
         if not ok:
             deferred += 1
+        if fenced:
+            deferred += len(plans) - ji - 1  # undispatched remainder
+            break
     return placed, deferred
 
 

@@ -859,6 +859,7 @@ class BatchAllocator:
                 retry_from = 0
         else:
             retry_from = 0
+        failed_binds: set = set()
         if retry_from is not None:
             # per-task so one bad pod degrades to resync, not a lost
             # session (cache.go:597-599 semantics); failures are tracked
@@ -872,6 +873,30 @@ class BatchAllocator:
                     binder.bind(task.pod, host)
                 except Exception:
                     cache.resync_task(task)
+                    failed_binds.add(k)
+        if cache.store is not None:
+            event_keys, event_hosts, event_tasks = (
+                bind_keys, bind_hosts, bind_tasks)
+            if failed_binds:
+                event_keys = [k for i, k in enumerate(bind_keys)
+                              if i not in failed_binds]
+                event_hosts = [h for i, h in enumerate(bind_hosts)
+                               if i not in failed_binds]
+                event_tasks = [t for i, t in enumerate(bind_tasks)
+                               if i not in failed_binds]
+            record_scheduled = getattr(cache.store, "record_scheduled", None)
+            if record_scheduled is not None:
+                # lazy batch record: the Scheduled message materializes on
+                # read, not on the session's critical path (the reference
+                # recorder is an async broadcaster — cache.go:601-611)
+                record_scheduled(event_keys, event_hosts)
+            else:
+                cache.store.record_events(
+                    (task.pod, "Normal", "Scheduled",
+                     f"Successfully assigned "
+                     f"{task.namespace}/{task.name} to {host}")
+                    for task, host in zip(event_tasks, event_hosts))
+
         if enc.spec.use_exclusion:
             # device-placed exclusion-group pods carry required
             # anti-affinity: later serial phases (residue, backfill,

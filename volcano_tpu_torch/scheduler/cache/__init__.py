@@ -8,5 +8,8 @@ from volcano_tpu_torch.scheduler.cache.interface import (
 )
 from volcano_tpu_torch.scheduler.cache.cache import (
     SchedulerCache,
+    DefaultBinder,
+    DefaultEvictor,
+    DefaultStatusUpdater,
     DefaultVolumeBinder,
 )

@@ -16,7 +16,7 @@ Differences from the reference, by design:
 from __future__ import annotations
 
 import threading
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
@@ -28,6 +28,8 @@ from volcano_tpu_torch.api.node_info import NodeInfo
 from volcano_tpu_torch.api.queue_info import QueueInfo
 from volcano_tpu_torch.api.types import TaskStatus, allocated_status
 from volcano_tpu_torch.api.unschedule_info import ALL_NODE_UNAVAILABLE
+from volcano_tpu_torch.scheduler.cache.interface import BindManyError
+from volcano_tpu_torch.store import FencedError, NotFoundError, Store, WatchHandler
 
 
 def _add_res_vec(res, vec, sign: float, scalar_names) -> None:
@@ -51,8 +53,112 @@ def pod_group_job_id(pg: objects.PodGroup) -> str:
 
 
 # ---------------------------------------------------------------------------
-# Default volume binder (cache.go:240-258)
+# Default effectors (write back to the store; cache.go:123-260)
 # ---------------------------------------------------------------------------
+
+
+class DefaultBinder:
+    """Commit placement by setting spec.node_name (the Bind subresource).
+
+    ``fence_epoch`` stamps every bind with the leadership epoch that
+    authorized it (None = fencing off): a deposed leader finishing an
+    in-flight fused chain cannot double-bind — the store rejects the
+    stale stamp (FencedError) and the failure feeds the ordinary
+    resync/rewind machinery. Rejections are counted per instance so the
+    failover auditor can balance them against the store's accounting."""
+
+    fence_epoch = None
+
+    def __init__(self, store: Store):
+        self.store = store
+        self.fenced_rejections = 0
+
+    def bind(self, pod: objects.Pod, hostname: str) -> None:
+        pod.spec.node_name = hostname
+        try:
+            self.store.update(pod, epoch=self.fence_epoch)
+        except FencedError:
+            self.fenced_rejections += 1
+            raise
+
+    def bind_many(self, pairs) -> None:
+        """Batch bind; reports partial progress so a mid-batch failure only
+        retries the unbound remainder (interface.BindManyError contract)."""
+        done = 0
+        try:
+            for pod, hostname in pairs:
+                self.bind(pod, hostname)
+                done += 1
+        except Exception as e:
+            raise BindManyError(done, e) from e
+
+
+class DefaultEvictor:
+    """Graceful deletion: stamp deletion_timestamp; the kubelet analog
+    completes the termination. Evictions are fenced exactly like binds —
+    a deposed leader must not terminate pods the new leader just placed
+    or re-affirmed."""
+
+    fence_epoch = None
+
+    def __init__(self, store: Store):
+        self.store = store
+        self.fenced_rejections = 0
+
+    def evict(self, pod: objects.Pod, reason: str = "") -> None:
+        from volcano_tpu_torch.utils import clock
+
+        pod.metadata.deletion_timestamp = clock.now()
+        try:
+            self.store.update(pod, epoch=self.fence_epoch)
+        except FencedError:
+            self.fenced_rejections += 1
+            raise
+
+
+class DefaultStatusUpdater:
+    """Status writebacks tolerate deletion races: the snapshot a session
+    closes against can be a full cycle stale, and an object deleted in the
+    meantime makes its status update moot, not an error — the reference's
+    updater logs update failures and moves on (job_updater.go:44-52).
+    Fenced rejections are likewise moot-but-counted: a deposed leader's
+    close-time condition/status writes must degrade to accounting, not
+    crash the close path or overwrite the new leader's truth."""
+
+    fence_epoch = None
+
+    def __init__(self, store: Store):
+        self.store = store
+        self.fenced_rejections = 0
+
+    def update_pod_condition(self, pod: objects.Pod, condition) -> None:
+        for i, c in enumerate(pod.status.conditions):
+            if c.type == condition.type:
+                pod.status.conditions[i] = condition
+                break
+        else:
+            pod.status.conditions.append(condition)
+        try:
+            self.store.update(pod, epoch=self.fence_epoch)
+        except FencedError:
+            self.fenced_rejections += 1
+        except NotFoundError:
+            pass  # pod deleted since the session snapshot
+
+    def update_pod_group(self, pod_group: objects.PodGroup, status=None) -> None:
+        if status is not None:
+            # close-time status writeback on the SHARED PodGroup object:
+            # the cache and every snapshot clone see it the instant it
+            # lands, and the synchronous store echo is recognized by
+            # add_pod_group's identity window.
+            # vclint: neutral(shared-object status writeback; the echo window owns the mark decision)
+            pod_group.status = status
+        try:
+            self.store.update_status(pod_group, epoch=self.fence_epoch)
+        except FencedError:
+            self.fenced_rejections += 1
+        except NotFoundError:
+            pass  # pod group deleted since the session snapshot
 
 
 class DefaultVolumeBinder:
@@ -68,6 +174,110 @@ class DefaultVolumeBinder:
         pass
 
 
+class StoreVolumeBinder:
+    """PV assume/bind against real PersistentVolume objects — the analog
+    of the reference's defaultVolumeBinder wrapping the k8s volumebinder
+    (cache.go:240-258): AllocateVolumes ASSUMES a compatible volume for
+    each unbound PVC the pod references on the chosen host (raising fails
+    the allocation, exactly as an assume failure does), BindVolumes
+    commits the assumption (PV/PVC flip to Bound in the store)."""
+
+    def __init__(self, store: Store):
+        self.store = store
+        # task uid -> [(pvc, pv)] assumed but not yet bound
+        self._assumed: Dict[str, list] = {}
+        self._lock = threading.Lock()
+
+    @staticmethod
+    def _pvc_names(task: TaskInfo) -> list:
+        pod = task.pod
+        if pod is None:
+            return []
+        return [v.persistent_volume_claim for v in pod.spec.volumes
+                if v.persistent_volume_claim]
+
+    def allocate_volumes(self, task: TaskInfo, hostname: str) -> None:
+        names = self._pvc_names(task)
+        if not names:
+            task.volume_ready = True
+            return
+        from volcano_tpu_torch.api.quantity import parse_quantity
+
+        assumed = []
+        with self._lock:
+            taken = {pv.metadata.name for lst in self._assumed.values()
+                     for _, pv in lst}
+            for name in names:
+                pvc = self.store.try_get(
+                    "PersistentVolumeClaim", task.namespace, name)
+                if pvc is None:
+                    raise RuntimeError(
+                        f"pvc {task.namespace}/{name} not found")
+                if pvc.phase == "Bound":
+                    # a bound volume constrains placement: the host must
+                    # satisfy the volume's node affinity
+                    pv = self.store.try_get(
+                        "PersistentVolume", "", pvc.volume_name)
+                    if pv is not None and pv.node_names \
+                            and hostname not in pv.node_names:
+                        raise RuntimeError(
+                            f"pvc {task.namespace}/{name} is bound to "
+                            f"volume {pv.metadata.name} not reachable from "
+                            f"{hostname}")
+                    continue
+                want = parse_quantity(pvc.requests.get("storage", 0))
+                best = None
+                for pv in self.store.list("PersistentVolume"):
+                    if pv.phase != "Available" or pv.claim_ref:
+                        continue
+                    if pv.metadata.name in taken:
+                        continue
+                    if pv.node_names and hostname not in pv.node_names:
+                        continue
+                    have = parse_quantity(pv.capacity.get("storage", 0))
+                    if have < want:
+                        continue
+                    # smallest sufficient volume, name tie-break — the
+                    # k8s binder's smallest-fit policy, deterministic
+                    key = (have, pv.metadata.name)
+                    if best is None or key < (best[0], best[1].metadata.name):
+                        best = (have, pv)
+                if best is None:
+                    raise RuntimeError(
+                        f"no PersistentVolume fits pvc "
+                        f"{task.namespace}/{name} on {hostname}")
+                taken.add(best[1].metadata.name)
+                assumed.append((pvc, best[1]))
+            if assumed:
+                self._assumed.setdefault(task.uid, []).extend(assumed)
+        task.volume_ready = True
+
+    def bind_volumes(self, task: TaskInfo) -> None:
+        with self._lock:
+            assumed = self._assumed.pop(task.uid, [])
+        for pvc, pv in assumed:
+            pv.claim_ref = f"{pvc.metadata.namespace}/{pvc.metadata.name}"
+            pv.phase = "Bound"
+            pvc.phase = "Bound"
+            pvc.volume_name = pv.metadata.name
+            self.store.update_status(pv)
+            self.store.update_status(pvc)
+
+    def unassume(self, task: TaskInfo) -> None:
+        """Release assumptions for a task whose placement was discarded
+        (statement rollback); bound volumes are untouched."""
+        with self._lock:
+            self._assumed.pop(task.uid, None)
+
+    def reset_assumptions(self) -> None:
+        """Session close: drop every unbound assumption — assume/bind
+        always completes within one session (dispatch or statement
+        commit), so leftovers belong to placements that never dispatched
+        and would otherwise pin their PVs forever."""
+        with self._lock:
+            self._assumed.clear()
+
+
 # ---------------------------------------------------------------------------
 # The cache
 # ---------------------------------------------------------------------------
@@ -76,6 +286,7 @@ class DefaultVolumeBinder:
 class SchedulerCache:
     def __init__(
         self,
+        store: Optional[Store] = None,
         scheduler_name: str = "volcano",
         default_queue: str = "default",
         binder=None,
@@ -83,19 +294,18 @@ class SchedulerCache:
         status_updater=None,
         volume_binder=None,
     ):
-        # no store and no informers in the port: callers feed the cache
-        # through its event-handler methods (bench/clusters.py) and hand it
-        # their effectors; ``store`` stays None for the shared code paths
-        self.store = None
+        self.store = store
         self.scheduler_name = scheduler_name
         self.default_queue = default_queue
 
-        self.binder = binder
-        self.evictor = evictor
-        self.status_updater = status_updater
+        self.binder = binder if binder is not None else (DefaultBinder(store) if store else None)
+        self.evictor = evictor if evictor is not None else (DefaultEvictor(store) if store else None)
+        self.status_updater = (
+            status_updater if status_updater is not None else (DefaultStatusUpdater(store) if store else None)
+        )
         self.volume_binder = (
             volume_binder if volume_binder is not None
-            else DefaultVolumeBinder())
+            else (StoreVolumeBinder(store) if store else DefaultVolumeBinder()))
 
         from volcano_tpu_torch.scheduler.cache.podtable import PodTable
         from volcano_tpu_torch.scheduler.cache.snapkeeper import SnapshotKeeper
@@ -146,7 +356,7 @@ class SchedulerCache:
         # a deposed leader's fenced mid-chain abort left in the store
         # (framework.run_actions consumes this flag)
         self.fence_sweep_due = False
-        # continuous pipeline (a later slice of the port): when armed, every
+        # continuous pipeline (volcano_tpu_torch/pipeline): when armed, every
         # snapshot() alternates the keeper's double buffer so consecutive
         # sessions never share clone objects (cycle N's close can still
         # read its snapshot while cycle N+1's is already solving)
@@ -189,6 +399,37 @@ class SchedulerCache:
         self._arrival_listener = fn
 
     # -- lifecycle ---------------------------------------------------------
+
+    def run(self) -> None:
+        """Wire the 11-informer equivalent: watch every kind the scheduler
+        consumes (cache.go:322-425). Idempotent — the scheduler driver and
+        an embedding cluster may both call it."""
+        if self.store is None or getattr(self, "_watching", False):
+            return
+        self._watching = True
+        s = self.store
+        self._watch_regs = [
+            ("Pod", WatchHandler(self.add_pod, self.update_pod_from_watch, self.delete_pod)),
+            ("Node", WatchHandler(self.add_node, self.update_node_from_watch, self.delete_node)),
+            ("PodGroup", WatchHandler(self.add_pod_group, self.update_pod_group_from_watch, self.delete_pod_group)),
+            ("Queue", WatchHandler(self.add_queue, self.update_queue_from_watch, self.delete_queue)),
+            ("PriorityClass", WatchHandler(self.add_priority_class, self.update_priority_class_from_watch, self.delete_priority_class)),
+            ("ResourceQuota", WatchHandler(self.add_resource_quota, self.update_resource_quota_from_watch, self.delete_resource_quota)),
+            ("PodDisruptionBudget", WatchHandler(self.add_pdb, self.update_pdb_from_watch, self.delete_pdb)),
+        ]
+        for kind, handler in self._watch_regs:
+            s.watch(kind, handler)
+
+    def detach_watches(self) -> None:
+        """Unregister this cache's store watches (sim restart-injection /
+        teardown): a replacement cache can then run() against the same
+        store without the old cache double-mirroring every write."""
+        if self.store is None or not getattr(self, "_watching", False):
+            return
+        for kind, handler in getattr(self, "_watch_regs", []):
+            self.store.unwatch(kind, handler)
+        self._watch_regs = []
+        self._watching = False
 
     def wait_for_cache_sync(self) -> bool:
         return True  # synchronous watches are always synced
@@ -543,6 +784,14 @@ class SchedulerCache:
                 pod = task.pod
         try:
             self.binder.bind(pod, hostname)
+        except FencedError:
+            # deposed leadership: undo the cache-side flip via resync and
+            # RE-RAISE so batch callers (express commit) stop dispatching
+            # the rest of a doomed gang instead of burning one rejection
+            # per task — per-task callers (Statement commit) already treat
+            # a bind failure as non-fatal
+            self.resync_task(task)
+            raise
         except Exception:
             self.resync_task(task)
         else:
@@ -568,6 +817,9 @@ class SchedulerCache:
                 pod = task.pod
         try:
             self.evictor.evict(pod, reason)
+        except FencedError:
+            self.resync_task(task)
+            raise  # see bind(): deposed leadership stops the batch
         except Exception:
             self.resync_task(task)
         else:
@@ -596,8 +848,20 @@ class SchedulerCache:
                 self._err_tasks.append(task)
 
     def sync_task(self, old_task: TaskInfo) -> None:
-        """No store to re-fetch truth from: the task stays as it is."""
-        return
+        if self.store is None:
+            return
+        try:
+            new_pod = self.store.get("Pod", old_task.namespace, old_task.name)
+        except NotFoundError:
+            with self._lock:
+                try:
+                    self._delete_task(old_task)
+                except RuntimeError:
+                    pass
+            return
+        with self._lock:
+            self._delete_task(old_task)
+            self._add_task(new_task_info(new_pod))
 
     # -- status writeback (cache.go:832-895) -------------------------------
 
@@ -841,7 +1105,7 @@ class SchedulerCache:
                 self.snap_keeper.swap()
             return self.snap_keeper.snapshot(self)
 
-    # -- continuous pipeline support (a later slice of the port) ----------------
+    # -- continuous pipeline support (volcano_tpu_torch/pipeline) ----------------
 
     def enable_pipeline(self) -> None:
         """Arm the double-buffered snapshot path (idempotent). Serial

@@ -17,9 +17,6 @@ float32 unless the caller asks for the CPU).
 Trims from the reference, each deliberate:
 
 - ``mesh=``: the port runs on one device;
-- the store watches (``cache.run()``): the port's cache has no store, its
-  callers feed it through the event-handler methods;
-- the ``RemoteStoreError`` branch of the loop (no remote store);
 - the ``except Exception`` around building the express lane and the
   pipeline driver: in the port a failure there raises;
 - PyYAML: the conf is read by ``parse_yaml``, a reader of the block-style
@@ -310,7 +307,8 @@ class Scheduler:
         self._conf_cache: Optional[Tuple[str, List, List[conf.Tier]]] = None
         # fault-degradation policy (scheduler/degrade.py): the process
         # default, so the solver's kernel hooks and this loop's session
-        # gate share one ladder
+        # gate share one ladder; embedders report remote-store health
+        # through it too
         self.degrade = degrade_mod.default_ladder()
 
     # -- lifecycle ---------------------------------------------------------
@@ -322,9 +320,10 @@ class Scheduler:
         self.cache.set_fence_epoch(epoch)
 
     def run(self) -> None:
-        """Start the periodic loop in a background thread
+        """Start cache sync then the periodic loop in a background thread
         (scheduler.go:63-69). Restartable: a leader elector may stop the
         loop on lost leadership and run it again on re-election."""
+        self.cache.run()
         self.cache.wait_for_cache_sync()
         if self._express and self.express_lane is None:
             from volcano_tpu_torch.express import ExpressLane
@@ -393,7 +392,11 @@ class Scheduler:
                     else:
                         self.run_once()
                     self.degrade.note_store_ok()
-                except Exception:
+                except Exception as e:
+                    from volcano_tpu_torch.store.remote import RemoteStoreError
+
+                    if isinstance(e, RemoteStoreError):
+                        self.degrade.note_store_error()
                     logger.exception("scheduling cycle failed")
                 policy.maintain()
                 elapsed = time.perf_counter() - start
