@@ -8,7 +8,7 @@ Run from the repository root on a machine with an NVIDIA H100:
 
 Phase groups (``--only``; all by default): allocate (phases 2-5, 3b),
 express (6-10), parity (11), pipeline (12), loop (13), bench (14),
-store (15). Each group's wall time is logged at the end.
+store (15), cluster (16). Each group's wall time is logged at the end.
 
 Every rounds solve on the card is one replay of its bucket's CUDA graph
 (K7, volcano_tpu_torch/ops/rounds_graph.py): the kernel wrappers launch
@@ -163,8 +163,9 @@ Phases, each failing the run on any error:
    namespaces and queues), and timed at each block size and node-state
    place; (b) float64 parity sessions on the card give the host serial
    loop's binds and cursor at cfg2 1.0 and cfg3 0.4; (c) one cfg5 parity
-   session at full width in float32, feasible; on its capture K15 is
-   torch.equal to its plain version, timed (microseconds a task step),
+   session at full width in float32, feasible; on its capture with a
+   tenth of its jobs active K15 is torch.equal to its plain version,
+   timed (microseconds a task step),
    and timed at each block size and node-state place;
 12. the pipeline at cfg5 (plus an oversized backlog, so every cycle
    solves): Scheduler(pipeline=True).run_once_pipelined() against
@@ -220,7 +221,37 @@ Phases, each failing the run on any error:
    a fed cfg2 twin's, one Scheduled event a bind after flush_events(), no
    watch reset; the watches and the gateway stopped in a ``finally``.
    Prints populate, session and bind-apply times, events, binds a second
-   over HTTP.
+   over HTTP;
+16. the in-process cluster (volcano_tpu_torch/cluster.py): cfg2 at
+   ``--scale`` as a user submits it (``cfg2_cluster``: 1,000 nodes, each
+   four-task group a Job of four one-replica tasks, min_available 2, ttl
+   0; 5,000 pods, above the rounds threshold), (a) through
+   Cluster(scheduler_conf=loop_conf("auto")) driven by ``step()`` until a
+   step writes nothing, the clock pinned to a counter: admission on every
+   Job, each PodGroup Pending then Inqueue before any of its pods exists
+   (the delay-pod-creation gate), one allocating cycle on the card whose
+   rounds kernels launched (``check_launches``), every bound pod within
+   its node's allocatable and Running, gangs whole, every Job's phase
+   following its gang, the Queue counting every PodGroup running, the
+   Scheduled events the binds; pods left unbound (cfg2 asks for 1,982 of
+   2,000 GPUs) must be unplaceable: one cycle of the host's serial loop
+   (tpuscore off) fed the store's objects binds none of them;
+   the binds equal pod by pod and in order to a fed twin's (the store's
+   Nodes, Queue, PodGroups and Pods right before the allocating cycle fed
+   into a FakeBinder cache, one cycle of the same conf); then every pod
+   Succeeded, every Job Completed and collected with its pods and
+   PodGroup, and an empty cycle that captures no graph and binds nothing;
+   (b) the same Jobs into a fresh Cluster run() on its threads
+   (schedule_period 0.5 s) until every pod Runs, or until every bound pod
+   Runs and 10 cycles have bound nothing (cfg2 asks for 1,982 of 2,000
+   GPUs: pods arriving over many cycles can leave no GPU node room for a
+   waiting 2-GPU pod), in which case one cycle of the host's serial loop
+   fed the store's final objects must bind none of the pods left; gangs whole,
+   fit per node, no ERROR record of the scheduler's logger (a failed
+   cycle), the rounds kernels launched; stop() in a ``finally``. Prints the
+   submission (admission), the controllers' pod creation, the allocating
+   cycle's session and bind apply, the kubelet, submit -> Running (a and
+   b), Running -> collected, and (b)'s cycles, beside the card.
 
 The last two lines of standard output are a {"kernels": [...]} JSON object
 and {"ok": true, "device": {...}}. Without a usable GPU, or without the
@@ -231,6 +262,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import logging
 import subprocess
 import sys
 import time
@@ -3864,7 +3896,581 @@ def store_phase(scale=1.0, device="cuda", dtype="float32"):
     return launches
 
 
-PHASE_GROUPS = ("allocate", "express", "parity", "pipeline", "loop", "bench", "store")
+# ---------------------------------------------------------------------------
+# 16: the in-process cluster, from Job submission to Completed
+# ---------------------------------------------------------------------------
+
+def cfg2_cluster(scale=1.0):
+    """cfg2 (bench/clusters.py ``_heterogeneous``) at ``scale`` as what a
+    user submits: its nodes, and each four-task group as a Job in namespace
+    ``bench`` of four one-replica tasks (min_available 2, ttl 0) carrying
+    the group's per-pod requests, drawn from the same random.Random(2)
+    stream. Returns (nodes, jobs) as port objects."""
+    import random
+
+    from volcano_tpu_torch.api import objects
+    from volcano_tpu_torch.scheduler.util.test_utils import (
+        build_node, build_resource_list_with_pods)
+
+    rng = random.Random(2)
+    tasks, n_nodes = max(int(5000 * scale), 8), max(int(1000 * scale), 4)
+    jobs = []
+    for g in range(tasks // 4):
+        specs = []
+        for i in range(4):
+            req = {
+                "cpu": f"{rng.choice([100, 250, 500, 1000, 2000])}m",
+                "memory": rng.choice(["256Mi", "512Mi", "1Gi", "2Gi"]),
+            }
+            if rng.random() < 0.25:
+                req["nvidia.com/gpu"] = str(rng.choice([1, 2]))
+            specs.append(objects.TaskSpec(
+                name=f"t{i}", replicas=1, template=objects.PodTemplateSpec(
+                    spec=objects.PodSpec(containers=[objects.Container(
+                        name="c", image="busybox", requests=req)]))))
+        jobs.append(objects.Job(
+            metadata=objects.ObjectMeta(name=f"job-{g:05d}", namespace="bench"),
+            spec=objects.JobSpec(min_available=2, tasks=specs, queue="default",
+                                 scheduler_name="volcano",
+                                 ttl_seconds_after_finished=0)))
+    nodes = []
+    for n in range(n_nodes):
+        rl = build_resource_list_with_pods("32", "64Gi", pods=256)
+        if n % 4 == 0:
+            rl["nvidia.com/gpu"] = "8"
+        nodes.append(build_node(f"node-{n:05d}", rl, labels={"zone": f"zone-{n % 8}"}))
+    return nodes, jobs
+
+
+def cluster_fit(store, what):
+    """Each node's bound pods within its allocatable (requests and pod
+    count) and every gang whole (a Job with a bound pod has at least its
+    min_available bound). Returns the binds."""
+    from volcano_tpu_torch.api.pod_helpers import get_pod_resource_request
+    from volcano_tpu_torch.api.resource import Resource
+
+    pods = store.list("Pod")
+    per_node, per_job = {}, {}
+    for p in pods:
+        if not p.spec.node_name:
+            continue
+        per_node.setdefault(p.spec.node_name, []).append(get_pod_resource_request(p))
+        job = p.metadata.annotations.get("volcano.sh/job-name")
+        per_job[job] = per_job.get(job, 0) + 1
+    for name, reqs in per_node.items():
+        node = store.get("Node", "", name)
+        alloc = Resource.from_resource_list(node.status.allocatable)
+        total = Resource.empty()
+        for r in reqs:
+            total.add(r)
+        if not total.less_equal(alloc) or len(reqs) > alloc.max_task_num:
+            raise AssertionError(f"{what}: node {name} over capacity")
+    for job in store.list("Job"):
+        n = per_job.get(job.metadata.name, 0)
+        if n and n < job.spec.min_available:
+            raise AssertionError(f"{what}: gang {job.metadata.name} bound {n}")
+    return {f"{p.metadata.namespace}/{p.metadata.name}": p.spec.node_name
+            for p in pods if p.spec.node_name}
+
+
+class Timed:
+    """Replaces ``obj.<name>`` by a wrapper that records each call's wall
+    seconds, what ``note`` returns after it and the call's result in
+    ``calls``; ``before`` runs ahead of the timed call."""
+
+    def __init__(self, obj, name, note=None, before=None):
+        self.calls = []
+        real = getattr(obj, name)
+
+        def timed(*a, **k):
+            if before is not None:
+                before()
+            t0 = time.perf_counter()
+            out = real(*a, **k)
+            self.calls.append((time.perf_counter() - t0, note() if note else None, out))
+            return out
+
+        setattr(obj, name, timed)
+
+
+class ErrorRecords(logging.Handler):
+    """Keeps the records of one logger at ``level`` and above; with
+    ``mute`` they stop there (not propagated to stderr) until close()."""
+
+    def __init__(self, name, level=logging.ERROR, mute=False):
+        super().__init__(level)
+        self.logger = logging.getLogger(name)
+        self.seen = []
+        self.levels = {}
+        self.logger.addHandler(self)
+        self.propagate = self.logger.propagate
+        if mute:
+            self.logger.propagate = False
+
+    def emit(self, record):
+        self.seen.append(record.getMessage())
+        self.levels[record.levelname] = self.levels.get(record.levelname, 0) + 1
+
+    def close(self):
+        self.logger.removeHandler(self)
+        self.logger.propagate = self.propagate
+        super().close()
+
+
+FED_KINDS = ("Node", "Queue", "PodGroup", "Pod")
+
+
+def store_objects(store):
+    """Copies of the store's objects a fed cache takes, in feeding order."""
+    import copy
+
+    return [copy.deepcopy(o) for kind in FED_KINDS for o in store.list(kind)]
+
+
+def fed_cycle(objs, conf, rr=0):
+    """One cycle of ``conf`` on a FakeBinder cache (bench/clusters.make_cache)
+    fed ``objs`` (``store_objects``), the round-robin cursor at ``rr``;
+    returns its binder."""
+    from volcano_tpu_torch.bench.clusters import make_cache
+    from volcano_tpu_torch.scheduler.scheduler import Scheduler
+    from volcano_tpu_torch.scheduler.util import scheduler_helper
+
+    fed = make_cache()
+    add = {"Node": fed.add_node, "Queue": fed.add_queue,
+           "PodGroup": fed.add_pod_group, "Pod": fed.add_pod}
+    for o in objs:
+        add[o.KIND](o)
+    scheduler_helper._last_processed_node_index = rr
+    Scheduler(fed, conf).run_once()
+    return fed.binder
+
+
+def serial_witness(store):
+    """The binds of one cycle of the host's serial loop (tpuscore off) fed
+    ``store``'s objects: the pods still pending that it can place."""
+    from volcano_tpu_torch.scheduler.scheduler import DEFAULT_SCHEDULER_CONF
+
+    return fed_cycle(store_objects(store), DEFAULT_SCHEDULER_CONF).binds
+
+
+def settle_cluster(cluster, what, after_step=None, max_steps=12):
+    """``cluster.step()`` until a step writes nothing to the store, calling
+    ``after_step()`` after each; returns each step's seconds."""
+    took = []
+    for _ in range(max_steps):
+        rv = cluster.store.resource_version
+        t0 = time.perf_counter()
+        cluster.step()
+        took.append(time.perf_counter() - t0)
+        if after_step is not None:
+            after_step()
+        if cluster.store.resource_version == rv:
+            return took
+    raise AssertionError(f"{what}: not stable after {max_steps} steps")
+
+
+def cluster_phase(scale=1.0, device="cuda", dtype="float32", period=0.5):
+    """(a) cfg2 at ``scale`` as Jobs (``cfg2_cluster``) through
+    ``Cluster(scheduler_conf=loop_conf("auto", ...))`` driven by step():
+    admission, the gate, the allocating cycle on the card against a fed
+    twin, the kubelet, Running, then Succeeded, Completed and collected;
+    (b) ``threaded_cluster``. Returns (b)'s launches."""
+    import copy
+    import itertools
+
+    from volcano_tpu_torch import device as devmod
+    from volcano_tpu_torch.api import objects
+    from volcano_tpu_torch.cluster import Cluster
+    from volcano_tpu_torch.ops import rounds_graph
+    from volcano_tpu_torch.ops.solver import BatchAllocator
+    from volcano_tpu_torch.scheduler.util import scheduler_helper
+    from volcano_tpu_torch.store.store import WatchHandler
+    from volcano_tpu_torch.utils import clock
+
+    t_phase = time.perf_counter()
+    conf = loop_conf("auto", device, dtype)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    # the gate's refusals are the job controller's ERROR and WARNING
+    # records, several a Job: counted, kept off stderr
+    gate_log = ErrorRecords("volcano_tpu_torch.controllers", logging.WARNING, mute=True)
+
+    # (a) deterministic drive
+    nodes, jobs = cfg2_cluster(scale)
+    n_pods = sum(len(j.spec.tasks) for j in jobs)
+    scheduler_helper.reset_round_robin()
+    ticks = itertools.count(1)
+    clock.set_source(lambda: float(next(ticks)))
+    seq = itertools.count()
+    first_seen = {}  # (what, job) -> order of the first such event
+
+    def mark_seen(what, job):
+        first_seen.setdefault((what, job), next(seq))
+
+    completed = set()
+
+    def on_pg(pg):
+        mark_seen("pg_" + pg.status.phase, pg.metadata.name)
+
+    def on_pod(pod):
+        mark_seen("pod", pod.metadata.annotations.get(objects.JOB_NAME_KEY))
+
+    def on_job(old, new):
+        if new.status.state.phase == objects.JobPhase.COMPLETED:
+            completed.add(new.metadata.name)
+
+    try:
+        c = Cluster(scheduler_conf=conf)
+        store = c.store
+        store.watch("PodGroup", WatchHandler(added=on_pg, updated=lambda o, n: on_pg(n)))
+        store.watch("Pod", WatchHandler(added=on_pod))
+        store.watch("Job", WatchHandler(updated=on_job))
+        for node in nodes:
+            store.create(node)
+        t_submit = time.perf_counter()
+        for job in jobs:
+            store.create(job)
+        submit_s = time.perf_counter() - t_submit
+        # the pieces of a step, timed; the job controller's drains keep
+        # their cap (process_all's 10,000 requests a drain)
+        n_pods_now = lambda: len(store.list("Pod"))  # noqa: E731
+        jc = Timed(c.job_controller, "process_all", note=n_pods_now)
+        kub = Timed(c.kubelet, "step")
+        others = [Timed(c.podgroup_controller, "process_all"),
+                  Timed(c.queue_controller, "process_all"),
+                  Timed(c.gc, "process_expired")]
+        snap = {"s": 0.0}
+
+        def before_cycle():
+            t0 = time.perf_counter()
+            pending = [p for p in store.list("Pod") if not p.spec.node_name]
+            if pending and "objects" not in snap:
+                snap["objects"] = store_objects(store)
+                snap["rr"] = scheduler_helper._last_processed_node_index
+                snap["captures"] = rounds_graph.STATS["captures"]
+                sync()
+                devmod.reset_launches()
+            snap["s"] += time.perf_counter() - t0
+
+        # the bind apply: the binder's calls into the store (bind_many on the
+        # rounds path, bind a task on the serial one), timed
+        binder = c.cache.binder
+        apply_s, depth = [], [0]
+
+        def timed_bind(real):
+            def bind(*a):
+                # bind_many binds through bind: time the outer call only
+                depth[0] += 1
+                t0 = time.perf_counter()
+                try:
+                    return real(*a)
+                finally:
+                    depth[0] -= 1
+                    if not depth[0]:
+                        apply_s.append(time.perf_counter() - t0)
+            return bind
+
+        binder.bind_many = timed_bind(binder.bind_many)
+        binder.bind = timed_bind(binder.bind)
+        seen_profiles, restore = probe_profiles()
+
+        def after_cycle():
+            sync()
+            return {"launches": devmod.launches(), "apply_calls": len(apply_s),
+                    "binds": sum(e.reason == "Scheduled" for e in store.events),
+                    "profiles": len(seen_profiles)}
+
+        marks = []
+
+        def mark_step():
+            pods = store.list("Pod")
+            marks.append(dict(
+                t=time.perf_counter(), pods=len(pods),
+                bound=sum(1 for p in pods if p.spec.node_name),
+                running=sum(p.status.phase == objects.POD_PHASE_RUNNING for p in pods),
+                jc=len(jc.calls), kub=len(kub.calls), cyc=len(cyc.calls),
+                others=[len(o.calls) for o in others], snapshot_s=snap["s"]))
+
+        try:
+            cyc = Timed(c.scheduler, "run_once", before=before_cycle, note=after_cycle)
+            steps = settle_cluster(c, "cluster", after_step=mark_step)
+        finally:
+            restore()
+        # Running: the end of the first step after which every pod exists
+        # and every pod the cycles bound runs
+        upto = next((m for m in marks if m["pods"] == n_pods
+                     and m["running"] == marks[-1]["bound"]), None)
+        if upto is None or not upto["running"]:
+            raise AssertionError(f"cluster: the bound pods never all ran {marks[-1]}")
+        running_at = upto["t"]
+        notes = [{"binds": 0, "apply_calls": 0}] + [n for _, n, _ in cyc.calls]
+        alloc = [i for i in range(1, len(notes))
+                 if notes[i]["binds"] > notes[i - 1]["binds"]]
+        if len(alloc) != 1:
+            raise AssertionError(f"cluster: binds in cycles {alloc}, not one")
+        note, before = notes[alloc[0]], notes[alloc[0] - 1]
+        session_s = cyc.calls[alloc[0] - 1][0]
+        counts = note["launches"]
+        bind_s = sum(apply_s[before["apply_calls"]:note["apply_calls"]])
+        prof = seen_profiles[note["profiles"] - 1]
+        cold = rounds_graph.STATS["captures"] != snap["captures"]
+        # below the rounds threshold (a small --scale) the session is serial
+        if n_pods >= BatchAllocator.AUTO_ROUNDS_THRESHOLD:
+            if prof.get("mode") != "rounds":
+                raise AssertionError(f"cluster: the allocating cycle ran {prof.get('mode')}")
+            if device == "cuda":
+                check_launches(2, prof, counts, False, cold)
+        # the gate: each PodGroup Pending, then Inqueue, before any pod
+        for job in jobs:
+            name = job.metadata.name
+            order = [first_seen.get((k, name)) for k in
+                     ("pg_" + objects.PodGroupPhase.PENDING,
+                      "pg_" + objects.PodGroupPhase.INQUEUE, "pod")]
+            if None in order or order != sorted(order):
+                raise AssertionError(f"cluster: {name} gate order {order}")
+        # one session at cfg2's GPU load (1,982 of 2,000) can leave a GPU
+        # pod no node with room; pods left unbound must be unplaceable,
+        # which the host's serial loop (tpuscore off) witnesses: one cycle
+        # of it fed the store's objects binds none of them
+        binds = cluster_fit(store, "cluster")
+        pods = store.list("Pod")
+        stranded = {}
+        if len(binds) < n_pods:
+            placeable = serial_witness(store)
+            stranded = dict(unplaced_report(store), serial_witness_binds=len(placeable))
+            if placeable:
+                raise AssertionError(
+                    f"cluster: {n_pods - len(binds)} pods left unbound, of which the "
+                    f"serial loop binds {len(placeable)}")
+        if any(p.status.phase != objects.POD_PHASE_RUNNING for p in pods if p.spec.node_name):
+            raise AssertionError("cluster: a bound pod is not Running")
+        per_job = {}
+        for p in pods:
+            if p.spec.node_name:
+                job = p.metadata.annotations[objects.JOB_NAME_KEY]
+                per_job[job] = per_job.get(job, 0) + 1
+        want = {j.metadata.name: objects.JobPhase.RUNNING
+                if per_job.get(j.metadata.name, 0) >= j.spec.min_available
+                else objects.JobPhase.PENDING for j in jobs}
+        got = {j.metadata.name: j.status.state.phase for j in store.list("Job")}
+        if got != want:
+            raise AssertionError("cluster: a Job's phase does not follow its gang")
+        queue = store.get("Queue", "", "default").status
+        pg_running = sum(pg.status.phase == objects.PodGroupPhase.RUNNING
+                         for pg in store.list("PodGroup"))
+        if queue.running != pg_running or pg_running != sum(
+                v == objects.JobPhase.RUNNING for v in want.values()):
+            raise AssertionError(f"cluster: the Queue counts {queue.running} running "
+                                 f"of {pg_running} running PodGroups")
+        order = [e.object_key for e in store.events if e.reason == "Scheduled"]
+        if sorted(order) != sorted(binds):
+            raise AssertionError("cluster: Scheduled events differ from the binds")
+
+        # fed twin: the store's objects right before the allocating cycle,
+        # fed into a FakeBinder cache, one cycle of the same conf
+        fed = fed_cycle(snap["objects"], conf, snap["rr"])
+        first_difference(binds, fed.binds, "cluster")
+        if order != fed.channel:
+            raise AssertionError("cluster: bind order differs from the fed twin's")
+
+        # Running -> Succeeded -> Completed -> collected, in waves: pods left
+        # unbound bind once the first wave's Jobs free their nodes
+        t_done = time.perf_counter()
+        flip_s, done_steps = 0.0, []
+        for _ in range(4):
+            t0 = time.perf_counter()
+            for pod in store.list("Pod"):
+                if pod.status.phase == objects.POD_PHASE_RUNNING:
+                    updated = copy.deepcopy(pod)
+                    updated.status.phase = objects.POD_PHASE_SUCCEEDED
+                    store.update_status(updated)
+            flip_s += time.perf_counter() - t0
+            done_steps.append(settle_cluster(c, "cluster completion"))
+            if not store.list("Pod", namespace="bench"):
+                break
+        done_s = time.perf_counter() - t_done
+        left = {k: len(store.list(k, namespace="bench")) for k in ("Job", "Pod", "PodGroup")}
+        if completed != {j.metadata.name for j in jobs} or any(left.values()):
+            raise AssertionError(f"cluster: {len(completed)} Jobs Completed, left {left}")
+        caps = rounds_graph.STATS["captures"]
+        n_events = len(store.events)
+        c.scheduler.run_once()
+        if rounds_graph.STATS["captures"] != caps or any(
+                e.reason == "Scheduled" for e in store.events[n_events:]):
+            raise AssertionError("cluster: an empty cycle captured or bound")
+    finally:
+        clock.set_source(None)
+        gate_log.close()
+    drains = jc.calls[:upto["jc"]]
+    created = [s for (s, n, _), prev in zip(drains, [0] + [n for _, n, _ in drains])
+               if n > prev]
+    # submit -> Running split by layer (ms); "harness" is this phase's own
+    # snapshot for the fed twin, taken inside the allocating step
+    split = {
+        "admission": submit_s,
+        "job_controller_pod_creation": sum(created),
+        "job_controller_other": sum(s for s, _, _ in drains) - sum(created),
+        "alloc_cycle": session_s, "of_it_bind_apply": bind_s,
+        "other_cycles": sum(s for s, _, _ in cyc.calls[:upto["cyc"]]) - session_s,
+        "kubelet": sum(s for s, _, _ in kub.calls[:upto["kub"]]),
+        "podgroup_queue_gc": sum(s for o, n in zip(others, upto["others"])
+                                 for s, _, _ in o.calls[:n]),
+        "harness_snapshot": upto["snapshot_s"]}
+    split["unaccounted"] = (running_at - t_submit) - sum(
+        v for k, v in split.items() if k != "of_it_bind_apply")
+    split = {k: v * 1e3 for k, v in split.items()}
+    out_a = {
+        "jobs": len(jobs), "pods": n_pods, "nodes": len(nodes),
+        "submit_to_running_s": running_at - t_submit, "split_to_running_ms": split,
+        "solve_ms": prof.get("solve_s", 0.0) * 1e3, "steps_s": steps,
+        "cycles": len(cyc.calls),
+        "flip_succeeded_ms": flip_s * 1e3,
+        "running_to_collected_s": done_s, "completion_steps": done_steps,
+        "max_drain": max(n for _, _, n in jc.calls),
+        "bound": len(binds), "unbound": n_pods - len(binds), **stranded,
+        "cold": cold,
+        "gate_log_records": gate_log.levels,
+        "job_controller_drains": [[s * 1e3, pods_after, processed]
+                                  for s, pods_after, processed in drains],
+        "equals_fed_twin": True,
+        "launches": {k: v for k, v in counts.items() if v}, "card": CARD}
+    print(json.dumps({"cluster_cfg2": out_a}), flush=True)
+    del c, store, fed, snap
+
+    counts = threaded_cluster(scale, device, dtype, period)
+    log(f"cluster phase: {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+def unplaced_report(store):
+    """Why pods are still unbound: the unbound pods by GPU count, how many
+    GPU nodes have each count of GPUs free, and the Jobs with an unbound
+    pod (the first 8: bound pods, the unbound ones' GPUs and CPU, the
+    PodGroup's phase)."""
+    from volcano_tpu_torch.api.pod_helpers import get_pod_resource_request
+
+    gpu = "nvidia.com/gpu"
+    used, unbound, jobs = {}, {}, {}
+    for p in store.list("Pod"):
+        g = int(float(p.spec.containers[0].requests.get(gpu, 0)))
+        job = jobs.setdefault(p.metadata.annotations.get("volcano.sh/job-name"),
+                              {"bound": 0, "unbound_gpus": []})
+        if p.spec.node_name:
+            used[p.spec.node_name] = used.get(p.spec.node_name, 0) + g
+            job["bound"] += 1
+        else:
+            unbound[g] = unbound.get(g, 0) + 1
+            job["unbound_gpus"].append(g)
+            job["unbound_cpu_m"] = job.get("unbound_cpu_m", 0) + \
+                get_pod_resource_request(p).milli_cpu
+    free = {}
+    for n in store.list("Node"):
+        cap = int(float(n.status.allocatable.get(gpu, 0)))
+        if cap:
+            f = cap - used.get(n.metadata.name, 0)
+            free[f] = free.get(f, 0) + 1
+    stranded = {}
+    for name, j in jobs.items():
+        if j["unbound_gpus"]:
+            pg = store.try_get("PodGroup", "bench", name)
+            stranded[name] = dict(j, pg_phase=pg.status.phase if pg else None)
+    return {"unbound_by_gpus": unbound, "gpu_nodes_by_free_gpus": free,
+            "stranded_jobs": len(stranded),
+            "stranded_jobs_first": dict(sorted(stranded.items())[:8])}
+
+
+def threaded_cluster(scale=1.0, device="cuda", dtype="float32", period=0.5,
+                     deadline_s=300.0, still_cycles=10):
+    """Phase 16 (b): cfg2's Jobs into a fresh Cluster run() on its threads
+    until every pod Runs, or until every pod exists, the kubelet has run
+    every bound one and ``still_cycles`` cycles have bound nothing (a
+    fixed point: with cfg2 asking for 1,982 of 2,000 GPUs, pods that
+    arrive over many cycles can leave each GPU node too few GPUs for a
+    waiting gang). Pods left unbound must be unplaceable: ``serial_witness``
+    on the store's final objects binds none of them. Returns the launches
+    over the run."""
+    from volcano_tpu_torch import device as devmod
+    from volcano_tpu_torch.api import objects
+    from volcano_tpu_torch.cluster import Cluster
+    from volcano_tpu_torch.ops.solver import BatchAllocator
+    from volcano_tpu_torch.scheduler.util import scheduler_helper
+
+    conf = loop_conf("auto", device, dtype)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    nodes, jobs = cfg2_cluster(scale)
+    n_pods = sum(len(j.spec.tasks) for j in jobs)
+    scheduler_helper.reset_round_robin()
+    c = Cluster(scheduler_conf=conf, schedule_period=period)
+    for node in nodes:
+        c.store.create(node)
+    errors = ErrorRecords("volcano_tpu_torch.scheduler.scheduler")
+    gate_log = ErrorRecords("volcano_tpu_torch.controllers", logging.WARNING, mute=True)
+    cycles = Timed(c.scheduler, "run_once")
+    sync()
+    devmod.reset_launches()
+    c.run()
+    try:
+        t0 = time.perf_counter()
+        for job in jobs:
+            c.store.create(job)
+        submit_s = time.perf_counter() - t0
+        deadline = time.perf_counter() + deadline_s
+        last = (-1, 0)  # (bound pods, cycles when that count was first seen)
+        while True:
+            pods = c.store.list("Pod")
+            bound = sum(1 for p in pods if p.spec.node_name)
+            running = sum(p.status.phase == objects.POD_PHASE_RUNNING for p in pods)
+            if len(pods) == n_pods and running == n_pods:
+                break
+            if len(pods) == n_pods and running == bound:
+                if bound != last[0]:
+                    last = (bound, len(cycles.calls))
+                elif len(cycles.calls) - last[1] >= still_cycles:
+                    break
+            if time.perf_counter() > deadline:
+                print(json.dumps({"cluster_cfg2_threaded_timeout": {
+                    "pods": len(pods), "bound": bound, "running": running,
+                    "cycles": len(cycles.calls),
+                    "cycle_ms": [s * 1e3 for s, _, _ in cycles.calls][-8:],
+                    "scheduler_errors": errors.seen[:3],
+                    "degrade": c.scheduler.degrade.stats(),
+                    **unplaced_report(c.store)}}, default=str), flush=True)
+                raise AssertionError(f"threaded cluster: {len(pods)} pods, "
+                                     f"{running} Running after {deadline_s} s")
+            time.sleep(0.05)
+        running_s = time.perf_counter() - t0
+    finally:
+        c.stop()
+        errors.close()
+        gate_log.close()
+    sync()
+    counts = devmod.launches()
+    pods = c.store.list("Pod")
+    unbound = [p for p in pods if not p.spec.node_name]
+    report = unplaced_report(c.store) if unbound else {}
+    placeable = serial_witness(c.store) if unbound else {}
+    out_b = {"pods": n_pods, "submit_ms": submit_s * 1e3,
+             "submit_to_running_s": running_s, "all_running": not unbound,
+             "unbound": len(unbound), **report, "serial_witness_binds": len(placeable),
+             "period_s": period, "cycles": len(cycles.calls),
+             "cycle_ms": [s * 1e3 for s, _, _ in cycles.calls],
+             "scheduler_errors": len(errors.seen), "gate_log_records": gate_log.levels,
+             "launches": {k: v for k, v in counts.items() if v}, "card": CARD}
+    print(json.dumps({"cluster_cfg2_threaded": out_b}), flush=True)
+    if errors.seen:
+        raise AssertionError(f"threaded cluster: failed cycles {errors.seen[:3]}")
+    if placeable:
+        raise AssertionError(f"threaded cluster: {len(unbound)} pods left unbound, "
+                             f"of which the serial loop binds {len(placeable)}")
+    cluster_fit(c.store, "threaded cluster")
+    if device == "cuda" and n_pods >= BatchAllocator.AUTO_ROUNDS_THRESHOLD:
+        idle = [k for k in ALLOC_KERNELS if k != "window_topk" and not counts[k]]
+        if idle:
+            raise AssertionError(f"threaded cluster: kernels never launched: {idle}")
+    return counts
+
+
+PHASE_GROUPS = ("allocate", "express", "parity", "pipeline", "loop", "bench", "store",
+                "cluster")
 
 
 def main() -> int:
@@ -3962,6 +4568,9 @@ def main() -> int:
     if "store" in groups:
         launches["store"] = store_phase(args.scale)
         mark("store")
+    if "cluster" in groups:
+        launches["cluster"] = cluster_phase(args.scale)
+        mark("cluster")
     log(f"group walls (s): {walls}")
     # each kernel's launches on the path that runs it: K1-K5 on cfg5; the
     # per-action K9 on cfg4's and K10 on the reclaim path's per-action run;

@@ -163,7 +163,7 @@ def test_cli_runs_and_prints_a_summary_tail():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--no-front-door"], "item 4"),
+    (["--no-front-door"], "item 6"),
     (["--scenario", "cfg5_storm"], "item 6"),
     (["--no-storm"], "item 6"),
     (["--storm-scale", "0.1"], "item 6"),

@@ -449,35 +449,39 @@ class TestRevertHygiene:
     def test_broken_gang_reverts_with_zero_residue(self):
         """A gang that loses a member in the optimistic window is reverted
         by the next session through the real evict machinery, and the
-        reverted bind leaves no residue in cache, mirror, or dirty-sets.
-        The port has no store: the member dies through cache.delete_pod,
-        and the evicted survivor completes its termination the same way."""
-        cache = make_cache()
+        reverted bind leaves no residue in cache, mirror, or dirty-sets."""
+        from volcano_tpu_torch.cluster import Kubelet
+        from volcano_tpu_torch.scheduler.cache import SchedulerCache
+        from volcano_tpu_torch.store.store import Store
+
+        store = Store()
+        cache = SchedulerCache(store=store)
+        cache.run()
         for n in range(3):
-            cache.add_node(build_node(
+            store.create(build_node(
                 f"node-{n}", build_resource_list_with_pods("8", "16Gi",
                                                            pods=64)))
-        cache.add_queue(build_queue("default"))
+        store.create(build_queue("default"))
         lane = lane_of(cache)
-        cache.add_pod_group(build_pod_group("gang-x", namespace="xp",
-                                            min_member=2))
+        store.create(build_pod_group("gang-x", namespace="xp",
+                                     min_member=2))
         pods = [build_pod("xp", f"gang-x-t{i}", "",
                           objects.POD_PHASE_PENDING,
                           {"cpu": "500m", "memory": "512Mi"}, "gang-x")
                 for i in range(2)]
         for pod in pods:
-            cache.add_pod(pod)
+            pod.spec.scheduler_name = "volcano"
+            store.create(pod)
         rep = lane.run_once()
         assert rep["placed"] == 2
         # the optimistic window: one member dies before the next session
-        cache.delete_pod(pods[0])
+        store.try_delete("Pod", "xp", "gang-x-t0")
         run_session(cache)
         assert lane.counters["reverted"] == 1
         assert "xp/gang-x" in lane.denylist
         assert lane.outstanding == {}
-        assert cache.evictor.evicts == ["xp/gang-x-t1"]
-        # eviction completes: the evicted pod terminates
-        cache.delete_pod(pods[1])
+        # eviction completes through the normal machinery
+        Kubelet(store).step()
         job = cache.jobs.get("xp/gang-x")
         live = list(job.tasks.values()) if job is not None else []
         assert not [t for t in live if t.node_name], live

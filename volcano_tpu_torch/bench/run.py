@@ -34,9 +34,10 @@ shared journal, host only: it exits before any device is resolved); the
 all-configs summary carries it as its ``watch_fanout`` column unless
 ``--no-fanout``.
 
-Left out, each refused with its ROADMAP.md item: the front-door column
-(admission, item 4), the storm column and ``--scenario`` (the simulator,
-item 6), and the bare ``--mesh`` flag (the mesh, item 7). The all-configs
+Left out, each refused with its ROADMAP.md item: the front-door and storm
+columns (each runs the simulator's cluster, ``sim.harness``) and
+``--scenario`` (the simulator, item 6), and the bare ``--mesh`` flag (the
+mesh, item 7). The all-configs
 summary's standing mesh curve runs in-process.
 
 Usage:
@@ -61,8 +62,8 @@ RECORD = os.path.join(REPO, "BENCH_torch_local.json")
 # flags of the reference bench the port does not run yet, with the
 # ROADMAP.md item that owns each
 REFUSED = {
-    "no_front_door": "the front-door column needs admission and the "
-                     "controllers (ROADMAP.md Queue 1 item 4)",
+    "no_front_door": "the front_door_storm column runs the simulator's "
+                     "cluster (ROADMAP.md Queue 1 item 6)",
     "scenario": "scenario clusters come from the simulator "
                 "(ROADMAP.md Queue 1 item 6)",
     "no_storm": "the cfg5_storm column needs the simulator "
