@@ -8,7 +8,10 @@ Run from the repository root on a machine with an NVIDIA H100:
 
 Phase groups (``--only``; all by default): allocate (phases 2-5, 3b),
 express (6-10), parity (11), pipeline (12), loop (13), bench (14),
-store (15), cluster (16). Each group's wall time is logged at the end.
+store (15), cluster (16), daemon (17). Each group's wall time is logged
+at the end. A device error (a failed build, launch, solve or fetch) is
+never turned into the serial host path by the port: it raises and fails
+the run.
 
 Every rounds solve on the card is one replay of its bucket's CUDA graph
 (K7, volcano_tpu_torch/ops/rounds_graph.py): the kernel wrappers launch
@@ -214,7 +217,8 @@ Phases, each failing the run on any error:
    (and in order) to a fed twin's (the same generator into a FakeBinder
    cache, the clock pinned to one counter on both sides, on the card),
    and a second session binding nothing new and capturing no graph; (b)
-   cfg2 behind an ApiGateway on 127.0.0.1 (its journal sized to hold the
+   cfg2 at ``--scale`` but at most 0.45 (2,248 tasks; phase 17(b) binds
+   cfg2's full scale over HTTP) behind an ApiGateway on 127.0.0.1 (its journal sized to hold the
    initial sync and the binds' echoes), a RemoteStore-backed cache in
    this process synced from the watches, one session on the card binding
    over HTTP: cfg2's kernels launched, the server store's binds equal to
@@ -251,7 +255,50 @@ Phases, each failing the run on any error:
    cycle), the rounds kernels launched; stop() in a ``finally``. Prints the
    submission (admission), the controllers' pod creation, the allocating
    cycle's session and bind apply, the kubelet, submit -> Running (a and
-   b), Running -> collected, and (b)'s cycles, beside the card.
+   b), Running -> collected, and (b)'s cycles, beside the card;
+17. the daemon (volcano_tpu_torch/scheduler/__main__.py, ha.py,
+   leaderelection.py, cli/): (c) a takeover in this process: two
+   FailoverScheduler members (a 1 s lease) over one Store holding cfg2 at
+   ``--scale``; the leader solves it and pauses holding the lease, its
+   pods are replaced by the same work under another namespace, the lease
+   is released, and the standby's first session solves that same bucket
+   with no graph capture (the graphs are cached process-wide) and no
+   wholesale snapshot rebuild (its cache followed as a warm standby), pods
+   left unbound held to ``serial_witness``; (b) the process split at
+   cfg2's ``--scale``: ``python -m volcano_tpu_torch.scheduler
+   --api-server-only`` (its ``api gateway on :PORT`` line read), cfg2's
+   Nodes and the Queue written over a RemoteStore, two ``--server
+   --leader-elect`` schedulers (sched-a, sched-b) under cfg2's conf with
+   the batch solve in rounds mode on the card, each run as ``python -m
+   volcano_tpu_torch.scheduler`` is (runpy) with a hook that prints each
+   session's solver profile and kernel launches; cfg2's 1,250 Jobs
+   submitted with ``cli.job.run_job`` (admission server-side) in two
+   waves: once every Job of the first has its pods and 1,000 pods are
+   bound, the leader is killed (SIGKILL); the standby takes the lease
+   (more transitions, a higher epoch), the second wave is submitted (no
+   Job waits for admission across the takeover: the job controller drops
+   one that waits past its retry budget, a reference fault), and the
+   standby binds the rest. Checked: at most one
+   live leader and the lock's holder among them at every scrape; every
+   Job with its pods; both schedulers' bind sessions solved in rounds mode
+   and launched the rounds kernels in their own processes, the standby's
+   after the takeover; no pod with two Scheduled events and one for every
+   pod the standby bound (the killed leader's last unflushed batch of
+   events is lost with it, and counted); fit and gangs; every bound pod
+   Running and every Job's phase following its gang; pods left unbound
+   held to ``serial_witness``; each scheduler's /metrics (the leader's
+   before the kill, the standby's at the end) with no degraded rung, its
+   envelope misses (``volcano_device_fallbacks_total``, cfg2's backfill)
+   printed; the card's used memory (nvidia-smi) up by at least a CUDA
+   context once the leader solves, down by as much at its kill, and up
+   again once the standby solves (the card's process list carries
+   another pid namespace's numbers, so a pid cannot be matched); ``python
+   -m volcano_tpu_torch.cli.vcctl --server ... job list`` listing every
+   Job. Prints the writes a second over HTTP, submit -> Running, the
+   leader's binds before the kill, kill -> the standby's first bind
+   beside the 15 s lease, the standby's binds, the fenced writes the
+   gateway rejected and whether each watch journal trimmed, beside the
+   card.
 
 The last two lines of standard output are a {"kernels": [...]} JSON object
 and {"ok": true, "device": {...}}. Without a usable GPU, or without the
@@ -263,6 +310,7 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import signal
 import subprocess
 import sys
 import time
@@ -3775,6 +3823,11 @@ def stop_remote_watches(remote, store):
     remote.stop_watches()
 
 
+# phase 15(b)'s cfg2 scale since phase 17(b) (cfg2 at full scale over HTTP):
+# 2,248 tasks, above the rounds threshold
+STORE_REMOTE_SCALE = 0.45
+
+
 def store_phase(scale=1.0, device="cuda", dtype="float32"):
     """(a) cfg5 written into a port Store, mirrored by a store-backed cache
     through its watches, one session binding through DefaultBinder into the
@@ -3840,12 +3893,14 @@ def store_phase(scale=1.0, device="cuda", dtype="float32"):
         "equals_fed_twin": True, "card": CARD}}), flush=True)
     del cache, store, fed, fed_order
 
-    # (b) over HTTP, cfg2
+    # (b) over HTTP, cfg2 at STORE_REMOTE_SCALE at most: phase 17(b) binds
+    # cfg2's full scale over HTTP
+    rscale = min(scale, STORE_REMOTE_SCALE)
     server = Store()
-    n2 = pinned_populate(2, StoreWriter(server), scale)
-    # the Pod journal holds the initial sync (5,000 ADDED) and the binds'
-    # echoes (5,000 MODIFIED): at the default 4,096 entries the client's
-    # first poll would fall off the ring and re-list (a watch reset)
+    n2 = pinned_populate(2, StoreWriter(server), rscale)
+    # the Pod journal holds the initial sync (ADDED) and the binds' echoes
+    # (MODIFIED), 10,000 entries at full scale: at the default 4,096 the
+    # client's first poll could fall off the ring and re-list (a reset)
     gw = ApiGateway(server, "127.0.0.1:0", journal_cap=4 * 4096).start()
     remote = None
     try:
@@ -3874,7 +3929,7 @@ def store_phase(scale=1.0, device="cuda", dtype="float32"):
         events = scheduled_keys(server)
         resets = remote.watch_stats()["resets"]
         scheduler_helper.reset_round_robin()
-        fed, _ = fed_twin(2, scale, device, dtype)
+        fed, _ = fed_twin(2, rscale, device, dtype)
         first_difference(binds, fed, "remote cfg2")
         if sorted(events) != sorted(order) or set(order) != set(binds):
             raise AssertionError(f"remote cfg2: {len(events)} Scheduled events "
@@ -3882,7 +3937,7 @@ def store_phase(scale=1.0, device="cuda", dtype="float32"):
         if resets:
             raise AssertionError(f"remote cfg2: {resets} watch resets")
         print(json.dumps({"store_cfg2_remote": {
-            "tasks": n2, "binds": len(binds), "scheduled_events": len(events),
+            "scale": rscale, "tasks": n2, "binds": len(binds), "scheduled_events": len(events),
             "watch_sync_s": sync_s, "session_ms": wall * 1e3,
             "bind_apply_ms": apply_s * 1e3,
             "binds_per_s_over_http": len(order) / apply_s if apply_s else None,
@@ -4469,8 +4524,608 @@ def threaded_cluster(scale=1.0, device="cuda", dtype="float32", period=0.5,
     return counts
 
 
+# -- phase 17: the daemon, a takeover, and the process split -----------------
+
+
+class NamespacedWriter:
+    """The bench generators' cache surface writing a config's PodGroups and
+    pods into ``store`` under namespace ``ns``; its nodes and queues are
+    already there."""
+
+    def __init__(self, store, ns):
+        def put(obj):
+            obj.metadata.namespace = ns
+            store.create(obj)
+
+        self.add_pod_group = self.add_pod = put
+        self.add_node = self.add_queue = lambda obj: None
+
+
+def daemon_takeover_phase(scale=1.0, device="cuda", dtype="float32"):
+    """17(c): a takeover inside one process, on the card. Two
+    FailoverScheduler members (a 1 s lease) over one Store holding cfg2 at
+    ``scale``, under the daemon's conf; the leader solves it (its session
+    captures the bucket's graph), then pauses its loop still holding the
+    lease; its pods and PodGroups are deleted and the same ones written
+    again under another namespace, which the standby's cache follows; the
+    leader releases the lease. The standby's first session solves the same
+    bucket: it captures no graph (the cache of graphs is process-wide) and
+    its snapshot keeper pays no wholesale rebuild. Pods left unbound (cfg2's
+    GPU load can strand a 2-GPU pod) are held to ``serial_witness``."""
+    from volcano_tpu_torch.ops import rounds_graph
+    from volcano_tpu_torch.scheduler.cache import SchedulerCache
+    from volcano_tpu_torch.scheduler.ha import FailoverScheduler
+    from volcano_tpu_torch.scheduler.scheduler import Scheduler
+    from volcano_tpu_torch.store import Store
+
+    t_phase = time.perf_counter()
+    store = Store()
+    pinned_populate(2, StoreWriter(store), scale)
+    conf = daemon_conf(device, dtype)
+    seen, restore = probe_profiles()
+    members = {}
+
+    def member(name):
+        cache = SchedulerCache(store=store, scheduler_name="volcano")
+        members[name] = FailoverScheduler(
+            Scheduler(cache, conf, schedule_period=0.2), store, identity=name,
+            lease_duration=1.0, renew_deadline=0.6, retry_period=0.2,
+            follow_period=0.2).start()
+        return members[name]
+
+    def wait(pred, what, timeout=120.0):
+        deadline = time.time() + timeout
+        while not pred():
+            if time.time() > deadline:
+                raise AssertionError(f"daemon (c): {what} within {timeout} s")
+            time.sleep(0.05)
+
+    def solved(since=0):
+        """The rounds sessions that placed, from the ``since``-th on."""
+        return [p for p in seen[since:] if p.get("mode") == "rounds" and p.get("placed")]
+
+    def bound(ns):
+        return sum(1 for p in store.list("Pod", namespace=ns) if p.spec.node_name)
+
+    try:
+        a = member("sched-a")
+        wait(a.is_leader, "sched-a never led")
+        b = member("sched-b")
+        wait(solved, "sched-a never solved cfg2")
+        placed = solved()[0]["placed"]
+        wait(lambda: bound("bench") >= placed, "sched-a's binds never landed")
+        a.scheduler.stop(stop_cache=False)  # the lease stays with sched-a
+        caps, since = rounds_graph.STATS["captures"], len(seen)
+        for kind in ("Pod", "PodGroup"):
+            for obj in store.list(kind, namespace="bench"):
+                store.delete(kind, "bench", obj.metadata.name)
+        pinned_populate(2, NamespacedWriter(store, "bench2"), scale)
+        keeper = b.scheduler.cache.snap_keeper
+        follows = b.standby.stats["follows"]
+        wait(lambda: b.standby.stats["follows"] >= follows + 2, "sched-b never followed")
+        rebuilds = keeper.stats["rebuilds"]
+        t_release = time.perf_counter()
+        a.stop()
+        wait(b.is_leader, "sched-b never took the lease", timeout=30.0)
+        t_lead = time.perf_counter()
+        wait(lambda: solved(since), "sched-b never solved")
+        t_solved = time.perf_counter()
+        prof = solved(since)[0]
+        captures = rounds_graph.STATS["captures"] - caps
+        wait(lambda: bound("bench2") >= prof["placed"], "sched-b's binds never landed")
+    finally:
+        for m in members.values():
+            m.stop()
+        restore()
+    # as in phase 16, cfg2's GPU load can leave a 2-GPU pod no node with
+    # room: pods left unbound must be unplaceable
+    n_pods = len(store.list("Pod", namespace="bench2"))
+    placeable = serial_witness(store) if bound("bench2") < n_pods else {}
+    out = {"pods": n_pods, "leader_placed": placed, "standby_placed": prof["placed"],
+           "standby_bound": bound("bench2"), "serial_witness_binds": len(placeable),
+           "captures_in_takeover": captures,
+           "standby_rebuilds_in_takeover": keeper.stats["rebuilds"] - rebuilds,
+           "release_to_lead_s": t_lead - t_release, "lead_to_solved_s": t_solved - t_lead,
+           "seconds": time.perf_counter() - t_phase, "card": CARD}
+    print(json.dumps({"daemon_takeover": out}), flush=True)
+    if captures or out["standby_rebuilds_in_takeover"]:
+        raise AssertionError(f"daemon (c): the takeover captured or rebuilt: {out}")
+    if placeable:
+        raise AssertionError(f"daemon (c): {n_pods - bound('bench2')} pods left unbound, "
+                             f"of which the serial loop binds {len(placeable)}")
+    return out
+
+
+def daemon_conf(device="cuda", dtype="float32"):
+    """The scheduler conf the daemon phase's schedulers read: cfg2's
+    actions and tiers with the batch solve in rounds mode on ``device``,
+    so every allocate session with work solves there (auto mode would take
+    the host's serial loop below AUTO_ROUNDS_THRESHOLD pending tasks)."""
+    return loop_conf("rounds", device, dtype)
+
+
+# the daemon run as ``python -m volcano_tpu_torch.scheduler`` runs it
+# (runpy), with each session that placed or launched printed to standard
+# output as one "SESSION {...}" line: the solver profile's mode, fallback,
+# placed and window, and the kernel launches the session made
+DAEMON_PROBE = """
+import json, runpy, sys
+from volcano_tpu_torch import device as devmod
+from volcano_tpu_torch.ops import solver
+from volcano_tpu_torch.scheduler import scheduler
+solve, cycle, last = solver.BatchAllocator.__call__, scheduler.Scheduler.run_once, {}
+def traced_solve(self, ssn):
+    ok = solve(self, ssn)
+    last.update({k: self.profile.get(k) for k in ("mode", "fallback", "placed", "window_k")})
+    return ok
+def traced_cycle(self, *args, **kwargs):
+    last.clear()
+    devmod.reset_launches()
+    out = cycle(self, *args, **kwargs)
+    launched = {k: v for k, v in devmod.launches().items() if v}
+    if last.get("placed") or launched:
+        print("SESSION " + json.dumps(dict(last, launches=launched)), flush=True)
+    return out
+solver.BatchAllocator.__call__ = traced_solve
+scheduler.Scheduler.run_once = traced_cycle
+runpy.run_module("volcano_tpu_torch.scheduler", run_name="__main__", alter_sys=True)
+"""
+
+
+def job_manifest(job):
+    """A cfg2 Job (``cfg2_cluster``) as the manifest ``vcctl job run -f``
+    reads (cli/job.py)."""
+    spec = job.spec
+    lines = ["apiVersion: batch.volcano.sh/v1alpha1", "kind: Job", "metadata:",
+             f"  name: {job.metadata.name}", f"  namespace: {job.metadata.namespace}",
+             "spec:", f"  minAvailable: {spec.min_available}",
+             f"  schedulerName: {spec.scheduler_name}", f"  queue: {spec.queue}",
+             f"  ttlSecondsAfterFinished: {spec.ttl_seconds_after_finished}",
+             "  tasks:"]
+    for t in spec.tasks:
+        lines += [f"    - name: {t.name}", f"      replicas: {t.replicas}",
+                  "      template:", "        spec:", "          containers:"]
+        for c in t.template.spec.containers:
+            lines += [f"            - name: {c.name}", f"              image: {c.image}",
+                      "              resources:", "                requests:"]
+            lines += [f'                  {k}: "{v}"' for k, v in c.requests.items()]
+    return "\n".join(lines) + "\n"
+
+
+class Daemon:
+    """``python -m volcano_tpu_torch.scheduler ARGS`` from the repository
+    root (with ``probe``, the same module run under DAEMON_PROBE), its log
+    (standard error) in a file; its standard output piped (``pipe``) or in
+    another file."""
+
+    def __init__(self, name, args, logdir, pipe=False, probe=False):
+        import os
+
+        self.name = name
+        self.log_path = os.path.join(logdir, f"{name}.log")
+        self.out_path = os.path.join(logdir, f"{name}.out")
+        self._log = open(self.log_path, "w")
+        self._out = None if pipe else open(self.out_path, "w")
+        head = ["-c", DAEMON_PROBE] if probe else ["-m", "volcano_tpu_torch.scheduler"]
+        self.proc = subprocess.Popen(
+            [sys.executable, *head, *args],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            stdout=subprocess.PIPE if pipe else self._out, stderr=self._log, text=True)
+
+    def log(self):
+        with open(self.log_path) as f:
+            return f.read()
+
+    def sessions(self):
+        """The SESSION lines DAEMON_PROBE printed, in order."""
+        with open(self.out_path) as f:
+            return [json.loads(line[8:]) for line in f if line.startswith("SESSION ")]
+
+    def find(self, pattern, timeout=60.0):
+        """The first match of ``pattern`` in the log, waiting for it."""
+        import re
+
+        deadline = time.time() + timeout
+        while time.time() < deadline:
+            m = re.search(pattern, self.log())
+            if m:
+                return m
+            if self.proc.poll() is not None:
+                break
+            time.sleep(0.1)
+        raise AssertionError(f"daemon {self.name}: no {pattern!r} in its log "
+                             f"(rc {self.proc.poll()}):\n{self.log()[-3000:]}")
+
+    def alive(self):
+        return self.proc.poll() is None
+
+    def stop(self):
+        if self.alive():
+            self.proc.kill()
+        try:
+            self.proc.wait(timeout=15)
+        except subprocess.TimeoutExpired:
+            pass
+        self._log.close()
+        if self._out is not None:
+            self._out.close()
+
+
+POLL_S = 1.0  # a list of cfg2's pods costs the API server's process its own work
+CONTEXT_MIB = 256  # less than a CUDA context and a solve's tensors take
+
+
+def card_memory():
+    """The card's used memory (MiB) and its compute apps as nvidia-smi
+    reads them."""
+    def smi(*query):
+        return subprocess.run(["nvidia-smi", *query, "--format=csv,noheader,nounits"],
+                              check=True, capture_output=True, text=True).stdout.strip()
+
+    apps = [line for line in smi("--query-compute-apps=pid,used_memory").splitlines()
+            if line.strip()]
+    return {"used_mib": int(smi("--query-gpu=memory.used").splitlines()[0]),
+            "apps": len(apps), "app_lines": apps}
+
+
+def scrape(port):
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=10) as r:
+        return r.read().decode()
+
+
+def clean_metrics(text, what):
+    """A scheduler's /metrics: no degraded rung at 1. Returns its envelope
+    misses (``volcano_device_fallbacks_total`` by kind: a session or action
+    the batched path does not take, such as cfg2's backfill with its
+    scalar GPU dimension; device errors are not among them, they raise)."""
+    bad = [line for line in text.splitlines()
+           if line.startswith("volcano_degraded_mode") and float(line.rsplit(" ", 1)[1]) != 0]
+    if bad:
+        raise AssertionError(f"daemon (b): {what}'s /metrics shows {bad}")
+    return {line.split('"')[1]: float(line.rsplit(" ", 1)[1]) for line in text.splitlines()
+            if line.startswith("volcano_device_fallbacks_total{")}
+
+
+def solved_on_the_card(sessions, what, card=True):
+    """The sessions of a scheduler process that placed pods: each solved in
+    rounds mode with no fallback and, on the ``card``, launched kernels;
+    together they launched every rounds kernel (K2 where a solve used a
+    candidate window). Returns (sessions, pods placed, launches summed)."""
+    placed = [x for x in sessions if x.get("placed")]
+    if not placed:
+        raise AssertionError(f"daemon (b): {what} placed no pod in a rounds solve: {sessions[-5:]}")
+    launches = {}
+    for x in placed:
+        if x.get("mode") != "rounds" or x.get("fallback") or (card and not x["launches"]):
+            raise AssertionError(f"daemon (b): {what}'s session did not solve on the card: {x}")
+        for k, v in x["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    window = any(x.get("window_k") for x in placed)
+    idle = [k for k in ALLOC_KERNELS if card and not launches.get(k)
+            and (k != "window_topk" or window)]
+    if idle:
+        raise AssertionError(f"daemon (b): {what}'s rounds kernels never launched: {idle}")
+    return len(placed), sum(x["placed"] for x in placed), launches
+
+
+def metric(text, name):
+    return sum(float(line.rsplit(" ", 1)[1]) for line in text.splitlines()
+               if line.startswith(name) and not line.startswith("#"))
+
+
+def daemon_split_phase(scale=1.0, device="cuda", dtype="float32", kill_at=1000,
+                       deadline_s=420.0, still_s=15.0):
+    """17(b): cfg2 at ``scale`` through the port's binaries: an
+    ``--api-server-only`` process, two leader-elected ``--server``
+    schedulers under cfg2's conf with the batch solve in rounds mode on
+    ``device`` (each printing its sessions, DAEMON_PROBE), Jobs submitted
+    with ``cli.job.run_job`` over a RemoteStore in two waves; the leader
+    killed (SIGKILL) once every Job of the first wave has its pods and
+    ``kill_at`` pods are bound, the second wave submitted once the standby
+    holds the lease, the standby binding the rest. Every process is killed
+    in a ``finally``."""
+    import os
+    import re
+    import select
+    import tempfile
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    from volcano_tpu_torch.api import objects
+    from volcano_tpu_torch.cli import job as job_cli
+    from volcano_tpu_torch.scheduler.leaderelection import (
+        DEFAULT_LEASE_DURATION, ResourceLock)
+    from volcano_tpu_torch.store.remote import RemoteStore
+
+    t_phase = time.perf_counter()
+    nodes, jobs = cfg2_cluster(scale)
+    n_pods = sum(len(j.spec.tasks) for j in jobs)
+    kill_at = min(kill_at, n_pods // 5)
+    logdir = tempfile.mkdtemp(prefix="chip_smoke_daemon_")
+    conf_path = os.path.join(logdir, "scheduler.conf")
+    with open(conf_path, "w") as f:
+        f.write(daemon_conf(device, dtype))
+    out = {"pods": n_pods, "nodes": len(nodes), "jobs": len(jobs)}
+    daemons = {}
+    try:
+        api = daemons["api"] = Daemon("api", [
+            "--api-server-only", "--api-address", "127.0.0.1:0",
+            "--listen-address", "127.0.0.1:0", "--healthz-address", "127.0.0.1:0"],
+            logdir, pipe=True)
+        deadline, port = time.time() + 60, None
+        while port is None and time.time() < deadline:
+            if not select.select([api.proc.stdout], [], [], 1.0)[0]:
+                continue
+            line = api.proc.stdout.readline()
+            if not line:
+                break
+            if line.startswith("api gateway on :"):
+                port = int(line.rsplit(":", 1)[1])
+        if port is None:
+            raise AssertionError(f"daemon (b): no api gateway line:\n{api.log()[-3000:]}")
+        api_metrics = int(api.find(r"metrics on :(\d+)/metrics").group(1))
+        server = f"127.0.0.1:{port}"
+        remote = RemoteStore(server)
+
+        t0 = time.perf_counter()
+        for node in nodes:
+            remote.create(node)
+        if remote.try_get("Queue", "", "default") is None:
+            remote.create(objects.Queue(metadata=objects.ObjectMeta(name="default")))
+        out["node_writes_per_s"] = len(nodes) / (time.perf_counter() - t0)
+
+        for name in ("sched-a", "sched-b"):
+            daemons[name] = Daemon(name, [
+                "--server", server, "--leader-elect", "--leader-elect-identity", name,
+                "--scheduler-conf", conf_path, "--schedule-period", "0.5",
+                "--listen-address", "127.0.0.1:0", "--healthz-address", "127.0.0.1:0"],
+                logdir, probe=True)
+        mports = {n: int(daemons[n].find(r"metrics on :(\d+)/metrics").group(1))
+                  for n in ("sched-a", "sched-b")}
+        lock = ResourceLock(remote, "volcano-system", "volcano", "chip-smoke")
+
+        def holder():
+            got = lock.get()
+            return got[0] if got and got[0] else None
+
+        def leading():
+            """The live schedulers that logged a takeover."""
+            return [n for n in ("sched-a", "sched-b") if daemons[n].alive()
+                    and "takeover complete" in daemons[n].log()]
+
+        scrapes = [0]
+
+        def one_holder():
+            rec, lead = holder(), leading()
+            scrapes[0] += 1
+            if len(lead) > 1 or (rec and lead and rec.holder_identity not in lead):
+                raise AssertionError(f"daemon (b): lock held by "
+                                     f"{rec and rec.holder_identity}, leading {lead}")
+            return rec
+
+        deadline = time.time() + 90
+        while not (one_holder() and leading()):
+            if time.time() > deadline:
+                raise AssertionError("daemon (b): no scheduler took the lease")
+            time.sleep(0.25)
+        first = one_holder()
+        leader, standby = first.holder_identity, \
+            "sched-b" if first.holder_identity == "sched-a" else "sched-a"
+        epoch0 = int(daemons[leader].find(r"leading at epoch (\d+)").group(1))
+
+        # the leader has led an empty cluster: no solve yet, no context
+        smi = {"before": card_memory()} if device == "cuda" else {}
+        # two waves of Jobs, the second submitted once the standby holds
+        # the lease: the job controller drops a Job whose PodGroup stays
+        # Pending past its retry budget (about 41 s) and never retries it
+        # (a reference fault, ROADMAP Queue 3), so no Job may wait for
+        # admission across the takeover; the kill waits for every pod of
+        # the first wave (made only once its PodGroup is admitted)
+        waves = (jobs[:len(jobs) // 2], jobs[len(jobs) // 2:])
+        n_first = sum(len(j.spec.tasks) for j in waves[0])
+        kill_at = min(kill_at, n_first // 2)
+        out["pods_per_wave"] = [n_first, n_pods - n_first]
+        t_submit = time.perf_counter()
+        for job in waves[0]:
+            job_cli.run_job(remote, job_manifest(job))
+        out["job_submits_per_s"] = len(waves[0]) / (time.perf_counter() - t_submit)
+
+        def pods_now():
+            return remote.list("Pod", namespace="bench")
+
+        bound, pods = 0, []
+        deadline = time.time() + deadline_s
+        while bound < kill_at or len(pods) < n_first:
+            one_holder()
+            if not daemons[leader].alive():
+                raise AssertionError(f"daemon (b): the leader died:\n"
+                                     f"{daemons[leader].log()[-3000:]}")
+            pods = pods_now()
+            bound = sum(1 for p in pods if p.spec.node_name)
+            if bound and "binding" not in smi and device == "cuda":
+                smi["binding"] = card_memory()
+            if time.time() > deadline:
+                raise AssertionError(f"daemon (b): after {deadline_s} s {bound} pods bound, "
+                                     f"{len(pods)} of {n_first} made, "
+                                     f"{api.log().count('dropping request after')} "
+                                     f"Job requests dropped")
+            time.sleep(POLL_S)
+        leader_metrics = scrape(mports[leader])
+        os.kill(daemons[leader].proc.pid, signal.SIGKILL)
+        t_kill = time.perf_counter()
+        daemons[leader].proc.wait(timeout=15)
+        time.sleep(1.0)  # the killed leader's last requests land or fail
+        if device == "cuda":
+            smi["after_kill"] = card_memory()
+        at_kill = pods_now()
+        before_kill = {p.metadata.name: p.spec.node_name for p in at_kill}
+        b_kill = sum(1 for v in before_kill.values() if v)
+        # the gangs the killed leader left short of min_available: the
+        # standby's first session reverts them (takeover recovery) and the
+        # job controller recreates their pods under the same names
+        short = {}
+        for p in at_kill:
+            if p.spec.node_name:
+                job = p.metadata.annotations[objects.JOB_NAME_KEY]
+                short[job] = short.get(job, 0) + 1
+        min_of = {j.metadata.name: j.spec.min_available for j in jobs}
+        short = {j for j, n in short.items() if n < min_of[j]}
+        t_first = t_takeover = t_second = None
+        last = (b_kill, len(at_kill), time.perf_counter())
+        while True:
+            rec = one_holder()
+            now = time.perf_counter()
+            if t_takeover is None and rec and rec.holder_identity == standby:
+                t_takeover = now
+                for job in waves[1]:
+                    job_cli.run_job(remote, job_manifest(job))
+                t_second = time.perf_counter()
+                continue
+            pods = pods_now()
+            bound = sum(1 for p in pods if p.spec.node_name)
+            running = sum(p.status.phase == objects.POD_PHASE_RUNNING for p in pods)
+            if t_first is None and bound > b_kill:
+                t_first = now
+                if device == "cuda":
+                    smi["standby"] = card_memory()
+            if (bound, len(pods)) != last[:2]:
+                last = (bound, len(pods), now)
+            # done: every pod bound and Running, or, once the standby has
+            # bound, nothing moved for still_s with every bound pod Running
+            if t_second and running == bound and (
+                    bound == n_pods or (t_first and now - last[2] > still_s)):
+                break
+            if not daemons[standby].alive() or time.time() > deadline:
+                raise AssertionError(
+                    f"daemon (b): {bound} of {n_pods} bound, {running} Running, standby "
+                    f"alive {daemons[standby].alive()}:\n{daemons[standby].log()[-3000:]}")
+            time.sleep(POLL_S)
+        t_running = time.perf_counter()
+        out.update({"submit_to_running_s": t_running - t_submit, "leader": leader,
+                    "leader_binds_before_kill": b_kill,
+                    "kill_to_lease_s": t_takeover - t_kill if t_takeover else None,
+                    "second_wave_submit_s": t_second - t_takeover if t_second else None,
+                    "kill_to_first_standby_bind_s": t_first - t_kill if t_first else None,
+                    "bound": bound})
+        print(json.dumps({"daemon_split_running": out}), flush=True)
+        rec = one_holder()
+        epoch1 = int(re.findall(r"leading at epoch (\d+)", daemons[standby].log())[-1])
+        if rec.holder_identity != standby or rec.leader_transitions <= first.leader_transitions \
+                or epoch1 <= epoch0:
+            raise AssertionError(f"daemon (b): takeover {rec} epochs {epoch0} -> {epoch1}")
+        standby_metrics = scrape(mports[standby])
+        api_text = scrape(api_metrics)
+
+        # the end state: fit and gangs, one Scheduled event a bind, Running,
+        # each Job's phase following its gang, leftovers unplaceable
+        binds = cluster_fit(remote, "daemon (b)")
+        pods = pods_now()
+
+        # the gateway answers a pod's events by a scan of every event under
+        # the store's lock: a few clients with a long timeout, not a crowd
+        slow = RemoteStore(server, timeout=120.0)
+
+        def scheduled(pod):
+            return sum(e.reason == "Scheduled" for e in slow.events_for(pod))
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(4) as ex:
+            events = dict(zip([p.metadata.name for p in pods], ex.map(scheduled, pods)))
+        out["event_reads_s"] = time.perf_counter() - t0
+        job_of = {p.metadata.name: p.metadata.annotations[objects.JOB_NAME_KEY]
+                  for p in pods}
+        without_pods = len(jobs) - len(set(job_of.values()))
+        if without_pods or len(pods) != n_pods:
+            raise AssertionError(f"daemon (b): {without_pods} Jobs without pods, {len(pods)} "
+                                 f"of {n_pods} pods made")
+        # a name carries two Scheduled events only where the standby
+        # reverted a short gang and bound its recreated pod
+        twice = [n for n, k in events.items() if k > 2 or (k == 2 and job_of[n] not in short)]
+        rebound = [n for n, k in events.items() if k == 2]
+        standby_bound = [p.metadata.name for p in pods if p.spec.node_name and (
+            before_kill.get(p.metadata.name) != p.spec.node_name or job_of[p.metadata.name]
+            in short)]
+        unrecorded = [n for n in standby_bound if not events[n]]
+        lost = [p.metadata.name for p in pods if p.spec.node_name and not events[p.metadata.name]]
+        if twice or unrecorded:
+            raise AssertionError(f"daemon (b): Scheduled events: {len(twice)} pods bound "
+                                 f"more than once, {len(unrecorded)} standby binds without one")
+        if any(p.status.phase != objects.POD_PHASE_RUNNING for p in pods if p.spec.node_name):
+            raise AssertionError("daemon (b): a bound pod is not Running")
+        per_job = {}
+        for p in pods:
+            if p.spec.node_name:
+                job = p.metadata.annotations[objects.JOB_NAME_KEY]
+                per_job[job] = per_job.get(job, 0) + 1
+        for j in remote.list("Job", namespace="bench"):
+            want = objects.JobPhase.RUNNING if per_job.get(j.metadata.name, 0) \
+                >= j.spec.min_available else objects.JobPhase.PENDING
+            if j.status.state.phase != want:
+                raise AssertionError(f"daemon (b): Job {j.metadata.name} is "
+                                     f"{j.status.state.phase}, its gang says {want}")
+        placeable = serial_witness(remote) if len(binds) < n_pods else {}
+        if placeable:
+            raise AssertionError(f"daemon (b): {n_pods - len(binds)} pods left unbound, of "
+                                 f"which the serial loop binds {len(placeable)}")
+        envelope = {leader: clean_metrics(leader_metrics, leader),
+                    standby: clean_metrics(standby_metrics, standby)}
+        # each scheduler's bind sessions solved in rounds mode and launched
+        # the rounds kernels in its own process (the standby schedules only
+        # once it leads)
+        solves = {name: solved_on_the_card(daemons[name].sessions(), name, device == "cuda")
+                  for name in (leader, standby)}
+        # the card's processes carry another pid namespace's numbers here
+        # (nvidia-smi listed one app, as pid 1), so each scheduler is tied
+        # to the card by the card's memory too: up once the leader solves,
+        # down at its kill, up again once the standby solves
+        if device == "cuda" and not (
+                smi["binding"]["used_mib"] - smi["before"]["used_mib"] >= CONTEXT_MIB
+                and smi["binding"]["used_mib"] - smi["after_kill"]["used_mib"] >= CONTEXT_MIB
+                and smi["standby"]["used_mib"] - smi["after_kill"]["used_mib"] >= CONTEXT_MIB):
+            raise AssertionError(f"daemon (b): the card's memory does not show the "
+                                 f"schedulers: {smi}")
+        listed = subprocess.run(
+            [sys.executable, "-m", "volcano_tpu_torch.cli.vcctl", "--server", server,
+             "job", "list", "-n", "bench"], capture_output=True, text=True, timeout=120,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        rows = [line for line in listed.stdout.splitlines() if line.startswith("job-")]
+        if listed.returncode or len(rows) != len(jobs):
+            raise AssertionError(f"daemon (b): vcctl job list gave {len(rows)} Jobs "
+                                 f"(rc {listed.returncode}): {listed.stderr[-2000:]}")
+        journal = {}
+        for kind in ("Pod", "PodGroup", "Node", "Job"):
+            with urllib.request.urlopen(
+                    f"http://{server}/watch/{kind}?since=0&timeout=0", timeout=30) as r:
+                journal[kind] = {"trimmed": bool(json.loads(r.read()).get("reset"))}
+        out.update({
+            "lease_duration_s": DEFAULT_LEASE_DURATION,
+            "standby_binds": len(binds) - b_kill, "bound": len(binds),
+            "unbound": n_pods - len(binds), "serial_witness_binds": len(placeable),
+            "epochs": [epoch0, epoch1],
+            "lease_transitions": [first.leader_transitions, rec.leader_transitions],
+            "lock_scrapes": scrapes[0],
+            "fenced_writes_rejected": metric(api_text, "volcano_fenced_writes_rejected_total"),
+            "scheduled_events_lost_with_the_leader": len(lost),
+            "short_gangs_at_kill": len(short), "rebound_after_revert": len(rebound),
+            "jobs_without_pods": without_pods,
+            "sessions_pods_launches": solves, "envelope_misses": envelope,
+            "job_requests_dropped": api.log().count("dropping request after"),
+            "journal_trimmed_since_0": journal,
+            "card_memory": smi,
+            "vcctl_jobs_listed": len(rows), "card": CARD})
+    finally:
+        for d in daemons.values():
+            d.stop()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(json.dumps({"daemon_split": out}), flush=True)
+    log(f"daemon phase (b): {out['seconds']:.1f} s")
+    return out
+
+
 PHASE_GROUPS = ("allocate", "express", "parity", "pipeline", "loop", "bench", "store",
-                "cluster")
+                "cluster", "daemon")
 
 
 def main() -> int:
@@ -4481,6 +5136,9 @@ def main() -> int:
                     help="comma-separated phase groups to run (default: all): "
                          + ",".join(PHASE_GROUPS))
     args = ap.parse_args()
+    # a SIGTERM unwinds like an error: the phases' ``finally`` blocks stop
+    # the processes they started
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device is available")
         return 2
@@ -4571,6 +5229,10 @@ def main() -> int:
     if "cluster" in groups:
         launches["cluster"] = cluster_phase(args.scale)
         mark("cluster")
+    if "daemon" in groups:
+        daemon_takeover_phase(args.scale)
+        daemon_split_phase(args.scale)
+        mark("daemon")
     log(f"group walls (s): {walls}")
     # each kernel's launches on the path that runs it: K1-K5 on cfg5; the
     # per-action K9 on cfg4's and K10 on the reclaim path's per-action run;

@@ -570,12 +570,9 @@ def test_cfg2_jobs_through_the_cluster_match_the_reference(pinned):
     def scenario(P):
         O = P.objects
         cluster = P.cluster.Cluster(scheduler_conf=tpu_conf(P, "rounds"))
-        # the clock reads the store's write count: a rounds solve of the
-        # JAX package also notes its success on the degrade ladder, which
-        # reads the clock, and the port leaves that note out with the
-        # serial fallback it belongs to (ROADMAP Queue 1 item 5); a clock
-        # that ticked on every read would count that read
-        P.clock.set_source(lambda: float(cluster.store.resource_version))
+        # the clock stays pinned's counter of reads: both packages read it
+        # at the same points, the degrade ladder's note of a rounds solve's
+        # success among them
         for data in node_data:
             cluster.store.create(decode(P, data))
         for data in job_data:
@@ -594,3 +591,36 @@ def test_cfg2_jobs_through_the_cluster_match_the_reference(pinned):
         return store, len(scheduled)
 
     assert twin(pinned, scenario, BOTH) == n_tasks
+
+
+def test_a_dropped_job_request_is_not_retried_when_its_podgroup_is_admitted(pinned):
+    """Reference fault (ROADMAP Queue 3, found by chip_smoke's phase 17(b),
+    the process split): the job controller syncs a Job whose PodGroup is still Pending
+    and the admission gate refuses its pods; after its retry budget
+    (``MAX_REQUEUE_NUM`` failed attempts) it drops the request. When the
+    scheduler's enqueue then admits the PodGroup, the controller's
+    PodGroup handler enqueues the Job only for the Unknown phase, so the
+    Job never gets its pods (upstream's ``updatePodGroup`` enqueues on any
+    phase change). Both packages hold the same: the request dropped, the
+    PodGroup Inqueue, no pod."""
+    def scenario(P):
+        O = P.objects
+        cluster = make_cluster(P)
+        submit(P, cluster, manifest())
+        jc = cluster.job_controller
+        budget = importlib.import_module(
+            f"{P.name}.controllers.job.controller").MAX_REQUEUE_NUM
+        for _ in range(budget + 2):
+            jc.process_all()
+        store = cluster.store
+        assert any(e.reason == "FailedRequest" for e in store.events)
+        pg = copy.deepcopy(store.get("PodGroup", "ns1", "job1"))
+        assert pg.status.phase == O.PodGroupPhase.PENDING
+        pg.status.phase = O.PodGroupPhase.INQUEUE
+        store.update_status(pg)
+        for _ in range(3):
+            jc.process_all()
+        assert store.list("Pod", namespace="ns1") == []
+        return store, len(store.list("Pod"))
+
+    assert twin(pinned, scenario, BOTH) == 0

@@ -48,6 +48,57 @@ def test_no_port_file_imports_jax_or_the_jax_package():
     assert not offenders, offenders
 
 
+def test_no_port_file_imports_yaml():
+    """The machine with the card has no PyYAML: the port reads YAML with
+    its own reader (volcano_tpu_torch/utils/yaml_subset.py)."""
+    offenders = []
+    for path in _port_files():
+        with open(path) as fh:
+            tree = ast.parse(fh.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            offenders += [f"{os.path.relpath(path, REPO)}: {n}"
+                          for n in names if n.split(".")[0] == "yaml"]
+    assert not offenders, offenders
+
+
+_ENTRY = r"""
+import runpy, sys
+sys.argv = [sys.argv[1]] + sys.argv[2:]
+try:
+    runpy.run_module(sys.argv[0], run_name="__main__", alter_sys=True)
+except SystemExit as e:
+    assert not e.code, e.code
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0].startswith("jax")
+             or m.split(".")[0] in ("volcano_tpu", "yaml"))
+print("LOADED", bad)
+"""
+
+
+@pytest.mark.parametrize("argv", [
+    ["volcano_tpu_torch.scheduler", "--scheduler-conf",
+     os.path.join(REPO, "tests", "cpu_tpuscore_conf.yaml"), "--run-for",
+     "0.3", "--listen-address", ":0", "--healthz-address", "127.0.0.1:0"],
+    ["volcano_tpu_torch.cli.vcctl", "version"],
+], ids=["daemon", "vcctl"])
+def test_entry_binaries_load_no_jax_and_no_yaml(argv):
+    """``python -m volcano_tpu_torch.scheduler --run-for 0.3`` (an
+    in-process cluster, its loop and its endpoints) and ``python -m
+    volcano_tpu_torch.cli.vcctl version`` load no jax module, nothing of
+    the JAX package and no PyYAML."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", _ENTRY, *argv], cwd=REPO,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "LOADED []" in out.stdout, out.stdout
+
+
 _SESSION = r"""
 import sys
 import torch

@@ -17,7 +17,7 @@ their nvcc runs took (utils/compilewatch.py reads it: a warm session
 builds nothing).
 
 Nothing here runs at import time; on a host without ``nvcc`` only a
-build attempt fails.
+build attempt fails. A failed build raises ``KernelBuildError``.
 """
 
 from __future__ import annotations
@@ -44,6 +44,12 @@ NVCC_FLAGS = [
 ]
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+
+
+class KernelBuildError(RuntimeError):
+    """nvcc is missing or refused a kernel source."""
+
+
 BUILDS = {"count": 0, "seconds": 0.0}
 
 
@@ -55,7 +61,7 @@ def nvcc_path() -> str:
                 return p
     p = shutil.which("nvcc")
     if p is None:
-        raise RuntimeError("nvcc not found: the CUDA kernels build only on "
+        raise KernelBuildError("nvcc not found: the CUDA kernels build only on "
                            "a host with the CUDA toolkit")
     return p
 
@@ -99,7 +105,7 @@ def _finish(name: str, job) -> None:
         text = fh.read()
     if rc != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed for {name}.cu (rc {rc}):\n{text}")
+        raise KernelBuildError(f"nvcc failed for {name}.cu (rc {rc}):\n{text}")
     os.replace(tmp, out)
 
 
@@ -111,10 +117,10 @@ def build_all(names=KERNELS) -> Dict[str, str]:
     for name, job in jobs.items():
         try:
             _finish(name, job)
-        except RuntimeError as e:
+        except KernelBuildError as e:
             errors.append(str(e))
     if errors:
-        raise RuntimeError("\n".join(errors))
+        raise KernelBuildError("\n".join(errors))
     return {name: _target(name) for name in names}
 
 

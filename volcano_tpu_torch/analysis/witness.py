@@ -6,7 +6,7 @@ device replica reads.
 by a keeper mark or a generation movement, or the serve raises
 ``WitnessViolation`` and heals by a rebuild. The lock witness, the
 guarded containers and ``check_session`` of the reference module are not
-ported yet (ROADMAP Queue 1 item 8).
+ported yet (ROADMAP Queue 1 item 6).
 """
 
 from __future__ import annotations

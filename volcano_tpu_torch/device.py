@@ -6,6 +6,11 @@ GPU raises instead of carrying on on the CPU. The CPU is used only when the
 caller names it (the tests do, and then every kernel wrapper takes its
 plain PyTorch version because its tensors lie on the CPU).
 
+The absence of the card raises ``DeviceUnavailable``; a kernel that does
+not build raises ``_build.KernelBuildError``; a failed launch, solve or
+fetch raises what it raised. None of them is turned into the serial host
+path (the reference's ``except Exception`` fallbacks are left out).
+
 float32 is the default on the card, float64 is accepted (it is the parity
 dtype the CPU tests use), and bf16/fp16 are refused: the memory epsilon is
 10 MiB on byte-valued quantities near 1e11, which needs more than 8 (or
@@ -91,13 +96,17 @@ def launches() -> Dict[str, int]:
     return dict(LAUNCHES)
 
 
+class DeviceUnavailable(RuntimeError):
+    """CUDA was asked for (or defaulted to) on a host without a usable GPU."""
+
+
 def resolve_device(device: Union[str, torch.device, None] = None) -> torch.device:
     """The device an entry point runs on: ``cuda`` unless the caller asks
     for ``cpu``. Raises when CUDA is asked for (or defaulted to) and no GPU
     is usable."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
+        raise DeviceUnavailable(
             "volcano_tpu_torch: no CUDA device is available; pass "
             "device='cpu' (tpuscore.device: cpu) to run on the host")
     if dev.type not in ("cuda", "cpu"):

@@ -28,8 +28,13 @@ state either way). A rounds prepare also keeps its padded host arrays
 (``prep["arrays"]``), which the bench's per-device stage probes read
 (ops/shard.py).
 
+A solve that returns notes its success on the degrade ladder
+(``degrade.note_kernel_ok``), as the reference's does.
+
 Left out here: the mesh (its per-shard staging), and the serial fallback
-on a solve error — in the port a build, launch or solve failure raises.
+on a solve error (with the breaker's ``force_serial`` gate in
+``_prepare``) — in the port a build, launch or solve failure raises: a
+device error never moves the work to the host.
 """
 
 from __future__ import annotations
@@ -429,6 +434,7 @@ class BatchAllocator:
                                           prep.get("bound"))
 
     def __call__(self, ssn) -> bool:
+        from volcano_tpu_torch.scheduler import degrade
         from volcano_tpu_torch.utils import devprof
 
         with devprof.session(self.profile):
@@ -443,12 +449,14 @@ class BatchAllocator:
             self.profile["h2d_s"] = prep["h2d_s"]
             self.profile["dispatch_s"] = time.perf_counter() - tp
             assign, meta = self.parse_packed(out)
+            degrade.note_kernel_ok()
             return self.apply_packed(ssn, prep, assign, meta)
 
     def _solve_parity(self, ssn, prep: dict) -> bool:
         """K15 over the staged encode, one fetch of (assign, rr), the
         cursor carried on, and the statement replay."""
         from volcano_tpu_torch.ops import parity_kernels
+        from volcano_tpu_torch.scheduler import degrade
         from volcano_tpu_torch.scheduler.util import scheduler_helper
         from volcano_tpu_torch.utils import devprof
 
@@ -459,6 +467,7 @@ class BatchAllocator:
         # the round-robin index continues across sessions exactly like the
         # serial helper's (scheduler_helper.go:38)
         scheduler_helper._last_processed_node_index = int(out[-1])
+        degrade.note_kernel_ok()
         t2 = time.perf_counter()
         self.profile["mode"] = "parity"
         self._apply(ssn, enc, assign)

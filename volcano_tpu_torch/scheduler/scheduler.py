@@ -19,9 +19,10 @@ Trims from the reference, each deliberate:
 - ``mesh=``: the port runs on one device;
 - the ``except Exception`` around building the express lane and the
   pipeline driver: in the port a failure there raises;
-- PyYAML: the conf is read by ``parse_yaml``, a reader of the block-style
-  subset the scheduler conf uses (mappings, sequences, plain and quoted
-  scalars, comments); flow collections are refused.
+- PyYAML: the conf is read by ``parse_yaml`` (utils/yaml_subset.py), a
+  reader of the block-style subset the scheduler conf uses (mappings,
+  sequences, plain and quoted scalars, comments, ``[]`` and ``{}``);
+  non-empty flow collections are refused.
 
 ``_loop`` keeps the reference's log-and-continue per cycle ("scheduling
 cycle failed", "express run failed"): that is the daemon's behaviour.
@@ -29,9 +30,7 @@ cycle failed", "express run failed"): that is the daemon's behaviour.
 
 from __future__ import annotations
 
-import json
 import logging
-import re
 import threading
 import time
 from typing import List, Optional, Tuple
@@ -45,6 +44,7 @@ from volcano_tpu_torch.scheduler.framework import (
     open_session,
     run_actions,
 )
+from volcano_tpu_torch.utils.yaml_subset import parse_yaml
 
 logger = logging.getLogger(__name__)
 
@@ -89,134 +89,6 @@ _FLAG_KEYS = {
     "enablePredicate": "enabled_predicate",
     "enableNodeOrder": "enabled_node_order",
 }
-
-
-# -- the conf reader ----------------------------------------------------------
-
-_BOOLS = {"true": True, "yes": True, "on": True,
-          "false": False, "no": False, "off": False}
-_INT = re.compile(r"^[-+]?(0|[1-9][0-9]*)$")
-_FLOAT = re.compile(r"^[-+]?(\.[0-9]+|[0-9]+(\.[0-9]*)?)([eE][-+]?[0-9]+)?$")
-
-
-def _strip_comment(text: str) -> str:
-    """``text`` without a trailing `` #`` comment outside quotes."""
-    quote = None
-    for i, ch in enumerate(text):
-        if quote:
-            if ch == quote:
-                quote = None
-        elif ch in "'\"":
-            quote = ch
-        elif ch == "#" and (i == 0 or text[i - 1] in " \t"):
-            return text[:i].rstrip()
-    return text.rstrip()
-
-
-def _scalar(text: str):
-    """A YAML scalar as PyYAML's safe loader types it: quoted strings,
-    booleans (true/yes/on, false/no/off), null, ints, floats, else str."""
-    text = text.strip()
-    if len(text) >= 2 and text[0] == text[-1] == '"':
-        return json.loads(text)
-    if len(text) >= 2 and text[0] == text[-1] == "'":
-        return text[1:-1].replace("''", "'")
-    if text[:1] in ("{", "[", "&", "*", "!", "|", ">"):
-        raise ValueError(f"unsupported YAML construct: {text!r}")
-    low = text.lower()
-    if low in _BOOLS:
-        return _BOOLS[low]
-    if low in ("", "~", "null"):
-        return None
-    if _INT.match(text):
-        return int(text)
-    if _FLOAT.match(text):
-        return float(text)
-    return text
-
-
-def _key_value(text: str):
-    """Split ``key: value`` at the first colon outside quotes that ends
-    the line or is followed by a space; None when there is none."""
-    quote = None
-    for i, ch in enumerate(text):
-        if quote:
-            if ch == quote:
-                quote = None
-        elif ch in "'\"":
-            quote = ch
-        elif ch == ":" and (i + 1 == len(text) or text[i + 1] in " \t"):
-            return _scalar(text[:i]), text[i + 1:].strip()
-    return None
-
-
-def parse_yaml(text: str):
-    """Read the block-style YAML subset of the scheduler conf: nested
-    mappings and ``- `` sequences (a sequence may sit at its key's
-    indentation), plain and quoted scalars, ``#`` comments. Returns the
-    same Python value as ``yaml.safe_load`` for such documents; raises
-    ValueError on anything else."""
-    lines = []
-    for raw in text.splitlines():
-        if "\t" in raw[: len(raw) - len(raw.lstrip())]:
-            raise ValueError("tabs in YAML indentation")
-        body = _strip_comment(raw)
-        if body.strip() and body.strip() != "---":
-            lines.append([len(body) - len(body.lstrip(" ")), body.strip()])
-
-    def block(i, indent):
-        if lines[i][1] == "-" or lines[i][1].startswith("- "):
-            return seq(i, indent)
-        if _key_value(lines[i][1]) is None:
-            if i + 1 < len(lines) and lines[i + 1][0] > indent:
-                raise ValueError(f"unsupported YAML line: {lines[i][1]!r}")
-            return _scalar(lines[i][1]), i + 1
-        return mapping(i, indent)
-
-    def child(i, indent, parent_is_key):
-        # the value block after a "key:" or a bare "-" at line i - 1
-        if i < len(lines) and lines[i][0] > indent:
-            return block(i, lines[i][0])
-        if (parent_is_key and i < len(lines) and lines[i][0] == indent
-                and (lines[i][1] == "-" or lines[i][1].startswith("- "))):
-            return seq(i, indent)
-        return None, i
-
-    def seq(i, indent):
-        out = []
-        while i < len(lines) and lines[i][0] == indent and (
-                lines[i][1] == "-" or lines[i][1].startswith("- ")):
-            rest = lines[i][1][1:].lstrip(" ")
-            if not rest:
-                value, i = child(i + 1, indent, False)
-            elif _key_value(rest) is not None:
-                # a compact mapping: its first key sits after the dash
-                lines[i] = [indent + len(lines[i][1]) - len(rest), rest]
-                value, i = mapping(i, lines[i][0])
-            else:
-                value, i = _scalar(rest), i + 1
-            out.append(value)
-        return out, i
-
-    def mapping(i, indent):
-        out = {}
-        while i < len(lines) and lines[i][0] == indent:
-            kv = _key_value(lines[i][1])
-            if kv is None:
-                raise ValueError(f"expected 'key: value', got {lines[i][1]!r}")
-            key, rest = kv
-            if rest:
-                out[key], i = _scalar(rest), i + 1
-            else:
-                out[key], i = child(i + 1, indent, True)
-        return out, i
-
-    if not lines:
-        return None
-    value, i = block(0, lines[0][0])
-    if i != len(lines):
-        raise ValueError(f"unexpected YAML indentation at {lines[i][1]!r}")
-    return value
 
 
 # -- the conf -----------------------------------------------------------------
